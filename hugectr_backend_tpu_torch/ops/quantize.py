@@ -1,0 +1,84 @@
+"""Row-wise quantization for embedding tables (INT8, INT4 and FP8-e4m3).
+
+Symmetric per-row absmax, as in the JAX package (its ops/quantize.py):
+
+    scale[r]  = max(|row_r|) / Q          (Q = 127 int8, 7 int4, 448 fp8 e4m3)
+    q[r, :]   = round(row_r / scale[r])
+    row_r     ~= q[r, :] * scale[r]
+
+These are the numpy paths, which the JAX package declares bit-identical to
+its native quantizer. The fp8 cast goes through ``torch.float8_e4m3fn``
+(round to nearest even, like ``ml_dtypes``), so fp8 rows come back as a CPU
+``torch.Tensor``: numpy has no 8-bit float type.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+INT8_QMAX = 127.0
+INT4_QMAX = 7.0
+FP8_E4M3_MAX = 448.0
+
+
+def _row_scales(vectors: np.ndarray, qmax: float) -> np.ndarray:
+    absmax = np.abs(vectors).max(axis=1)
+    # Avoid zero scales for all-zero rows; any finite scale dequantizes 0 -> 0.
+    absmax = np.where(absmax == 0.0, 1.0, absmax)
+    return (absmax / qmax).astype(np.float32)
+
+
+def quantize_rows_int8(vectors: np.ndarray, order: np.ndarray | None = None):
+    """-> (q int8 [rows, dim], scales float32 [rows]).
+
+    ``order`` (optional): output row i quantizes source row ``order[i]``."""
+    vectors = np.asarray(vectors, dtype=np.float32)
+    if order is not None:
+        vectors = vectors[order]
+    scales = _row_scales(vectors, INT8_QMAX)
+    q = np.rint(vectors / scales[:, None])
+    q = np.clip(q, -127, 127).astype(np.int8)
+    return q, scales
+
+
+def quantize_rows_fp8(vectors: np.ndarray):
+    """-> (q CPU tensor float8_e4m3fn [rows, dim], scales float32 [rows])."""
+    vectors = np.asarray(vectors, dtype=np.float32)
+    scales = _row_scales(vectors, FP8_E4M3_MAX)
+    scaled = vectors / scales[:, None]
+    return torch.from_numpy(np.ascontiguousarray(scaled)).to(torch.float8_e4m3fn), scales
+
+
+def quantize_rows_int4(vectors: np.ndarray, order: np.ndarray | None = None):
+    """Symmetric INT4 row quantization, nibble-packed.
+
+    -> (packed uint8 [rows, dim//2], scales float32 [rows]); even columns in
+    the LOW nibble, odd in the HIGH. Requires an even dim.
+    """
+    vectors = np.asarray(vectors, dtype=np.float32)
+    if vectors.shape[1] % 2:
+        raise ValueError("int4 quantization requires an even embedding dim")
+    if order is not None:
+        vectors = vectors[order]
+    scales = _row_scales(vectors, INT4_QMAX)
+    q = np.clip(np.rint(vectors / scales[:, None]), -7, 7).astype(np.int8)
+    return pack_int4(q), scales
+
+
+def pack_int4(q: np.ndarray) -> np.ndarray:
+    """int8 values in [-8, 7], even dim -> packed uint8 [rows, dim//2]."""
+    u = (q.astype(np.int16) & 0xF).astype(np.uint8)
+    return (u[:, 0::2] | (u[:, 1::2] << 4)).astype(np.uint8)
+
+
+def unpack_int4(p: np.ndarray) -> np.ndarray:
+    """packed uint8 [rows, dim//2] -> int8 [rows, dim] (sign-extended)."""
+    lo = (p & 0xF).astype(np.int8)
+    hi = (p >> 4).astype(np.int8)
+    lo = np.where(lo >= 8, lo - 16, lo).astype(np.int8)
+    hi = np.where(hi >= 8, hi - 16, hi).astype(np.int8)
+    out = np.empty((p.shape[0], p.shape[1] * 2), np.int8)
+    out[:, 0::2] = lo
+    out[:, 1::2] = hi
+    return out
