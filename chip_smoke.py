@@ -23,10 +23,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    one-hot group folded into the interaction (K1 + K3) and with
    ``HPS_OH_IN_KERNEL=0`` (K1 + K2). The launch counts of the run must show
    every kernel.
-4. Each kernel timed at the shapes the main path gave it, beside its plain
+4. K5 (the w8a8 dense layer) against its plain version on edge cases:
+   every activation, with and without a bias, at (M, K, N) = (7, 13, 512),
+   (4096, 479, 1024), (4096, 256, 1), (100, 1024, 300), and past K = 1024
+   (33, 1664, 200), (64, 1663, 96), and with weight rows padded to 16 bytes
+   (junk in the padding), rows of zeros and rows that quantize on
+   half-integers among them: bit-exact for act None and relu, within rtol
+   1e-6 and atol 1e-6 for sigmoid, tanh and gelu.
+5. The quantized-dense main path on the same deployment: ``DLRM(quant_fmt=
+   "w8a8")`` with the f32 weights of phase 3 put through
+   ``quantize_model_params``, served by ``make_dlrm_multi_server`` at batch
+   4096 with the fold and without. Its launch counts must show K5 at 8 per
+   predict (K1 and K3/K2 as before); logits finite, fold vs no fold rel
+   < 5e-3, and the first 64 samples against the port on the CPU within
+   1e-2 * max|logit| (the interaction's f32 sums run in another order on the
+   CPU, and an element one ulp apart can move the top layer-0 quantization
+   by one step).
+6. Each kernel timed at the shapes the main path gave it, beside its plain
    version, one PyTorch call for the same product where there is one, and
-   its bound (the larger of bytes over the memory rate and operations over
-   the bf16 tensor-core rate of the card).
+   its bound: the larger of bytes over the memory rate and operations over
+   the card's tensor-core rate for their type (bf16 for K2/K3, int8 for K5).
+   K5 is timed at each of its 8 layer shapes; its entry in the kernels line
+   sums the 8 (one predict's worth).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -61,13 +79,17 @@ SEED = 2026
 
 RTOL = 1e-5  # K2/K3 vs plain: f32 summation order only
 REL_LOGITS = 5e-3  # fold vs no fold, the JAX package's bar (test_fused_models.py)
+K5_TOL = 1e-6  # K5 vs plain, sigmoid / tanh / gelu: rtol and atol (libm ulps)
+W8A8_LOGITS = 1e-2  # w8a8 logits vs the CPU port: |delta| / max|logit|
+K5_ACTS = (None, "relu", "sigmoid", "tanh", "gelu")
 
-# Dense peaks (NVIDIA data sheets): memory bytes/s, bf16 tensor FLOP/s.
+# Dense peaks (NVIDIA data sheets, without sparsity): memory bytes/s, bf16
+# tensor FLOP/s, int8 tensor OP/s.
 PEAKS = (
-    ("H200", 4.8e12, 989e12),
-    ("H100 NVL", 3.9e12, 835e12),
-    ("H100 PCIe", 2.0e12, 756e12),
-    ("H100", 3.35e12, 989e12),  # SXM
+    ("H200", 4.8e12, 989e12, 1979e12),
+    ("H100 NVL", 3.9e12, 835e12, 1671e12),
+    ("H100 PCIe", 2.0e12, 756e12, 1513e12),
+    ("H100", 3.35e12, 989e12, 1979e12),  # SXM
 )
 
 SOURCES = {
@@ -77,13 +99,16 @@ SOURCES = {
                               "hugectr_backend_tpu/ops/fused_interaction.py:298"),
     "dot_interaction_oh_parts": ("hugectr_backend_tpu_torch/csrc/dot_interaction.cu",
                                  "hugectr_backend_tpu/ops/fused_interaction.py:620"),
+    "w8a8_dense": ("hugectr_backend_tpu_torch/csrc/w8a8_dense.cu",
+                   "hugectr_backend_tpu/ops/quant_matmul.py:49"),
 }
 
 
 def peaks(name: str):
-    for key, bw, flops in PEAKS:
+    """-> (memory bytes/s, bf16 FLOP/s, int8 OP/s) of the card."""
+    for key, *rates in PEAKS:
         if key in name:
-            return bw, flops
+            return rates
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
@@ -193,6 +218,64 @@ def k2_k3_edge_checks(dev) -> int:
     return n_checks
 
 
+def k5_inputs(m, k, n, g, dev):
+    """x [M, K] f32 with rows of zeros, a few rows scaled far up, and rows
+    whose quotients x / xs fall on half-integers (absmax 127, so xs = 1: the
+    kernel's exact-divide fallback and ties to even), wq [N, K] int8 over the
+    full range, wscale and bias [N] f32."""
+    x = torch.randn(m, k, generator=g) * 3
+    x[::97] = 0.0
+    x[1::89] *= 1e4
+    if m > 3:
+        ties = (torch.arange(k) % 254).float() - 126.5
+        ties[0] = 127.0
+        x[2], x[3] = ties, ties * 0.3
+    wq = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    ws = torch.rand(n, generator=g) * 0.01 + 1e-4
+    b = torch.randn(n, generator=g)
+    return x.to(dev), wq.to(dev), ws.to(dev), b.to(dev)
+
+
+def k5_check(got, want, act, what):
+    """Bit-exact for act None / relu, else rtol and atol K5_TOL. -> max |err|."""
+    ok = torch.equal(got, want) if act in (None, "relu") else bool(
+        ((got - want).abs() <= K5_TOL + K5_TOL * want.abs()).all())
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or not ok:
+        raise AssertionError(f"K5 {what} act {act}: kernel != plain (max err {err})")
+    return err
+
+
+def k5_edge_checks(dev) -> int:
+    from hugectr_backend_tpu_torch.ops.quant_matmul import w8a8_dense, w8a8_dense_plain
+
+    g = torch.Generator().manual_seed(5)
+    n_checks = 0
+    for m, k, n in ((7, 13, 512), (4096, 479, 1024), (4096, 256, 1), (100, 1024, 300),
+                    (33, 1664, 200), (64, 1663, 96)):
+        x, wq, ws, b = k5_inputs(m, k, n, g, dev)
+        for act in K5_ACTS:
+            for bias in (b, None):
+                got = w8a8_dense(x, wq, ws, bias, act)
+                want = w8a8_dense_plain(x, wq, ws, bias, act)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                k5_check(got, want, act, f"M {m} K {k} N {n} bias {bias is not None}")
+                n_checks += 1
+    # Weight rows padded to 16 bytes, junk in the padding (the serving path's
+    # layout for K = 479): the columns past K are ignored.
+    x, wq, ws, b = k5_inputs(4096, 479, 1024, g, dev)
+    padded = torch.randint(-127, 128, (1024, 480), generator=g, dtype=torch.int8).to(dev)
+    padded[:, :479] = wq
+    for act in K5_ACTS:
+        got = w8a8_dense(x, padded, ws, b, act)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        k5_check(got, w8a8_dense_plain(x, wq, ws, b, act), act, "K 479, rows padded to 480")
+        n_checks += 1
+    return n_checks
+
+
 # --------------------------------------------------------------- main path
 
 
@@ -220,10 +303,17 @@ def build_deployment(root: str, cards, dim: int, seed: int):
     return tables, cfg
 
 
-def make_model(num_tables: int, seed: int):
-    """DLRM with weights drawn from a numpy seed (lecun-normal, zero bias)."""
+def make_model(num_tables: int, seed: int, quant_fmt=None):
+    """DLRM with weights drawn from a numpy seed (lecun-normal, zero bias);
+    with ``quant_fmt`` the same weights, quantized."""
     from hugectr_backend_tpu_torch.models.dlrm import DLRM
+    from hugectr_backend_tpu_torch.models.quant_dense import quantize_model_params
 
+    if quant_fmt:
+        model = DLRM(NUM_DENSE, num_tables, BOTTOM, TOP, quant_fmt=quant_fmt)
+        model.load_state_dict(quantize_model_params(
+            make_model(num_tables, seed).state_dict(), quant_fmt))
+        return model
     model = DLRM(NUM_DENSE, num_tables, BOTTOM, TOP)
     rng = np.random.default_rng(seed)
     state = {}
@@ -271,11 +361,11 @@ class Recorder:
     def __init__(self):
         import hugectr_backend_tpu_torch.cache.lookup_program as lp
         import hugectr_backend_tpu_torch.models.dlrm as dl
+        import hugectr_backend_tpu_torch.models.quant_dense as qd
 
-        self.calls = {"gather_dequant": [], "dot_interaction_parts": [],
-                      "dot_interaction_oh_parts": []}
         self._patches = [(lp, "gather_dequant"), (dl, "dot_interaction_parts"),
-                         (dl, "dot_interaction_oh_parts")]
+                         (dl, "dot_interaction_oh_parts"), (qd, "w8a8_dense")]
+        self.calls = {name: [] for _, name in self._patches}
         self._orig = {}
 
     def __enter__(self):
@@ -349,10 +439,11 @@ def device_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
 
 
 def timings(kernel, plain, library) -> dict:
+    """``library`` may be None (no library call computes the function)."""
     return {
         "kernel_ms": device_ms(kernel),
         "plain_ms": device_ms(plain),
-        "library_ms": device_ms(library),
+        "library_ms": None if library is None else device_ms(library),
         "eager_ms": eager_ms(kernel),
     }
 
@@ -429,6 +520,112 @@ def interaction_measure(name, fn, ref, args, feats, in_bytes, bw, flops):
     }
 
 
+def int_mm_call(x, wq):
+    """``torch._int_mm`` on the operands K5 quantizes, K and N zero-padded to
+    multiples of 8 as it requires: the int8 product alone (no activation
+    quantization, no epilogue), as a yardstick. None where it refuses."""
+    from hugectr_backend_tpu_torch.ops.quant_matmul import quantize_activations
+
+    xq, _ = quantize_activations(x)
+    (m, k), n = xq.shape, wq.shape[0]
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    a = torch.zeros(m, kp, dtype=torch.int8, device=x.device)
+    a[:, :k] = xq
+    b = torch.zeros(np_, kp, dtype=torch.int8, device=x.device)
+    b[:n, :k] = wq[:, :k]
+    bt = b.t()
+    try:
+        torch._int_mm(a, bt)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"torch._int_mm refused M {m} K {kp} N {np_}: {e}", flush=True)
+        return None
+    return lambda: torch._int_mm(a, bt)
+
+
+def k5_measure(args, bw, int8_ops):
+    """K5 at one layer shape of the main path: bit-exact against plain (act
+    None / relu; the DLRM has no other), times, and the bound
+    max((4MK + KN + 8N + 4MN) / memory rate, 2MKN / int8 rate)."""
+    from hugectr_backend_tpu_torch.ops.quant_matmul import w8a8_dense, w8a8_dense_plain
+
+    x, wq, ws, b, act = args
+    got = w8a8_dense(x, wq, ws, b, act)
+    want = w8a8_dense_plain(x, wq, ws, b, act)
+    torch.cuda.synchronize()
+    err = k5_check(got, want, act, f"main-path layer {tuple(x.shape)} x {tuple(wq.shape)}")
+    del got, want
+    (m, k), n = x.shape, wq.shape[0]
+    t_bytes = (4 * m * k + k * n + 8 * n + 4 * m * n) / bw * 1e3
+    t_ops = 2.0 * m * k * n / int8_ops * 1e3
+    return {
+        "shape": {"m": m, "k": k, "n": n, "act": act},
+        "max_abs_err": err,
+        **timings(lambda: w8a8_dense(x, wq, ws, b, act),
+                  lambda: w8a8_dense_plain(x, wq, ws, b, act), int_mm_call(x, wq)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def predict_timing(srv, cache, batches, mode: str) -> dict:
+    """Per-predict wall time (host clock around predict + synchronize), the
+    host's share (key translation + argument assembly, which predict runs
+    under the cache lock) and the device's kernel time (profiler). ``mode``
+    ending in "k2" turns the one-hot fold off."""
+    if mode.endswith("k2"):
+        os.environ["HPS_OH_IN_KERNEL"] = "0"
+    ts, hs = [], []
+    for i in range(12):
+        keys, dense = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        predict_sync(srv, keys, dense)
+        ts.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        with cache._lock:
+            local = [cache.translate(t, k.reshape(-1)) for t, k in enumerate(keys)]
+            cache.prepare_lookup([BATCH] * len(keys), local)
+        hs.append((time.perf_counter() - t0) * 1e3)
+    busy, top = predict_profile(srv, batches)
+    os.environ.pop("HPS_OH_IN_KERNEL", None)
+    ts, hs = sorted(ts[2:]), sorted(hs[2:])
+    med = ts[len(ts) // 2]
+    return {"mode": mode, "batch": BATCH, "median": med, "min": ts[0], "max": ts[-1],
+            "runs": len(ts), "host_translate_prepare_median": hs[len(hs) // 2],
+            "device_kernel_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / med,
+            "top_device_kernels_ms": top}
+
+
+def run_counted(srv, batches):
+    """The counted run of one model: N_BATCHES predicts with the fold, then
+    N_BATCHES without, launch counts set to 0 just before and read just
+    after. -> (fold logits, no-fold logits, launches, launches after the
+    fold predicts)."""
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    kernels.launches.clear()
+    fold = [predict_sync(srv, *bt) for bt in batches]
+    after_fold = dict(kernels.launches)
+    os.environ["HPS_OH_IN_KERNEL"] = "0"
+    no_fold = [predict_sync(srv, *bt) for bt in batches]
+    del os.environ["HPS_OH_IN_KERNEL"]
+    return fold, no_fold, dict(kernels.launches), after_fold
+
+
+def fold_vs_k2(fold, no_fold) -> float:
+    """Finite [B] logits on both paths; -> the worst relative difference."""
+    worst = 0.0
+    for a, c in zip(fold, no_fold):
+        for z in (a, c):
+            if z.shape != (BATCH,) or not bool(torch.isfinite(z).all()):
+                raise AssertionError("logits are not finite [B]")
+        worst = max(worst, float((a - c).abs().max() / (c.abs().max() + 1e-9)))
+    if worst >= REL_LOGITS:
+        raise AssertionError(f"fold vs K2 logits rel {worst} >= {REL_LOGITS}")
+    return worst
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -457,7 +654,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(f"card: {card} | nvidia-smi: {smi}", flush=True)
-    bw, flops = peaks(card)
+    bw, flops, int8_ops = peaks(card)
 
     # Phase 1: build.
     t0 = time.perf_counter()
@@ -475,9 +672,11 @@ def main() -> int:
     t0 = time.perf_counter()
     n1 = k1_edge_checks(dev)
     n23 = k2_k3_edge_checks(dev)
+    n5 = k5_edge_checks(dev)
     torch.cuda.synchronize()
     print(f"edge checks: K1 {n1} bit-exact, K2/K3 {n23} within rtol {RTOL}, "
-          f"atol 1e-6*max|z|^2 ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"atol 1e-6*max|z|^2, K5 {n5} (bit-exact for act None / relu, else "
+          f"rtol = atol = {K5_TOL}) ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # Phase 3: the main path at full width.
     cards = [min(c, ROW_CAP) for c in CRITEO_CARDS]
@@ -507,20 +706,17 @@ def main() -> int:
     kernels.launches.clear()
     rows = session.lookup(lookup_keys)
     torch.cuda.synchronize()
-    after_lookup = dict(kernels.launches)
-    logits_fold = [predict_sync(srv, *bt) for bt in batches]
-    after_fold = dict(kernels.launches)
-    os.environ["HPS_OH_IN_KERNEL"] = "0"
-    logits_k2 = [predict_sync(srv, *bt) for bt in batches]
-    del os.environ["HPS_OH_IN_KERNEL"]
-    launches = dict(kernels.launches)
-    print(f"main path launches: {launches}; lookup {after_lookup}; "
-          f"per fold predict { {k: (after_fold.get(k, 0) - after_lookup.get(k, 0)) / N_BATCHES for k in SOURCES} }; "
-          f"per K2 predict { {k: (launches.get(k, 0) - after_fold.get(k, 0)) / N_BATCHES for k in SOURCES} }",
+    lookup_launches = dict(kernels.launches)
+    logits_fold, logits_k2, launches, after_fold = run_counted(srv, batches)
+    print(f"main path launches (f32 DLRM): lookup {lookup_launches}; "
+          f"predicts {launches}; per fold predict "
+          f"{ {k: after_fold.get(k, 0) / N_BATCHES for k in SOURCES} }; per K2 predict "
+          f"{ {k: (launches.get(k, 0) - after_fold.get(k, 0)) / N_BATCHES for k in SOURCES} }",
           flush=True)
-    for name in SOURCES:
-        if launches.get(name, 0) < 1:
+    for name in ("gather_dequant", "dot_interaction_parts", "dot_interaction_oh_parts"):
+        if lookup_launches.get(name, 0) + launches.get(name, 0) < 1:
             raise AssertionError(f"the main path never launched {name}")
+    launches["gather_dequant"] += lookup_launches.get("gather_dequant", 0)
 
     want_rows = host_dequant(cache, lookup_keys)
     for t, (got, want) in enumerate(zip(rows, want_rows)):
@@ -528,14 +724,7 @@ def main() -> int:
             raise AssertionError(f"lookup table {t}: not bit-exact vs host dequant")
     print(f"lookup: {len(rows)} tables x {BATCH} keys bit-exact vs host dequant",
           flush=True)
-    worst = 0.0
-    for a, c in zip(logits_fold, logits_k2):
-        if a.shape != (BATCH,) or not bool(torch.isfinite(a).all()):
-            raise AssertionError("fold logits are not finite [B]")
-        rel = float((a - c).abs().max() / (c.abs().max() + 1e-9))
-        worst = max(worst, rel)
-    if worst >= REL_LOGITS:
-        raise AssertionError(f"fold vs K2 logits rel {worst} >= {REL_LOGITS}")
+    worst = fold_vs_k2(logits_fold, logits_k2)
     # Against a CPU reference on the first 64 samples: plain versions on
     # the host-dequantized embeddings.
     keys0, dense0 = batches[0]
@@ -548,36 +737,44 @@ def main() -> int:
     print(f"predict: {N_BATCHES} x {BATCH} finite; fold vs K2 rel {worst:.3g}; "
           f"vs CPU reference rel {rel_ref:.3g}", flush=True)
 
-    # Per-predict wall time (host clock around predict + synchronize), the
-    # host's share (key translation + argument assembly, which predict runs
-    # under the cache lock) and the device's kernel time (profiler).
     for mode in ("fold", "k2"):
-        if mode == "k2":
-            os.environ["HPS_OH_IN_KERNEL"] = "0"
-        ts, hs = [], []
-        for i in range(12):
-            keys, dense = batches[i % N_BATCHES]
-            t0 = time.perf_counter()
-            predict_sync(srv, keys, dense)
-            ts.append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
-            with cache._lock:
-                local = [cache.translate(t, k.reshape(-1)) for t, k in enumerate(keys)]
-                cache.prepare_lookup([BATCH] * len(keys), local)
-            hs.append((time.perf_counter() - t0) * 1e3)
-        busy, top = predict_profile(srv, batches)
-        os.environ.pop("HPS_OH_IN_KERNEL", None)
-        ts, hs = sorted(ts[2:]), sorted(hs[2:])
-        med = ts[len(ts) // 2]
-        emit({"predict_ms": {"mode": mode, "batch": BATCH, "median": med,
-                             "min": ts[0], "max": ts[-1], "runs": len(ts),
-                             "host_translate_prepare_median": hs[len(hs) // 2],
-                             "device_kernel_ms": busy,
-                             "device_idle_share": None if busy is None else 1 - busy / med,
-                             "top_device_kernels_ms": top},
+        emit({"predict_ms": predict_timing(srv, cache, batches, mode),
               "card": card, "nvidia_smi": smi})
 
-    # Phase 4: each kernel at its main-path shapes.
+    # Phase 5: the quantized-dense DLRM (w8a8, K5 in every layer) on the same
+    # deployment, with the same f32 weights quantized.
+    qmodel = make_model(len(cards), SEED, quant_fmt="w8a8")
+    qsrv = make_dlrm_multi_server(ps.get_model_params("dlrm"), cache, qmodel)
+    with Recorder() as rec_q:
+        predict_sync(qsrv, *batches[0])
+    qlogits_fold, qlogits_k2, qlaunches, q_after_fold = run_counted(qsrv, batches)
+    print(f"main path launches (w8a8 DLRM): {qlaunches}; per fold predict "
+          f"{ {k: q_after_fold.get(k, 0) / N_BATCHES for k in SOURCES} }; per K2 predict "
+          f"{ {k: (qlaunches.get(k, 0) - q_after_fold.get(k, 0)) / N_BATCHES for k in SOURCES} }",
+          flush=True)
+    n_layers = len(BOTTOM) + len(TOP)
+    if qlaunches.get("w8a8_dense", 0) != n_layers * 2 * N_BATCHES:
+        raise AssertionError(f"w8a8 path: {qlaunches.get('w8a8_dense', 0)} K5 launches, "
+                             f"expected {n_layers} per predict")
+    for name in ("gather_dequant", "dot_interaction_parts", "dot_interaction_oh_parts"):
+        if qlaunches.get(name, 0) < 1:
+            raise AssertionError(f"the w8a8 path never launched {name}")
+    qworst = fold_vs_k2(qlogits_fold, qlogits_k2)
+    # Against the port on the CPU (plain versions) on the first 64 samples.
+    qref = make_model(len(cards), SEED, quant_fmt="w8a8")(
+        torch.from_numpy(dense0[:64]), torch.from_numpy(emb)).detach()
+    qdelta = float((qlogits_fold[0][:64].cpu() - qref).abs().max() / (qref.abs().max() + 1e-9))
+    if qdelta > W8A8_LOGITS:
+        raise AssertionError(f"w8a8 logits vs the CPU port: |delta| / max|logit| {qdelta}")
+    qf32 = float((qlogits_fold[0] - logits_fold[0]).abs().max() / (logits_fold[0].abs().max() + 1e-9))
+    print(f"w8a8 predict: {N_BATCHES} x {BATCH} finite; fold vs K2 rel {qworst:.3g}; vs the "
+          f"CPU port |delta|/max|logit| {qdelta:.3g} (bar {W8A8_LOGITS}); vs the f32 model "
+          f"{qf32:.3g}", flush=True)
+    for mode in ("w8a8_fold", "w8a8_k2"):
+        emit({"predict_ms": predict_timing(qsrv, cache, batches, mode),
+              "card": card, "nvidia_smi": smi})
+
+    # Phase 6: each kernel at its main-path shapes.
     results = {}
     # K1: the fold predict's arena and solo groups, and the no-fold
     # predict's one-hot group (the largest call).
@@ -610,6 +807,23 @@ def main() -> int:
                             feats, in_bytes, bw, flops)
     results["dot_interaction_oh_parts"] = r
     emit({"kernel": "dot_interaction_oh_parts", **r, "card": card, "nvidia_smi": smi})
+    # K5 at its 8 layer shapes (the fold predict's); its entry in the kernels
+    # line sums them: one predict's worth.
+    layers = [k5_measure(args, bw, int8_ops) for args in rec_q.calls["w8a8_dense"]]
+    for r in layers:
+        emit({"kernel": "w8a8_dense", **r, "card": card, "nvidia_smi": smi})
+    lib = [r["library_ms"] for r in layers]
+    results["w8a8_dense"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in layers),
+        "kernel_ms": sum(r["kernel_ms"] for r in layers),
+        "plain_ms": sum(r["plain_ms"] for r in layers),
+        "library_ms": None if None in lib else sum(lib),
+        "bound_ms": sum(r["bound_ms"] for r in layers),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in layers) else "operations",
+    }
+    emit({"kernel": "w8a8_dense", "shape": "sum of the 8 layers of one predict",
+          **results["w8a8_dense"], "card": card, "nvidia_smi": smi})
+    launches["w8a8_dense"] = qlaunches["w8a8_dense"]
 
     print(smi)
     emit({"kernels": [

@@ -10,6 +10,11 @@ Hopper card. It mirrors the JAX package's module paths
     session = LookupSession.create(ps.get_model_params("dlrm"), cache)
     vectors = session.lookup(keys_per_table, num_keys_per_table)
 
+A DLRM with quantized dense layers (``DLRM(..., quant_fmt="w8a8" | "int8" |
+"fp8")``, weights from ``models.quantize_model_params``) serves through the
+same ``make_dlrm_multi_server``; ``io.DenseModel`` loads the dense-model
+format both packages write.
+
 Entry points run on the card unless the caller passes ``device="cpu"``. The
 Pallas kernels of the JAX package are hand-written CUDA kernels here
 (``csrc/``), built with ``nvcc`` at first use; each has a plain PyTorch

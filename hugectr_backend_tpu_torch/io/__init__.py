@@ -14,4 +14,18 @@ __all__ = [
     "write_sparse_model",
     "make_criteo_like_batch",
     "make_synthetic_table",
+    "DenseModel",
+    "save_dense_model",
+    "convert_torch_sequential",
 ]
+
+_DENSE = ("DenseModel", "save_dense_model", "convert_torch_sequential")
+
+
+def __getattr__(name):
+    # Lazy: the sparse-model and synthetic utilities import without torch.
+    if name in _DENSE:
+        from hugectr_backend_tpu_torch.io import dense_model
+
+        return getattr(dense_model, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,11 +1,15 @@
 """DLRM dense network (bottom MLP + pairwise interaction + top MLP).
 
 Port of the JAX package's models/dlrm.py as ``nn.Module``s. The MLPs are
-plain ``nn.Linear`` layers in f32 (the JAX package leaves them to XLA). The
-interaction runs on the kernels of ops/fused_interaction.py: K3 when the
-embeddings carry a folded one-hot group, K2 otherwise; a stacked
-``[B, T, D]`` tensor goes to K2 as strided feature views. Like the Pallas
-bodies, the kernels round z to bf16 and sum the products in f32.
+plain ``nn.Linear`` layers in f32 (the JAX package leaves them to XLA), or
+with ``quant_fmt`` set, :class:`~hugectr_backend_tpu_torch.models.quant_dense.QuantDense`
+layers with the activation fused in (w8a8 runs K5). With
+``mixed_precision`` the f32 and weight-only products take bf16 operands and
+accumulate in f32. The interaction runs on the kernels of
+ops/fused_interaction.py: K3 when the embeddings carry a folded one-hot
+group, K2 otherwise; a stacked ``[B, T, D]`` tensor goes to K2 as strided
+feature views. Like the Pallas bodies, the kernels round z to bf16 and sum
+the products in f32.
 ``DotInteraction(self_interaction=True)`` stays plain f32 PyTorch: the JAX
 package has no kernel for it either.
 
@@ -15,6 +19,7 @@ weights serves in both packages.
 
 from __future__ import annotations
 
+import re
 from typing import Optional, Sequence
 
 import numpy as np
@@ -27,27 +32,44 @@ from hugectr_backend_tpu_torch.ops.fused_interaction import (
     dot_interaction_oh_parts,
     dot_interaction_parts,
 )
+from hugectr_backend_tpu_torch.models.quant_dense import QuantDense, linear
 
 
 class MLP(nn.Module):
-    """ReLU MLP; the last layer's activation is optional."""
+    """ReLU MLP; the last layer's activation is optional. ``quant_fmt``
+    (None, "int8", "fp8" or "w8a8") makes every layer a :class:`QuantDense`
+    with its activation fused in, as in the JAX package."""
 
     def __init__(self, in_features: int, widths: Sequence[int],
-                 final_activation: bool = True):
+                 final_activation: bool = True, quant_fmt: Optional[str] = None):
         super().__init__()
         dims = [in_features, *widths]
-        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims, dims[1:]))
-        self.final_activation = final_activation
+        n = len(widths)
+        acts = ["relu" if i + 1 < n or final_activation else None for i in range(n)]
+        if quant_fmt:
+            self.layers = nn.ModuleList(QuantDense(a, b, quant_fmt, activation=act)
+                                        for a, b, act in zip(dims, dims[1:], acts))
+        else:
+            self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims, dims[1:]))
+        self.acts = acts
+        self.quant_fmt = quant_fmt
 
-    def forward(self, x: torch.Tensor,
-                first_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``first_weight`` replaces layer 0's weight (the serving path's
-        column-permuted copy for a reordered interaction)."""
-        n = len(self.layers)
-        for i, layer in enumerate(self.layers):
-            w = first_weight if i == 0 and first_weight is not None else layer.weight
-            x = F.linear(x, w, layer.bias)
-            if i + 1 < n or self.final_activation:
+    def forward(self, x: torch.Tensor, first_weight: Optional[torch.Tensor] = None,
+                mixed_precision: bool = False) -> torch.Tensor:
+        """``first_weight`` replaces layer 0's weight, or its ``kernel_q``
+        for a quantized layer (the serving path's column-permuted copy for a
+        reordered interaction)."""
+        for i, (layer, act) in enumerate(zip(self.layers, self.acts)):
+            w = first_weight if i == 0 else None
+            if self.quant_fmt:
+                x = layer(x, kernel_q=w, mixed_precision=mixed_precision)
+                continue
+            w = layer.weight if w is None else w
+            if mixed_precision:
+                x = linear(x, w, mixed_precision=True) + layer.bias
+            else:
+                x = F.linear(x, w, layer.bias)
+            if act:
                 x = F.relu(x)
         return x
 
@@ -91,48 +113,73 @@ class DLRM(nn.Module):
 
     def __init__(self, num_dense: int, num_tables: int,
                  bottom_widths: Sequence[int] = (512, 256, 64),
-                 top_widths: Sequence[int] = (1024, 1024, 512, 256, 1)):
+                 top_widths: Sequence[int] = (1024, 1024, 512, 256, 1),
+                 quant_fmt: Optional[str] = None):
         super().__init__()
         self.bottom_widths = tuple(bottom_widths)
         self.top_widths = tuple(top_widths)
+        self.quant_fmt = quant_fmt
         dim = self.bottom_widths[-1]
         feats = num_tables + 1
-        self.bottom = MLP(num_dense, bottom_widths, final_activation=True)
+        self.bottom = MLP(num_dense, bottom_widths, final_activation=True,
+                          quant_fmt=quant_fmt)
         self.interaction = DotInteraction()
         self.top = MLP(dim + feats * (feats - 1) // 2, top_widths,
-                       final_activation=False)
+                       final_activation=False, quant_fmt=quant_fmt)
 
     def forward(self, dense: torch.Tensor, emb,
-                top_weight0: Optional[torch.Tensor] = None) -> torch.Tensor:
+                top_weight0: Optional[torch.Tensor] = None,
+                mixed_precision: bool = False) -> torch.Tensor:
+        """``top_weight0`` replaces the first top layer's weight (or
+        ``kernel_q``); ``mixed_precision``: bf16 operands, f32 sums in the
+        dense products."""
         if self.bottom_widths[-1] != emb.shape[-1]:
             raise ValueError(
                 f"DLRM bottom MLP must end at the embedding dim for the dot "
                 f"interaction: bottom_widths[-1]={self.bottom_widths[-1]} vs "
                 f"embedding dim {emb.shape[-1]}"
             )
-        bottom = self.bottom(dense.float())
+        bottom = self.bottom(dense.float(), mixed_precision=mixed_precision)
         x = self.interaction(bottom, emb)
-        return self.top(x, first_weight=top_weight0).float().squeeze(-1)
+        return self.top(x, first_weight=top_weight0,
+                        mixed_precision=mixed_precision).float().squeeze(-1)
+
+
+_LAYER = re.compile(r"(Quant)?Dense_(\d+)$")
+
+
+def _carry(a) -> torch.Tensor:
+    """A Flax array (numpy-readable) -> a CPU tensor with the same bytes.
+    fp8 arrives as an ``ml_dtypes`` array, which torch cannot take as such:
+    its bytes go across and are viewed as ``float8_e4m3fn``."""
+    a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(np.array(a.view(np.uint8), order="C")).view(torch.float8_e4m3fn)
+    return torch.from_numpy(np.array(a, order="C"))
 
 
 def load_flax_dlrm_params(tree) -> dict:
-    """Flax DLRM params (``params/MLP_{0,1}/Dense_i/{kernel,bias}``, any
-    array type numpy can read) -> this package's ``DLRM`` state_dict
-    (``weight = kernel.T``)."""
+    """Flax DLRM params (``params/MLP_{0,1}/Dense_i/{kernel,bias}``, or
+    ``QuantDense_i/{kernel_q,kernel_scale,bias}`` for a ``quant_fmt``
+    model; any array type numpy can read) -> this package's ``DLRM``
+    state_dict (``weight = kernel.T``, ``kernel_q`` transposed likewise).
+    A module name it does not know raises."""
     params = tree["params"] if "params" in tree else tree
     state = {}
     for mod, prefix in (("MLP_0", "bottom"), ("MLP_1", "top")):
         layers = params[mod]
-        unknown = [k for k in layers if not k.startswith("Dense_")]
+        unknown = [k for k in layers if not _LAYER.match(k)]
         if unknown:
-            raise NotImplementedError(
-                f"{mod} holds {unknown}: quantized dense layers are ROADMAP "
-                "queue A item 4")
-        for i in range(len(layers)):
-            layer = layers[f"Dense_{i}"]
-            kernel = np.asarray(layer["kernel"], dtype=np.float32)
-            state[f"{prefix}.layers.{i}.weight"] = torch.from_numpy(
-                np.array(kernel.T, order="C"))
-            state[f"{prefix}.layers.{i}.bias"] = torch.from_numpy(
-                np.array(layer["bias"], dtype=np.float32))
+            raise ValueError(f"{mod} holds {unknown}: only Dense_i and QuantDense_i "
+                             "layers are known")
+        for name, layer in layers.items():
+            quant, i = _LAYER.match(name).groups()
+            key = f"{prefix}.layers.{i}"
+            if quant:
+                state[f"{key}.kernel_q"] = _carry(np.asarray(layer["kernel_q"]).T)
+                state[f"{key}.kernel_scale"] = _carry(np.asarray(layer["kernel_scale"],
+                                                                 np.float32))
+            else:
+                state[f"{key}.weight"] = _carry(np.asarray(layer["kernel"], np.float32).T)
+            state[f"{key}.bias"] = _carry(np.asarray(layer["bias"], np.float32))
     return state

@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gather_dequant", "dot_interaction")
+SOURCES = ("gather_dequant", "dot_interaction", "w8a8_dense")
 
 #: Launch count per kernel (see the module docstring).
 launches: "collections.Counter[str]" = collections.Counter()

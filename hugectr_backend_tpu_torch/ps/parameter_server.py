@@ -75,10 +75,6 @@ def _check_supported(config: ParameterServerConfig) -> None:
             raise NotImplementedError(
                 f"model {p.model_name!r}: shard_tables is ROADMAP queue A "
                 "item 7 (parallel/ on torch.distributed)")
-        if p.use_mixed_precision:
-            raise NotImplementedError(
-                f"model {p.model_name!r}: use_mixed_precision (bf16 dense "
-                "forward) is ROADMAP queue A item 4 (quant dense)")
         if p.use_cuda_graph:
             log.info("model %s: use_cuda_graph: lookups run eagerly until "
                      "ROADMAP queue A item 2 (CUDA graphs per bucket)",

@@ -8,7 +8,10 @@ is not looked up at all: it is folded into the interaction kernel (K3), its
 features moved to the front of the feature order, with the first top-MLP
 weight's columns permuted to keep the logits exact. ``HPS_OH_IN_KERNEL=0``
 keeps the group in the lookup (K1) and runs K2 instead. Without a fold the
-features are reordered part-major, as in the JAX package.
+features are reordered part-major, as in the JAX package. A quantized DLRM
+(``quant_fmt``) is served the same way, its first top layer's ``kernel_q``
+columns permuted instead of the weight's; ``use_mixed_precision`` gives the
+dense products bf16 operands with f32 sums.
 
 The other model servers of the JAX file (WDL, DCN, DeepFM, xDeepFM, NCF,
 MMoE) are ROADMAP queue A item 5.
@@ -175,22 +178,47 @@ class FusedMultiTableServer:
             return self._forward(vals, dscales, slots_d, scin_d, dense_d, b, meta, slices)
 
 
+def _permute_columns(w: torch.Tensor, src: torch.Tensor, pad16: bool = False) -> torch.Tensor:
+    """``w[:, src]`` for any dtype: an fp8 weight is permuted as its bytes.
+    ``pad16``: rows zero-padded to a multiple of 16 columns, the layout K5
+    reads with 16-byte copies (it ignores the columns past K)."""
+    if w.dtype == torch.float8_e4m3fn:
+        return w.view(torch.uint8)[:, src].contiguous().view(w.dtype)
+    if not pad16:
+        return w[:, src].contiguous()
+    k = src.shape[0]
+    out = w.new_zeros(w.shape[0], -(-k // 16) * 16)
+    out[:, :k] = w[:, src]
+    return out
+
+
 def make_dlrm_multi_server(params, cache, model) -> FusedMultiTableServer:
     """DLRM over many tables, one categorical feature per table (the Criteo
-    layout). ``model`` is a :class:`~hugectr_backend_tpu_torch.models.dlrm.DLRM`;
-    it is moved to the cache's device. Models with K_t > 1 or mixed dims get
-    the stacked tensor."""
+    layout). ``model`` is a :class:`~hugectr_backend_tpu_torch.models.dlrm.DLRM`,
+    f32 or quantized (``quant_fmt``); it is moved to the cache's device.
+    Models with K_t > 1 or mixed dims get the stacked tensor.
+
+    For a reordered interaction the first top layer's input columns are
+    permuted: the weight's, or ``kernel_q``'s for a quantized layer (its
+    scales are per output column and do not move). The w8a8 result is exact
+    under the permutation: the row absmax does not depend on the order, and
+    the int32 sum is exact in any order. The permuted w8a8 weight's rows are
+    padded to a multiple of 16 bytes (479 -> 480 at the Criteo widths), so
+    that K5 streams it with 16-byte copies."""
     model = model.to(cache.device).eval()
+    mixed = bool(params.use_mixed_precision)
     permuted: dict = {}
 
     def assemble(dense, emb, order=None):
         if order is None:
-            return model(dense, emb)
+            return model(dense, emb, mixed_precision=mixed)
         w = permuted.get(order)
         if w is None:
             src = torch.from_numpy(interaction_permutation(order, model.bottom_widths[-1]))
-            w0 = model.top.layers[0].weight
-            w = permuted[order] = w0[:, src.to(w0.device)].contiguous()
-        return model(dense, emb, top_weight0=w)
+            layer = model.top.layers[0]
+            w0 = layer.kernel_q if model.quant_fmt else layer.weight
+            w = permuted[order] = _permute_columns(w0, src.to(w0.device),
+                                                   pad16=model.quant_fmt == "w8a8")
+        return model(dense, emb, top_weight0=w, mixed_precision=mixed)
 
     return FusedMultiTableServer(params, cache, assemble)

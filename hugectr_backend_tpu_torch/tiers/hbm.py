@@ -330,10 +330,14 @@ def build_arena_views(
 
 def scatter_rows(values: torch.Tensor, slots: torch.Tensor,
                  rows: torch.Tensor) -> torch.Tensor:
-    """A copy of ``values`` with ``values[slots] = rows``. Out-of-range slots
-    (padding) are dropped. Functional: readers holding ``values`` never see
-    the write."""
-    keep = (slots >= 0) & (slots < values.shape[0])
+    """A copy of ``values`` with ``values[slots] = rows``. As in the JAX
+    package (``.at[slots].set(mode="drop")``), a slot in ``[-R, 0)`` wraps to
+    ``R + slot`` (NumPy indexing) and a slot still out of range (padding) is
+    dropped. Functional: readers holding ``values`` never see the write."""
+    r = values.shape[0]
+    slots = slots.long()
+    slots = torch.where(slots < 0, slots + r, slots)
+    keep = (slots >= 0) & (slots < r)
     out = values.clone()
-    out[slots[keep].long()] = rows[keep].to(values.dtype)
+    out[slots[keep]] = rows[keep].to(values.dtype)
     return out

@@ -51,7 +51,10 @@ def test_self_interaction_matches_flax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-def test_load_refuses_quantized_layers():
-    tree = {"params": {"MLP_0": {"QuantDense_0": {}}, "MLP_1": {"Dense_0": {}}}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("name", ["Conv_0", "Dense", "QuantDense_x"])
+def test_load_refuses_unknown_layers(name):
+    """Dense_i and QuantDense_i carry across (tests/test_torch_quant_dense.py);
+    any other module name raises."""
+    tree = {"params": {"MLP_0": {name: {}}, "MLP_1": {"Dense_0": {}}}}
+    with pytest.raises(ValueError, match=name):
         load_flax_dlrm_params(tree)

@@ -161,3 +161,21 @@ def test_scatter_rows_drops_out_of_range():
     got = thbm.scatter_rows(src, torch.from_numpy(slots), torch.from_numpy(rows))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(src.numpy(), vals)  # functional: input untouched
+
+
+def test_scatter_rows_wraps_negative_slots():
+    """A slot in [-R, 0) wraps to R + slot (NumPy indexing), as JAX's
+    ``.at[].set(mode="drop")`` does; -R - 1 and R are still dropped. The
+    slots reach distinct rows after the wrap (-R lands on row 0), so the
+    order of duplicate writes, which JAX leaves unspecified, plays no part."""
+    r = 10
+    rng = np.random.default_rng(9)
+    vals = rng.standard_normal((r, 4)).astype(np.float32)
+    slots = np.array([-1, -r, -r - 1, r, 1], np.int32)
+    rows = rng.standard_normal((5, 4)).astype(np.float32)
+    want = np.asarray(jhbm.scatter_rows(jnp.asarray(vals), jnp.asarray(slots),
+                                        jnp.asarray(rows)))
+    got = thbm.scatter_rows(torch.from_numpy(vals.copy()), torch.from_numpy(slots),
+                            torch.from_numpy(rows))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want[[r - 1, 0, 1]], rows[[0, 1, 4]])

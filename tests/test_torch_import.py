@@ -34,6 +34,9 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.ps.parameter_server",
     "hugectr_backend_tpu_torch.lookup.session",
     "hugectr_backend_tpu_torch.models.dlrm",
+    "hugectr_backend_tpu_torch.models.quant_dense",
+    "hugectr_backend_tpu_torch.ops.quant_matmul",
+    "hugectr_backend_tpu_torch.io.dense_model",
     "chip_smoke",
 ]
 
@@ -97,7 +100,7 @@ def test_parameter_server_needs_a_card_unless_asked_for_cpu(tmp_path):
 @pytest.mark.parametrize("option, value", [
     ("embedding_cache_type", "dynamic"),
     ("shard_tables", True),
-    ("use_mixed_precision", True),
+    ("embedding_cache_type", "uvm"),
 ])
 def test_uncovered_options_raise(tmp_path, option, value):
     from hugectr_backend_tpu_torch import HierParameterServer

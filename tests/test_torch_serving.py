@@ -10,6 +10,11 @@ Tolerances:
   tests. The JAX server runs with ``HPS_PALLAS_INTERPRET=1``, so its
   interaction is the Pallas body (K3 with the one-hot fold, K2 with
   ``HPS_OH_IN_KERNEL=0``); the two sides differ only in f32 summation order.
+- logits of a quantized-dense DLRM (``quant_fmt`` w8a8, int8, fp8) and of
+  ``use_mixed_precision``: |delta| <= 1e-2 * max|logit|. The interaction
+  inputs to the top MLP sit up to an f32 ulp apart (summation order), and a
+  quantizing (w8a8) or bf16-rounding step can move such an element by one
+  step (tests/test_torch_quant_dense.py states the same bar).
 """
 
 import numpy as np
@@ -21,9 +26,11 @@ import jax.numpy as jnp
 import hugectr_backend_tpu as jpkg
 import hugectr_backend_tpu_torch as tpkg
 import hugectr_backend_tpu_torch.models.dlrm as tdlrm
+import hugectr_backend_tpu_torch.models.quant_dense as tqd
 from hugectr_backend_tpu.io.sparse_model import write_sparse_model
 from hugectr_backend_tpu.io.synthetic import make_synthetic_table
 from hugectr_backend_tpu.models.dlrm import DLRM as FlaxDLRM
+from hugectr_backend_tpu.models.quant_dense import quantize_model_params
 from hugectr_backend_tpu.serving.program import make_dlrm_multi_server as jax_server
 from hugectr_backend_tpu_torch.models.dlrm import DLRM, load_flax_dlrm_params
 from hugectr_backend_tpu_torch.serving.program import make_dlrm_multi_server as torch_server
@@ -35,7 +42,7 @@ THRESHOLDS = {"HPS_TPU_ONEHOT_MAX_ROWS": "64", "HPS_TPU_ARENA_MEMBER_MAX_ROWS": 
 B, ND = 8, 4
 
 
-def _config(root, quant, gpucacheper=1.0):
+def _config(root, quant, gpucacheper=1.0, **extra):
     model = {
         "model": "dlrm",
         "sparse_files": [str(root / f"t{t}") for t in range(len(SIZES))],
@@ -44,6 +51,7 @@ def _config(root, quant, gpucacheper=1.0):
         "default_value_for_each_table": [0.0, 0.5, 0.0, -0.25, 0.0, 1.0],
         "gpucacheper": gpucacheper,
         "embedding_cache_type": "static",
+        **extra,
     }
     model.update({"fp8_quant": True} if quant == "fp8" else {"quant_bits": 8})
     return {"models": [model]}
@@ -58,9 +66,9 @@ def tables(tmp_path_factory):
     return root, tbls
 
 
-def _deploy(tables, quant, gpucacheper=1.0):
+def _deploy(tables, quant, gpucacheper=1.0, **extra):
     root, _ = tables
-    cfg = _config(root, quant, gpucacheper)
+    cfg = _config(root, quant, gpucacheper, **extra)
     with pytest.MonkeyPatch.context() as mp:
         for k, v in THRESHOLDS.items():
             mp.setenv(k, v)
@@ -155,3 +163,76 @@ def test_dlrm_server_logits_match_jax(tables, monkeypatch, quant, fold):
                      else {"dot_interaction_parts": 1, "dot_interaction_oh_parts": 0})
     assert got.shape == want.shape == (B,)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _close(got, want):
+    assert got.shape == want.shape == (B,)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("fold", [True, False], ids=["fold_k3", "no_fold_k2"])
+@pytest.mark.parametrize("dense_fmt", ["w8a8", "int8", "fp8"])
+def test_quant_dense_server_logits_match_jax(tables, monkeypatch, dense_fmt, fold):
+    """int8 tables, quantized dense layers: the serving variants
+    ``int8+dense_*`` of the JAX package's eval/auc_parity.py. w8a8 weights
+    are quantized as int8 (the same bytes), as there."""
+    jps, tps = _deploy(tables, "int8")
+    f32 = FlaxDLRM(bottom_widths=(16, DIM), top_widths=(16, 1))
+    params = f32.init(jax.random.PRNGKey(1), jnp.zeros((B, ND)), jnp.zeros((B, len(SIZES), DIM)))
+    qparams = quantize_model_params(params, fmt="int8" if dense_fmt == "w8a8" else dense_fmt)
+    flax_model = FlaxDLRM(bottom_widths=(16, DIM), top_widths=(16, 1), quant_fmt=dense_fmt)
+    model = DLRM(ND, len(SIZES), bottom_widths=(16, DIM), top_widths=(16, 1),
+                 quant_fmt=dense_fmt)
+    model.load_state_dict(load_flax_dlrm_params(jax.tree_util.tree_map(np.asarray, qparams)))
+    rng = np.random.default_rng(4)
+    keys = [k.reshape(B, 1) for k in _keys(tables[1], rng, B)]
+    dense = rng.standard_normal((B, ND)).astype(np.float32)
+
+    monkeypatch.setenv("HPS_PALLAS_INTERPRET", "1")
+    if not fold:
+        monkeypatch.setenv("HPS_OH_IN_KERNEL", "0")
+    jsrv = jax_server(jps.get_model_params("dlrm"), jps.get_embedding_cache("dlrm", 0),
+                      flax_model, qparams)
+    tsrv = torch_server(tps.get_model_params("dlrm"), tps.get_embedding_cache("dlrm", 0),
+                        model)
+    want = np.asarray(jsrv.predict(keys, dense))
+    calls = []
+    real = tqd.w8a8_dense
+    monkeypatch.setattr(tqd, "w8a8_dense", lambda *a: calls.append(a[1].shape) or real(*a))
+    got = tsrv.predict(keys, dense).numpy()
+    assert len(calls) == (4 if dense_fmt == "w8a8" else 0)
+    _close(got, want)
+
+
+def test_mixed_precision_server_matches_bf16_reference(tables, monkeypatch):
+    """``use_mixed_precision``: bf16 operands, f32 sums in the dense products.
+    The JAX server's switch (``jax.default_matmul_precision``) does nothing
+    on a CPU, so the reference is the Flax DLRM's arithmetic with explicit
+    bf16 casts (tests/test_torch_quant_dense.py) on the JAX package's
+    lookups."""
+    from test_torch_quant_dense import jax_bf16_dlrm
+
+    jps, tps = _deploy(tables, "int8", use_mixed_precision=True)
+    assert tps.get_model_params("dlrm").use_mixed_precision
+    flax_model = FlaxDLRM(bottom_widths=(16, DIM), top_widths=(16, 1))
+    params = flax_model.init(jax.random.PRNGKey(2), jnp.zeros((B, ND)),
+                             jnp.zeros((B, len(SIZES), DIM)))
+    model = DLRM(ND, len(SIZES), bottom_widths=(16, DIM), top_widths=(16, 1))
+    model.load_state_dict(load_flax_dlrm_params(jax.tree_util.tree_map(np.asarray, params)))
+    rng = np.random.default_rng(5)
+    keys = [k.reshape(B, 1) for k in _keys(tables[1], rng, B)]
+    dense = rng.standard_normal((B, ND)).astype(np.float32)
+    jsess = jpkg.LookupSession.create(jps.get_model_params("dlrm"),
+                                      jps.get_embedding_cache("dlrm", 0))
+    emb = jnp.stack([jnp.asarray(v) for v in jsess.lookup([k.reshape(-1) for k in keys])], axis=1)
+    monkeypatch.setenv("HPS_PALLAS_INTERPRET", "1")
+    want = np.asarray(jax_bf16_dlrm(params, jnp.asarray(dense), emb))
+    tsrv = torch_server(tps.get_model_params("dlrm"), tps.get_embedding_cache("dlrm", 0),
+                        model)
+    got = tsrv.predict(keys, dense).numpy()
+    _close(got, want)
+    want_f32 = np.asarray(jax_server(jps.get_model_params("dlrm"),
+                                     jps.get_embedding_cache("dlrm", 0),
+                                     flax_model, params).predict(keys, dense))
+    assert not np.array_equal(got, want_f32)
