@@ -45,6 +45,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the card's tensor-core rate for their type (bf16 for K2/K3, int8 for K5).
    K5 is timed at each of its 8 layer shapes; its entry in the kernels line
    sums the 8 (one predict's worth).
+7. K4 (``fused_dot_interaction``, the stacked interaction) and its backward
+   kernel against their plain versions on edge cases: B in {1, 7, 4096},
+   D in {16, 36, 128}, T in {1, 26}, with only one input requiring grad,
+   and the chunked (K2) backward with phantom rows and unmapped subs
+   (which must get exactly zero): forward within rtol 1e-5 and atol
+   1e-6 * max|z|^2, backward within rtol 1e-5 and atol 1e-6 * F * max|g| *
+   max|z| (f32 sums in another order). K3 and K5 must raise under autograd.
+8. Training at full width: ``train_dlrm_multi`` on ``make_multi_click_dataset``
+   over the same 26 capped vocabularies (one f32 table of 1,855,979 x 128
+   rows under Adam), batch 4096, lr 5e-3, TRAIN_STEPS steps. K4 forward and
+   backward must launch once per step, the loss stay finite and the mean of
+   the last 10 steps fall below the first 10; on one batch the card's
+   gradients of every parameter and of the looked-up table rows must be
+   within 1e-4 * max|grad| of the port's on the CPU.
+9. The trained checkpoint served: ``multi_serving_scores`` on 65,536
+   held-out samples in fp32, int8 and int8 + w8a8 dense layers (K1, K3, K5),
+   and a ``train_dlrm`` run of the single-table shape (vocab 262,144, 26 keys
+   per sample, the same widths; 600 steps over 4M samples at lr 1e-3) served by
+   ``FusedDlrmServer`` (K1, K4) in the same variants. Gates (the JAX package's, tests/test_auc_parity.py):
+   fp32 AUC > 0.55, |delta int8| < 1e-3, |delta w8a8| < 5e-3.
+10. K4 forward and backward timed at the training shape (CUDA-graph
+   replay) beside their plain versions, ``torch.bmm`` yardsticks (bf16 z z^T
+   forward; f32 (dzzt) z backward, TF32 off) and their bounds (bytes; the
+   backward's f32 FMAs over the card's non-tensor f32 rate take less), and
+   the train step: wall time (median of 10), device time and idle share from
+   ``torch.profiler``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -79,17 +105,33 @@ SEED = 2026
 
 RTOL = 1e-5  # K2/K3 vs plain: f32 summation order only
 REL_LOGITS = 5e-3  # fold vs no fold, the JAX package's bar (test_fused_models.py)
+TRAIN_STEPS = 200  # steps of each training run (batch BATCH)
+TRAIN_LR = 5e-3
+N_TRAIN = 800_000  # training samples (TRAIN_STEPS * BATCH = 819,200 drawn with replacement)
+N_EVAL = 65_536  # held-out samples the served checkpoint scores
+SINGLE_VOCAB = 262_144  # the single-table run: one table, 26 keys per sample
+# The single-table run memorizes at N_TRAIN / TRAIN_STEPS: drawn with
+# replacement, most of a late batch was seen before, and each sample's rare
+# keys (Zipf over 262,144 ids) let the full-width model learn its label, so
+# the held-out AUC stayed at 0.50 (on the card and on the CPU alike). With
+# 4M samples and 600 steps it generalizes, but at lr 5e-3 its first steps
+# spike and the outcome hangs on rounding (held-out AUC 0.61 on the CPU port,
+# 0.52 on the card); at lr 1e-3 it does not spike (0.69 on the CPU port).
+SINGLE_N_TRAIN, SINGLE_STEPS, SINGLE_LR = 4_000_000, 600, 1e-3
+GRAD_TOL = 1e-4  # card vs CPU gradients: max |delta| / max |grad| per tensor
+SERVE_VARIANTS = ("fp32", "int8", "int8+dense_w8a8")
+AUC_MIN, AUC_INT8, AUC_W8A8 = 0.55, 1e-3, 5e-3  # tests/test_auc_parity.py
 K5_TOL = 1e-6  # K5 vs plain, sigmoid / tanh / gelu: rtol and atol (libm ulps)
 W8A8_LOGITS = 1e-2  # w8a8 logits vs the CPU port: |delta| / max|logit|
 K5_ACTS = (None, "relu", "sigmoid", "tanh", "gelu")
 
 # Dense peaks (NVIDIA data sheets, without sparsity): memory bytes/s, bf16
-# tensor FLOP/s, int8 tensor OP/s.
+# tensor FLOP/s, int8 tensor OP/s, f32 FLOP/s outside the tensor cores.
 PEAKS = (
-    ("H200", 4.8e12, 989e12, 1979e12),
-    ("H100 NVL", 3.9e12, 835e12, 1671e12),
-    ("H100 PCIe", 2.0e12, 756e12, 1513e12),
-    ("H100", 3.35e12, 989e12, 1979e12),  # SXM
+    ("H200", 4.8e12, 989e12, 1979e12, 67e12),
+    ("H100 NVL", 3.9e12, 835e12, 1671e12, 60e12),
+    ("H100 PCIe", 2.0e12, 756e12, 1513e12, 51e12),
+    ("H100", 3.35e12, 989e12, 1979e12, 67e12),  # SXM
 )
 
 SOURCES = {
@@ -101,11 +143,16 @@ SOURCES = {
                                  "hugectr_backend_tpu/ops/fused_interaction.py:620"),
     "w8a8_dense": ("hugectr_backend_tpu_torch/csrc/w8a8_dense.cu",
                    "hugectr_backend_tpu/ops/quant_matmul.py:49"),
+    "fused_dot_interaction": ("hugectr_backend_tpu_torch/csrc/dot_interaction.cu",
+                              "hugectr_backend_tpu/ops/fused_interaction.py:65"),
+    "dot_interaction_bwd": ("hugectr_backend_tpu_torch/csrc/dot_interaction_bwd.cu",
+                            "hugectr_backend_tpu/ops/fused_interaction.py:150"),
 }
 
 
 def peaks(name: str):
-    """-> (memory bytes/s, bf16 FLOP/s, int8 OP/s) of the card."""
+    """-> (memory bytes/s, bf16 FLOP/s, int8 OP/s, f32 non-tensor FLOP/s) of
+    the card."""
     for key, *rates in PEAKS:
         if key in name:
             return rates
@@ -274,6 +321,104 @@ def k5_edge_checks(dev) -> int:
         k5_check(got, w8a8_dense_plain(x, wq, ws, b, act), act, "K 479, rows padded to 480")
         n_checks += 1
     return n_checks
+
+
+def bwd_err(got, want, feats: int, gmax: float, zm: float, what: str) -> float:
+    """Backward kernel vs plain: rtol RTOL, atol 1e-6 * F * max|g| * max|z|
+    (f32 z). -> max |err|."""
+    err = (got - want).abs()
+    if got.shape != want.shape or not bool(
+            (err <= 1e-6 * feats * gmax * zm + RTOL * want.abs()).all()):
+        raise AssertionError(f"{what}: kernel != plain (max err {float(err.max())})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def k4_edge_checks(dev) -> int:
+    """K4 forward and backward (through autograd) against their plain
+    versions; the chunked backward with phantom rows and unmapped subs."""
+    from hugectr_backend_tpu_torch.ops.fused_interaction import (
+        dot_interaction_parts,
+        dot_interaction_parts_bwd_ref,
+        fused_dot_interaction,
+        fused_dot_interaction_bwd_ref,
+        fused_dot_interaction_ref,
+        part_major_order,
+    )
+
+    g = torch.Generator().manual_seed(4)
+    n_checks = 0
+    for b in (1, 7, 4096):
+        for d in (16, 36, 128):
+            for t in (1, 26):
+                bottom = torch.randn(b, d, generator=g).to(dev)
+                emb = torch.randn(b, t, d, generator=g).to(dev)
+                got = fused_dot_interaction(bottom, emb)
+                want = fused_dot_interaction_ref(bottom, emb)
+                ok, err = interaction_err(got, want, zmax([bottom] + list(emb.unbind(1))))
+                if not ok:
+                    raise AssertionError(f"K4 B={b} T={t} D={d}: max err {err}")
+                gout = torch.randn(tuple(got.shape), generator=g).to(dev)
+                want_b, want_e = fused_dot_interaction_bwd_ref(bottom, emb, gout)
+                gm = float(gout.abs().max())
+                zm = max(float(bottom.abs().max()), float(emb.abs().max()))
+                for need_b, need_e in ((True, True), (False, True), (True, False)):
+                    xb = bottom.clone().requires_grad_(need_b)
+                    xe = emb.clone().requires_grad_(need_e)
+                    wrt = [x for x, need in ((xb, need_b), (xe, need_e)) if need]
+                    grads = list(torch.autograd.grad(fused_dot_interaction(xb, xe), wrt, gout))
+                    what = f"K4 backward B={b} T={t} D={d} needs {need_b, need_e}"
+                    if need_b:
+                        bwd_err(grads.pop(0), want_b, t + 1, gm, zm, what + " g_bottom")
+                    if need_e:
+                        bwd_err(grads.pop(0), want_e, t + 1, gm, zm, what + " g_emb")
+                    n_checks += 1
+    general = ((1, 2), (0, 0), (2, 0), (0, 3), (1, 0), (0, 1))
+    for b, d in ((7, 36), (4096, DIM)):
+        for fmap in (general, part_major_order(general)[1]):
+            bottom = torch.randn(b, d, generator=g).to(dev).requires_grad_()
+            parts = [torch.randn(n, s, d, generator=g).to(dev).requires_grad_()
+                     for n, s in ((5, b + 3), (3, b), (1, b + 8))]
+            out = dot_interaction_parts(bottom, parts, fmap)
+            gout = torch.randn(tuple(out.shape), generator=g).to(dev)
+            grads = torch.autograd.grad(out, [bottom] + parts, gout)
+            want_b, want_p = dot_interaction_parts_bwd_ref(bottom.detach(),
+                                                           [p.detach() for p in parts], fmap, gout)
+            gm = float(gout.abs().max())
+            zm = max(float(x.detach().abs().max()) for x in [bottom] + parts)
+            what = f"K2 backward B={b} D={d} map {fmap}"
+            bwd_err(grads[0], want_b, len(fmap) + 1, gm, zm, what)
+            for i, (gp, wp) in enumerate(zip(grads[1:], want_p)):
+                bwd_err(gp, wp, len(fmap) + 1, gm, zm, f"{what} part {i}")
+                unmapped = [s for s in range(gp.shape[0]) if (i, s) not in fmap]
+                if gp[:, b:].any() or (unmapped and gp[unmapped].any()):
+                    raise AssertionError(f"{what} part {i}: phantom rows or unmapped "
+                                         "subs got a gradient")
+            n_checks += 1
+    return n_checks
+
+
+def forward_only_checks(dev) -> int:
+    """K3 and K5 have no backward: under autograd their wrappers raise."""
+    from hugectr_backend_tpu_torch.ops.fused_interaction import dot_interaction_oh_parts
+    from hugectr_backend_tpu_torch.ops.quant_matmul import w8a8_dense
+
+    bottom = torch.randn(8, DIM, device=dev, requires_grad=True)
+    arena = torch.zeros(16, DIM, dtype=torch.int8, device=dev)
+    slots = torch.zeros(1, 8, dtype=torch.int32, device=dev)
+    parts = [torch.randn(1, 8, DIM, device=dev)]
+    x = torch.randn(8, 64, device=dev, requires_grad=True)
+    wq = torch.ones(16, 64, dtype=torch.int8, device=dev)
+    calls = (lambda: dot_interaction_oh_parts(bottom, arena, slots, None, parts, ((0, 0),)),
+             lambda: w8a8_dense(x, wq, torch.ones(16, device=dev), None, "relu"))
+    for name, call in zip(("K3", "K5"), calls):
+        try:
+            call()
+        except RuntimeError as e:
+            if "forward-only" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} did not raise under autograd")
+    return len(calls)
 
 
 # --------------------------------------------------------------- main path
@@ -448,23 +593,31 @@ def timings(kernel, plain, library) -> dict:
     }
 
 
-def predict_profile(srv, batches):
-    """Device kernel time per predict (torch.profiler, CUPTI) and the
-    kernels that take it. -> (busy_ms or None, [(name, ms per predict)])."""
+def device_profile(run, n: int):
+    """Device kernel time per unit of work (torch.profiler, CUPTI) and the
+    kernels that take it, over ``run()``, which does ``n`` units.
+    -> (busy_ms or None, [(name, ms per unit)])."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for bt in batches:
-            predict_sync(srv, *bt)
+        run()
+        torch.cuda.synchronize()
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # User annotations (Optimizer.step#Adam.step) are ranges on the
+        # device timeline that span kernels: not device work of their own.
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     if not by_name:
         return None, []
-    n = len(batches)
     top = sorted(((k[:80], v / n) for k, v in by_name.items()), key=lambda kv: -kv[1])
     return sum(by_name.values()) / n, top[:8]
+
+
+def predict_profile(srv, batches):
+    """Device kernel time per predict and the kernels that take it."""
+    return device_profile(lambda: [predict_sync(srv, *bt) for bt in batches], len(batches))
 
 
 def k1_measure(args, bw):
@@ -515,6 +668,44 @@ def interaction_measure(name, fn, ref, args, feats, in_bytes, bw, flops):
         "shape": {"batch": b, "features": f, "d": d},
         "max_abs_err": err,
         **timings(lambda: fn(*args), lambda: ref(*args), lambda: torch.bmm(z, zt)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def k4_bwd_measure(bottom, emb, g, bw, f32_flops):
+    """K4's backward kernel at the training shape against its plain version;
+    the yardstick is ``torch.bmm(dzzt, z)`` in f32 (TF32 off) on the
+    scattered symmetric adjoint. Bound: max((g + z read, dz written) bytes /
+    memory rate, 2 B F^2 D f32 FMA operations / the non-tensor f32 rate)."""
+    from hugectr_backend_tpu_torch.ops.fused_interaction import (
+        fused_dot_interaction_bwd,
+        fused_dot_interaction_bwd_ref,
+    )
+
+    (gb, ge), (wb, we) = (fused_dot_interaction_bwd(bottom, emb, g),
+                          fused_dot_interaction_bwd_ref(bottom, emb, g))
+    torch.cuda.synchronize()
+    b, t, d = emb.shape
+    f = t + 1
+    gm = float(g.abs().max())
+    zm = max(float(bottom.abs().max()), float(emb.abs().max()))
+    err = max(bwd_err(gb, wb, f, gm, zm, "K4 backward at the training shape: g_bottom"),
+              bwd_err(ge, we, f, gm, zm, "K4 backward at the training shape: g_emb"))
+    del gb, ge, wb, we
+    rows, cols = torch.triu_indices(f, f, 1, device=g.device)
+    dzzt = torch.zeros(b, f, f, device=g.device)
+    dzzt[:, rows, cols] = g[:, d:]
+    dzzt = dzzt + dzzt.transpose(1, 2)
+    z = torch.cat([bottom[:, None, :], emb], dim=1)
+    t_bytes = (g.numel() + 2 * b * f * d) * 4 / bw * 1e3
+    t_ops = 2.0 * b * f * f * d / f32_flops * 1e3
+    return {
+        "shape": {"batch": b, "features": f, "d": d},
+        "max_abs_err": err,
+        **timings(lambda: fused_dot_interaction_bwd(bottom, emb, g),
+                  lambda: fused_dot_interaction_bwd_ref(bottom, emb, g),
+                  lambda: torch.bmm(dzzt, z)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
@@ -626,6 +817,137 @@ def fold_vs_k2(fold, no_fold) -> float:
     return worst
 
 
+# ---------------------------------------------------------------- training
+
+
+def split(data, n_train: int):
+    """-> (the first n_train samples as a dataset of the same kind, the held-out
+    (keys_idx, dense, labels))."""
+    train = type(data)(data.key_ids, data.keys_idx[:n_train], data.dense[:n_train],
+                       data.labels[:n_train], data.base_rate)
+    return train, (data.keys_idx[n_train:], data.dense[n_train:], data.labels[n_train:])
+
+
+def train_counted(train_fn, data, dev, steps: int, batch: int, lr: float, seed: int):
+    """One training run of the port with the launch counts set to 0 just
+    before and read just after. K4 forward and backward must launch once per
+    step, the loss stay finite and its last 10 steps average below its first
+    10. -> (model, tables, losses, launches, seconds)."""
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    model, tables, losses = train_fn(data, dim=DIM, steps=steps, batch=batch, lr=lr,
+                                     seed=seed, bottom_widths=BOTTOM[:-1], top_widths=TOP,
+                                     device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if dev.type == "cuda":
+        for name in ("fused_dot_interaction", "dot_interaction_bwd"):
+            if launches.get(name, 0) != steps:
+                raise AssertionError(f"training: {launches.get(name, 0)} launches of {name} "
+                                     f"in {steps} steps, expected one per step")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"training: loss not finite: {losses}")
+    if not losses[-10:].mean() < losses[:10].mean():
+        raise AssertionError(f"training: the loss did not fall ({losses[:10].mean()} -> "
+                             f"{losses[-10:].mean()})")
+    return model, tables, losses, launches, seconds
+
+
+def grad_check(model, table: np.ndarray, offsets, data, batch: int, seed: int, dev):
+    """One batch through the loss on the card (the whole table, as in
+    training) and on the CPU (the port's plain versions; only the looked-up
+    rows). Every parameter's gradient and the looked-up rows' must agree
+    within GRAD_TOL * max|grad|. -> (worst relative difference, the
+    interaction's inputs on the card, for timing)."""
+    import copy
+
+    import hugectr_backend_tpu_torch.models.dlrm as dl
+    from hugectr_backend_tpu_torch.eval import dlrm_loss
+
+    sel = np.random.default_rng(seed).integers(0, len(data.labels), batch)
+    kidx = data.keys_idx[sel].astype(np.int64) + offsets
+    uniq, inv = np.unique(kidx, return_inverse=True)
+    dense, labels = torch.from_numpy(data.dense[sel]), torch.from_numpy(data.labels[sel])
+    full = torch.from_numpy(table).to(dev).requires_grad_()
+    seen = []
+    real = dl.fused_dot_interaction
+    dl.fused_dot_interaction = lambda b, e: seen.append((b.detach(), e.detach())) or real(b, e)
+    try:
+        loss = dlrm_loss(model, full, torch.from_numpy(kidx).to(dev), dense.to(dev),
+                         labels.to(dev))
+        card = torch.autograd.grad(loss, list(model.parameters()) + [full])
+    finally:
+        dl.fused_dot_interaction = real
+    card = [g.cpu() for g in card[:-1]] + [card[-1][torch.from_numpy(uniq).to(dev)].cpu()]
+    cpu_model = copy.deepcopy(model).cpu()
+    rows = torch.from_numpy(table[uniq]).requires_grad_()
+    loss_cpu = dlrm_loss(cpu_model, rows, torch.from_numpy(inv.reshape(kidx.shape)), dense,
+                         labels)
+    host = torch.autograd.grad(loss_cpu, list(cpu_model.parameters()) + [rows])
+    names = [n for n, _ in model.named_parameters()] + ["table rows"]
+    worst = 0.0
+    for name, gc, gh in zip(names, card, host):
+        rel = float((gc - gh).abs().max() / (gh.abs().max() + 1e-30))
+        worst = max(worst, rel)
+        if not rel <= GRAD_TOL:
+            raise AssertionError(f"gradient of {name}: card vs CPU {rel} > {GRAD_TOL}")
+    if abs(float(loss.detach()) - float(loss_cpu.detach())) > 1e-4 * abs(float(loss_cpu.detach())):
+        raise AssertionError(f"loss card {float(loss.detach())} vs CPU {float(loss_cpu.detach())}")
+    return worst, seen[0]
+
+
+def serve_variants(score_fn, held_out, dev) -> tuple:
+    """Score the held-out set in each of SERVE_VARIANTS with its own launch
+    counts, and hold the AUCs to the JAX package's gates.
+    -> ({variant: auc}, {variant: launches})."""
+    from hugectr_backend_tpu_torch.eval import VARIANTS, auc
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    kidx, dense, labels = held_out
+    aucs, launches = {}, {}
+    for name in SERVE_VARIANTS:
+        qb, fp8, dfmt = VARIANTS[name]
+        kernels.launches.clear()
+        scores = score_fn(kidx, dense, qb, fp8, dfmt)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        launches[name] = dict(kernels.launches)
+        if scores.shape != labels.shape or not np.isfinite(scores).all():
+            raise AssertionError(f"{name}: scores not finite [{labels.shape[0]}]")
+        aucs[name] = auc(labels, scores)
+    d8 = aucs["int8"] - aucs["fp32"]
+    dw = aucs["int8+dense_w8a8"] - aucs["fp32"]
+    if not (aucs["fp32"] > AUC_MIN and abs(d8) < AUC_INT8 and abs(dw) < AUC_W8A8):
+        raise AssertionError(f"AUC gates (fp32 > {AUC_MIN}, |int8 delta| < {AUC_INT8}, "
+                             f"|w8a8 delta| < {AUC_W8A8}) failed: {aucs}")
+    return aucs, launches
+
+
+def train_step_timing(trainer, data, batch: int, seed: int, dev) -> dict:
+    """A train step at full width: wall time (host clock around the step and
+    a synchronize), median of 10 after 2 warm-up steps; device kernel time
+    per step and the idle share from torch.profiler over 5 more steps."""
+    rs = np.random.default_rng(seed)
+    batches = [trainer.batch(data, rs.integers(0, len(data.labels), batch)) for _ in range(17)]
+    ts = []
+    for bt in batches[:12]:
+        t0 = time.perf_counter()
+        trainer.step(*bt)
+        torch.cuda.synchronize(dev)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    ts = sorted(ts[2:])
+    med = ts[len(ts) // 2]
+    busy, top = device_profile(lambda: [trainer.step(*bt) for bt in batches[12:]], 5)
+    return {"batch": batch, "median": med, "min": ts[0], "max": ts[-1], "runs": len(ts),
+            "device_kernel_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / med,
+            "top_device_kernels_ms": top}
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -654,7 +976,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(f"card: {card} | nvidia-smi: {smi}", flush=True)
-    bw, flops, int8_ops = peaks(card)
+    bw, flops, int8_ops, f32_flops = peaks(card)
 
     # Phase 1: build.
     t0 = time.perf_counter()
@@ -673,10 +995,16 @@ def main() -> int:
     n1 = k1_edge_checks(dev)
     n23 = k2_k3_edge_checks(dev)
     n5 = k5_edge_checks(dev)
+    # Phase 7's checks run here too, before anything long.
+    n4 = k4_edge_checks(dev)
+    n_fo = forward_only_checks(dev)
     torch.cuda.synchronize()
     print(f"edge checks: K1 {n1} bit-exact, K2/K3 {n23} within rtol {RTOL}, "
           f"atol 1e-6*max|z|^2, K5 {n5} (bit-exact for act None / relu, else "
-          f"rtol = atol = {K5_TOL}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"rtol = atol = {K5_TOL}), K4 and the backward kernel {n4} within rtol "
+          f"{RTOL} and atol 1e-6*max|z|^2 (forward) / 1e-6*F*max|g|*max|z| "
+          f"(backward), {n_fo} forward-only kernels raise under autograd "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # Phase 3: the main path at full width.
     cards = [min(c, ROW_CAP) for c in CRITEO_CARDS]
@@ -824,6 +1152,102 @@ def main() -> int:
     emit({"kernel": "w8a8_dense", "shape": "sum of the 8 layers of one predict",
           **results["w8a8_dense"], "card": card, "nvidia_smi": smi})
     launches["w8a8_dense"] = qlaunches["w8a8_dense"]
+
+    # Phase 8: training at full width (this slice's main path), then the
+    # gradients on one batch against the port on the CPU.
+    from hugectr_backend_tpu_torch.eval import (
+        make_click_dataset,
+        make_multi_click_dataset,
+        make_trainer,
+        multi_serving_scores,
+        serving_scores,
+        train_dlrm,
+        train_dlrm_multi,
+    )
+    from hugectr_backend_tpu_torch.ops.fused_interaction import (
+        fused_dot_interaction,
+        fused_dot_interaction_ref,
+    )
+
+    t0 = time.perf_counter()
+    mdata = make_multi_click_dataset(N_TRAIN + N_EVAL, cards, seed=SEED)
+    mtrain, mheld = split(mdata, N_TRAIN)
+    print(f"multi-table click data: {N_TRAIN} + {N_EVAL} samples over {len(cards)} tables "
+          f"({sum(cards)} rows), {time.perf_counter() - t0:.1f} s", flush=True)
+    model_m, tables_m, losses_m, tl_m, secs = train_counted(
+        train_dlrm_multi, mtrain, dev, TRAIN_STEPS, BATCH, TRAIN_LR, SEED)
+    print(f"train_dlrm_multi: {TRAIN_STEPS} steps x {BATCH} in {secs:.1f} s, loss "
+          f"{losses_m[:10].mean():.5f} (first 10) -> {losses_m[-10:].mean():.5f} (last 10); "
+          f"launches {tl_m}", flush=True)
+    offsets = np.concatenate([[0], np.cumsum(cards)])[:-1]
+    table_m = np.concatenate(tables_m)
+    worst_grad, (k4_bottom, k4_emb) = grad_check(model_m, table_m, offsets, mtrain, BATCH,
+                                                 SEED + 2, dev)
+    print(f"gradients, card vs the CPU port on one batch of {BATCH}: worst max|delta| / "
+          f"max|grad| {worst_grad:.3g} (bar {GRAD_TOL})", flush=True)
+
+    # Phase 9: the trained checkpoints served in each variant.
+    with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_multi_") as wd:
+        aucs_m, sl_m = serve_variants(
+            lambda k, x, qb, fp8, dfmt: multi_serving_scores(
+                model_m, mdata.key_ids, tables_m, k, x, quant_bits=qb, dense_fmt=dfmt,
+                batch=BATCH, workdir=wd, device=dev), mheld, dev)
+    for name in ("gather_dequant", "dot_interaction_oh_parts"):
+        if any(sl_m[v].get(name, 0) < 1 for v in SERVE_VARIANTS):
+            raise AssertionError(f"multi-table serving never launched {name}")
+    if sl_m["int8+dense_w8a8"].get("w8a8_dense", 0) < 1:
+        raise AssertionError("the w8a8 variant never launched w8a8_dense")
+    emit({"auc_multi_table": aucs_m, "serving_launches": sl_m, "n_eval": N_EVAL,
+          "card": card, "nvidia_smi": smi})
+    del tables_m
+    t0 = time.perf_counter()
+    sdata = make_click_dataset(SINGLE_N_TRAIN + N_EVAL, SINGLE_VOCAB, num_feats=len(cards),
+                               seed=SEED + 5)
+    strain, sheld = split(sdata, SINGLE_N_TRAIN)
+    print(f"single-table click data: {SINGLE_N_TRAIN} + {N_EVAL} samples, vocab "
+          f"{SINGLE_VOCAB}, {len(cards)} keys per sample, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    model_s, table_s, losses_s, tl_s, secs = train_counted(
+        train_dlrm, strain, dev, SINGLE_STEPS, BATCH, SINGLE_LR, SEED + 5)
+    print(f"train_dlrm: {SINGLE_STEPS} steps x {BATCH} at lr {SINGLE_LR} in {secs:.1f} s, loss "
+          f"{losses_s[:10].mean():.5f} (first 10) -> {losses_s[-10:].mean():.5f} (last 10); "
+          f"launches {tl_s}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_single_") as wd:
+        aucs_s, sl_s = serve_variants(
+            lambda k, x, qb, fp8, dfmt: serving_scores(
+                model_s, sdata.key_ids, table_s, k, x, quant_bits=qb, fp8_quant=fp8,
+                dense_fmt=dfmt, batch=BATCH, workdir=wd, device=dev), sheld, dev)
+    for name in ("gather_dequant", "fused_dot_interaction"):
+        if any(sl_s[v].get(name, 0) < 1 for v in SERVE_VARIANTS):
+            raise AssertionError(f"FusedDlrmServer never launched {name}")
+    emit({"auc_single_table": aucs_s, "serving_launches": sl_s, "n_eval": N_EVAL,
+          "card": card, "nvidia_smi": smi})
+    print(f"AUC multi-table {aucs_m}; single-table {aucs_s} (gates: fp32 > {AUC_MIN}, "
+          f"|int8 delta| < {AUC_INT8}, |w8a8 delta| < {AUC_W8A8})", flush=True)
+
+    # Phase 10: K4 forward and backward at the training shape, and the step.
+    feats = [k4_bottom] + list(k4_emb.unbind(1))
+    r = interaction_measure("fused_dot_interaction", fused_dot_interaction,
+                            fused_dot_interaction_ref, (k4_bottom, k4_emb), feats,
+                            len(feats) * BATCH * DIM * 4, bw, flops)
+    results["fused_dot_interaction"] = r
+    emit({"kernel": "fused_dot_interaction", **r, "card": card, "nvidia_smi": smi})
+    n_out = DIM + len(feats) * (len(feats) - 1) // 2
+    g_out = torch.randn(BATCH, n_out, generator=torch.Generator().manual_seed(6)).to(dev)
+    r = k4_bwd_measure(k4_bottom, k4_emb, g_out, bw, f32_flops)
+    results["dot_interaction_bwd"] = r
+    emit({"kernel": "dot_interaction_bwd", **r, "card": card, "nvidia_smi": smi})
+    trainer = make_trainer(sum(cards), NUM_DENSE, len(cards), DIM, BOTTOM[:-1], TOP, TRAIN_LR,
+                           SEED, init=(model_m.state_dict(), table_m), offsets=offsets,
+                           device=dev)
+    emit({"train_step_ms": train_step_timing(trainer, mtrain, BATCH, SEED + 3, dev),
+          "model": "26 tables, 1,855,979 x 128 f32 rows, Adam", "card": card,
+          "nvidia_smi": smi})
+    launches["fused_dot_interaction"] = (tl_m["fused_dot_interaction"]
+                                         + tl_s["fused_dot_interaction"]
+                                         + sum(v.get("fused_dot_interaction", 0)
+                                               for v in sl_s.values()))
+    launches["dot_interaction_bwd"] = tl_m["dot_interaction_bwd"] + tl_s["dot_interaction_bwd"]
 
     print(smi)
     emit({"kernels": [

@@ -13,7 +13,10 @@ Hopper card. It mirrors the JAX package's module paths
 A DLRM with quantized dense layers (``DLRM(..., quant_fmt="w8a8" | "int8" |
 "fp8")``, weights from ``models.quantize_model_params``) serves through the
 same ``make_dlrm_multi_server``; ``io.DenseModel`` loads the dense-model
-format both packages write.
+format both packages write. ``eval`` trains a DLRM with its embedding table
+(``train_dlrm``, ``train_dlrm_multi``; the interaction's forward and
+backward are kernels) and gates quantized serving on AUC
+(``run_parity``, ``run_path_parity``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``. The
 Pallas kernels of the JAX package are hand-written CUDA kernels here

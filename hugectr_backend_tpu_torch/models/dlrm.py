@@ -7,14 +7,17 @@ layers with the activation fused in (w8a8 runs K5). With
 ``mixed_precision`` the f32 and weight-only products take bf16 operands and
 accumulate in f32. The interaction runs on the kernels of
 ops/fused_interaction.py: K3 when the embeddings carry a folded one-hot
-group, K2 otherwise; a stacked ``[B, T, D]`` tensor goes to K2 as strided
-feature views. Like the Pallas bodies, the kernels round z to bf16 and sum
-the products in f32.
-``DotInteraction(self_interaction=True)`` stays plain f32 PyTorch: the JAX
-package has no kernel for it either.
+group (forward-only), K2 for other chunked embeddings, K4 for a stacked
+``[B, T, D]`` tensor. Like the Pallas bodies, the kernels round z to bf16
+and sum the products in f32; K2 and K4 are differentiable (their backward
+kernel uses the f32 z, as the JAX package's VJP does), so the training path
+runs on them. ``DotInteraction(self_interaction=True)`` stays plain f32
+PyTorch: the JAX package has no kernel for it either.
 
-:func:`load_flax_dlrm_params` carries a Flax checkpoint across, so one set of
-weights serves in both packages.
+:meth:`DLRM.init_flax_` draws Flax's initialisation (``lecun_normal``
+kernels, zero biases) from an explicit generator; :func:`load_flax_dlrm_params`
+carries a Flax checkpoint across, so one set of weights serves in both
+packages.
 """
 
 from __future__ import annotations
@@ -31,7 +34,13 @@ from hugectr_backend_tpu_torch.ops.fused_interaction import (
     EmbParts,
     dot_interaction_oh_parts,
     dot_interaction_parts,
+    fused_dot_interaction,
 )
+
+# Flax's lecun_normal: a normal truncated at +-2 std, scaled so that the
+# truncated distribution has variance 1 / fan_in (the std of a unit normal
+# truncated at +-2 is 0.87962566103423978).
+_TRUNC_STD = 0.87962566103423978
 from hugectr_backend_tpu_torch.models.quant_dense import QuantDense, linear
 
 
@@ -77,7 +86,8 @@ class MLP(nn.Module):
 class DotInteraction(nn.Module):
     """DLRM pairwise-dot feature interaction: ``[bottom, triu(Z Z^T)]`` with
     Z = [bottom; emb_1..emb_T] (k = 1, or k = 0 with ``self_interaction``).
-    ``emb`` is a stacked [B, T, D] tensor or an :class:`EmbParts`."""
+    ``emb`` is a stacked [B, T, D] tensor (K4) or an :class:`EmbParts` (K2,
+    or K3 with a folded one-hot group, which is forward-only)."""
 
     def __init__(self, self_interaction: bool = False):
         super().__init__()
@@ -98,9 +108,7 @@ class DotInteraction(nn.Module):
                 return dot_interaction_oh_parts(bottom, values, slots, scales,
                                                 emb.parts, emb.feature_map)
             return dot_interaction_parts(bottom, emb.parts, emb.feature_map)
-        emb = emb.to(bottom.dtype)
-        return dot_interaction_parts(bottom, [emb.transpose(0, 1)],
-                                     [(0, t) for t in range(emb.shape[1])])
+        return fused_dot_interaction(bottom, emb.to(bottom.dtype))
 
 
 class DLRM(nn.Module):
@@ -116,6 +124,7 @@ class DLRM(nn.Module):
                  top_widths: Sequence[int] = (1024, 1024, 512, 256, 1),
                  quant_fmt: Optional[str] = None):
         super().__init__()
+        self.num_dense, self.num_tables = num_dense, num_tables
         self.bottom_widths = tuple(bottom_widths)
         self.top_widths = tuple(top_widths)
         self.quant_fmt = quant_fmt
@@ -126,6 +135,23 @@ class DLRM(nn.Module):
         self.interaction = DotInteraction()
         self.top = MLP(dim + feats * (feats - 1) // 2, top_widths,
                        final_activation=False, quant_fmt=quant_fmt)
+
+    @torch.no_grad()
+    def init_flax_(self, generator: torch.Generator) -> "DLRM":
+        """Flax's initialisation of ``nn.Dense``, drawn from ``generator``:
+        kernels ``lecun_normal`` (a normal truncated at +-2 of its std,
+        variance 1 / fan_in), biases zero. Quantized layers have no init of
+        their own (they are built from trained weights) and raise."""
+        if self.quant_fmt:
+            raise ValueError("a quantized DLRM is built from trained weights; "
+                             "init the f32 model and quantize_model_params it")
+        for mlp in (self.bottom, self.top):
+            for layer in mlp.layers:
+                std = (1.0 / layer.in_features) ** 0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                nn.init.zeros_(layer.bias)
+        return self
 
     def forward(self, dense: torch.Tensor, emb,
                 top_weight0: Optional[torch.Tensor] = None,

@@ -1,17 +1,28 @@
-"""K2 / K3: the fused DLRM dot interaction (``csrc/dot_interaction.cu``).
+"""K2 / K3 / K4: the fused DLRM dot interaction (``csrc/dot_interaction.cu``)
+and its gradient (``csrc/dot_interaction_bwd.cu``).
 
 ``concat([bottom, triu(z z^T, 1)])`` with ``z = [bottom; features]``, z
 rounded to bf16 and the products summed in f32 — what the JAX package's
-Pallas bodies compute (its ops/fused_interaction.py:298, :322, :620):
+Pallas bodies compute (its ops/fused_interaction.py:65, :298, :322, :620):
 
+- K4 :func:`fused_dot_interaction`: the features are a stacked
+  ``emb`` [B, T, D] (the training path and the single-table server), passed
+  to the kernel as strided feature views.
 - K2 :func:`dot_interaction_parts`: the features are rows of the lookup
   engine's chunked outputs (``parts[i]`` [n_i, S_i, D], S_i >= B), placed by
   ``feature_map[t] = (part, sub)``. Unmapped (phantom) rows are never read.
 - K3 :func:`dot_interaction_oh_parts`: K2 whose first ``n_oh`` features are
   built in the kernel from a small quantized one-hot arena:
-  ``bf16(f32(arena[slots[j, b]]) * scales[j, b])``.
+  ``bf16(f32(arena[slots[j, b]]) * scales[j, b])``. Forward-only, as in the
+  JAX package: under autograd it raises.
 
-The wrappers launch the kernel for CUDA tensors and raise if they cannot;
+K4 and K2 are ``torch.autograd.Function``s whose backward is the JAX
+package's custom VJP (``_bwd`` :150, ``_bwd_parts`` :536): the pair
+gradients scattered into a symmetric [F, F] matrix times the **f32** z (not
+the forward's bf16 z), summed in f32. Each feature's gradient goes back to
+its (part, sub); unmapped subs and rows past the batch get zero.
+
+The wrappers launch the kernels for CUDA tensors and raise if they cannot;
 they take the plain versions (``*_ref``) only for CPU tensors. The host-side
 helpers for feature orders (``is_part_major``, ``part_major_order``,
 ``interaction_permutation``, ``permute_top_mlp_kernel``) are copies of the
@@ -29,7 +40,7 @@ import torch
 
 from hugectr_backend_tpu_torch.ops import kernels
 
-MAX_FEATS = 128  # HPS_MAX_FEATS in csrc/dot_interaction.cu
+MAX_FEATS = 128  # HPS_MAX_FEATS in csrc/dot_interaction.cu and dot_interaction_bwd.cu
 
 # Arena dtype -> the `arena_kind` code of csrc/dot_interaction.cu.
 _ARENA_KIND = {
@@ -40,6 +51,7 @@ _ARENA_KIND = {
 }
 
 _bound = False
+_bwd_bound = False
 
 
 class EmbParts:
@@ -170,6 +182,48 @@ def dot_interaction_parts_ref(bottom, parts, feature_map) -> torch.Tensor:
     return _interaction_ref(bottom, _mapped(parts, feature_map, bottom.shape[0]))
 
 
+def fused_dot_interaction_ref(bottom, emb) -> torch.Tensor:
+    """Plain version of K4's forward (``emb`` [B, T, D])."""
+    return _interaction_ref(bottom, emb.unbind(1))
+
+
+def fused_dot_interaction_bwd_ref(bottom, emb, g):
+    """Plain version of K4's backward, line for line the JAX package's
+    ``_bwd`` (ops/fused_interaction.py:154-167): the pair gradients
+    scattered into a symmetric [B, F, F] adjoint, times the f32 z (TF32
+    off). -> (g_bottom [B, D], g_emb [B, T, D])."""
+    batch, dim = bottom.shape
+    feats = emb.shape[1] + 1
+    rows, cols = torch.triu_indices(feats, feats, 1, device=bottom.device)
+    g_bot_direct = g[:, :dim]
+    g_pairs = g[:, dim:].float()
+    dzzt = torch.zeros((batch, feats, feats), dtype=torch.float32, device=bottom.device)
+    dzzt[:, rows, cols] = g_pairs
+    dzzt = dzzt + dzzt.transpose(1, 2)
+    z = torch.cat([bottom[:, None, :], emb], dim=1).float()
+    with _full_f32_matmul():
+        dz = torch.bmm(dzzt, z)
+    g_bot = g_bot_direct + dz[:, 0, :].to(bottom.dtype)
+    g_emb = dz[:, 1:, :].to(emb.dtype)
+    return g_bot, g_emb
+
+
+def dot_interaction_parts_bwd_ref(bottom, parts, feature_map, g):
+    """Plain version of K2's backward, the JAX package's ``_bwd_parts``
+    (:536-566): :func:`fused_dot_interaction_bwd_ref` on the stacked
+    features, each feature's gradient routed back to its (part, sub).
+    Unmapped subs and rows past the batch get zero; a (part, sub) named
+    twice gets the gradient of its last feature, as there.
+    -> (g_bottom, [g_part, ...])."""
+    batch = bottom.shape[0]
+    emb = torch.stack(_mapped(parts, feature_map, batch), dim=1)
+    g_bot, g_emb = fused_dot_interaction_bwd_ref(bottom, emb, g)
+    g_parts = [torch.zeros_like(p) for p in parts]
+    for t, (p, s) in enumerate(feature_map):
+        g_parts[p][s, :batch] = g_emb[:, t]
+    return g_bot, g_parts
+
+
 def dot_interaction_oh_parts_ref(bottom, arena, slots, scales, parts,
                                  feature_map) -> torch.Tensor:
     """Plain version of K3."""
@@ -197,7 +251,10 @@ def _bind(lib) -> None:
     _bound = True
 
 
-def _launch(name, bottom, parts, feature_map, oh=None) -> torch.Tensor:
+def _feature_descs(name, bottom, parts, feature_map):
+    """Check the CUDA operands of the interaction kernels. -> (per feature
+    row pointers, per feature batch strides, vec4: every z row 16-byte
+    aligned with D % 4 == 0)."""
     dev = bottom.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -220,6 +277,13 @@ def _launch(name, bottom, parts, feature_map, oh=None) -> torch.Tensor:
         strides.append(part.stride(1))
     vec4 = int(d % 4 == 0 and bottom.data_ptr() % 16 == 0 and bottom.stride(0) % 4 == 0
                and all(x % 16 == 0 for x in ptrs) and all(x % 4 == 0 for x in strides))
+    return ptrs, strides, vec4
+
+
+def _launch(name, bottom, parts, feature_map, oh=None) -> torch.Tensor:
+    dev = bottom.device
+    ptrs, strides, vec4 = _feature_descs(name, bottom, parts, feature_map)
+    b, d = bottom.shape
     n_oh, kind, arena_ptr, arena_rows = 0, 3, None, 0
     slots_ptr = scales_ptr = None
     slots_ld = scales_ld = 0
@@ -261,13 +325,132 @@ def _launch(name, bottom, parts, feature_map, oh=None) -> torch.Tensor:
     return out
 
 
+def _bind_bwd(lib) -> None:
+    global _bwd_bound
+    if _bwd_bound:
+        return
+    lib.hps_dot_interaction_bwd.restype = ctypes.c_int
+    lib.hps_dot_interaction_bwd.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+    ]
+    _bwd_bound = True
+
+
+def dot_interaction_bwd(bottom, parts, feature_map, g, need_bottom: bool = True,
+                        need_parts=None):
+    """The backward of K2 / K4 (the kernel of ``csrc/dot_interaction_bwd.cu``;
+    its plain version :func:`dot_interaction_parts_bwd_ref` for CPU
+    tensors). ``g`` [B, D + P] is the gradient of the interaction's output;
+    ``need_bottom`` / ``need_parts[i]`` say which gradients to compute.
+    -> (g_bottom or None, [g_part or None, ...]). A part's gradient is zero
+    on unmapped subs and rows past the batch."""
+    need_parts = [True] * len(parts) if need_parts is None else list(need_parts)
+    if bottom.device.type == "cpu":
+        g_bottom, g_parts = dot_interaction_parts_bwd_ref(bottom, parts, feature_map, g)
+        return (g_bottom if need_bottom else None,
+                [gp if need else None for gp, need in zip(g_parts, need_parts)])
+    name = "dot_interaction_bwd"
+    g = g.contiguous()
+    ptrs, strides, vec4 = _feature_descs(name, bottom, parts, feature_map)
+    dev = bottom.device
+    b, d = bottom.shape
+    n = len(feature_map)
+    if (g.device != dev or g.dtype != torch.float32 or g.dim() != 2
+            or tuple(g.shape) != (b, d + (n + 1) * n // 2) or g.stride(1) != 1):
+        raise ValueError(f"{name}: the output gradient must be f32 [{b}, "
+                         f"{d + (n + 1) * n // 2}] on {dev}, got {tuple(g.shape)} {g.dtype}")
+    g_bottom = torch.empty((b, d), dtype=torch.float32, device=dev) if need_bottom else None
+    # A part's gradient starts as zeros unless the kernel writes every row of
+    # it (all subs mapped, no rows past the batch).
+    mapped = {}
+    for t, ps in enumerate(feature_map):
+        mapped[ps] = t  # a (part, sub) named twice takes its last feature's gradient
+    g_parts = []
+    for i, part in enumerate(parts):
+        if not need_parts[i]:
+            g_parts.append(None)
+            continue
+        covered = part.shape[1] == b and all((i, s) in mapped for s in range(part.shape[0]))
+        g_parts.append(torch.empty_like(part) if covered else torch.zeros_like(part))
+    gptrs, gstrides = [], []
+    for t, (p, s) in enumerate(feature_map):
+        gp = g_parts[p]
+        if gp is None or mapped[(p, s)] != t:
+            gptrs.append(0)
+            gstrides.append(0)
+        else:
+            gptrs.append(gp.data_ptr() + s * gp.stride(0) * 4)
+            gstrides.append(gp.stride(1))
+    if max(strides + gstrides, default=0) >= 2 ** 31:
+        raise ValueError(f"{name}: a feature's batch stride does not fit 31 bits")
+    if b == 0:
+        return g_bottom, g_parts
+    lib = kernels.library("dot_interaction_bwd")
+    _bind_bwd(lib)
+    arr_t = ctypes.c_longlong * max(n, 1)
+    rc = lib.hps_dot_interaction_bwd(
+        dev.index, kernels.stream_of(bottom), b, d, n, bottom.data_ptr(), bottom.stride(0),
+        arr_t(*ptrs), arr_t(*strides), g.data_ptr(), g.stride(0),
+        g_bottom.data_ptr() if g_bottom is not None else None, d,
+        arr_t(*gptrs), arr_t(*gstrides), vec4,
+    )
+    kernels.check(lib, rc, name)
+    kernels.launches[name] += 1
+    return g_bottom, g_parts
+
+
+class _Interaction(torch.autograd.Function):
+    """K4 / K2 with their gradient. ``name`` is the launch counter of the
+    forward kernel; the backward kernel counts under
+    ``dot_interaction_bwd``."""
+
+    @staticmethod
+    def forward(ctx, name, feature_map, bottom, *parts):
+        ctx.feature_map = feature_map
+        ctx.save_for_backward(bottom, *parts)
+        if bottom.device.type == "cpu":
+            return dot_interaction_parts_ref(bottom, parts, feature_map)
+        return _launch(name, bottom, parts, feature_map)
+
+    @staticmethod
+    def backward(ctx, g):
+        bottom, *parts = ctx.saved_tensors
+        g_bottom, g_parts = dot_interaction_bwd(bottom, parts, ctx.feature_map, g,
+                                                ctx.needs_input_grad[2],
+                                                ctx.needs_input_grad[3:])
+        return (None, None, g_bottom, *g_parts)
+
+
+def fused_dot_interaction(bottom: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """K4. bottom [B, D] f32, emb [B, T, D] f32 (unit column stride) ->
+    [B, D + F(F-1)/2] f32 with F = T + 1; differentiable in both inputs."""
+    if emb.dim() != 3 or emb.shape[0] != bottom.shape[0] or emb.shape[2] != bottom.shape[-1]:
+        raise ValueError(f"fused_dot_interaction: emb must be [B, T, D] for bottom "
+                         f"{tuple(bottom.shape)}, got {tuple(emb.shape)}")
+    fmap = tuple((0, t) for t in range(emb.shape[1]))
+    return _Interaction.apply("fused_dot_interaction", fmap, bottom, emb.transpose(0, 1))
+
+
+def fused_dot_interaction_bwd(bottom: torch.Tensor, emb: torch.Tensor, g: torch.Tensor):
+    """K4's backward: the kernel for CUDA tensors, for CPU tensors its plain
+    version (:func:`fused_dot_interaction_bwd_ref`). -> (g_bottom [B, D],
+    g_emb [B, T, D])."""
+    fmap = tuple((0, t) for t in range(emb.shape[1]))
+    g_bottom, (g_emb,) = dot_interaction_bwd(bottom, [emb.transpose(0, 1)], fmap, g)
+    return g_bottom, g_emb.transpose(0, 1)
+
+
 def dot_interaction_parts(bottom: torch.Tensor, parts, feature_map) -> torch.Tensor:
     """K2. bottom [B, D] f32; parts: [n_i, S_i >= B, D] f32 (any strides with
     a unit column stride); feature_map[t] = (part, sub).
-    -> [B, D + F(F-1)/2] f32 with F = 1 + len(feature_map)."""
-    if bottom.device.type == "cpu":
-        return dot_interaction_parts_ref(bottom, parts, feature_map)
-    return _launch("dot_interaction_parts", bottom, parts, feature_map)
+    -> [B, D + F(F-1)/2] f32 with F = 1 + len(feature_map); differentiable
+    in bottom and the parts."""
+    fmap = tuple(tuple(x) for x in feature_map)
+    return _Interaction.apply("dot_interaction_parts", fmap, bottom, *parts)
 
 
 def dot_interaction_oh_parts(bottom: torch.Tensor, arena: torch.Tensor,
@@ -276,7 +459,9 @@ def dot_interaction_oh_parts(bottom: torch.Tensor, arena: torch.Tensor,
     """K3. As K2, with ``n_oh = slots.shape[0]`` features before the
     ``feature_map`` ones, built from ``arena`` [R, D] (int8, fp8, bf16 or
     f32): feature j of sample b is ``f32(arena[slots[j, b]]) * scales[j, b]``
-    (``scales`` None -> 1), rounded to bf16 like every z row."""
+    (``scales`` None -> 1), rounded to bf16 like every z row. Forward-only:
+    raises when autograd would record it."""
+    kernels.forward_only("dot_interaction_oh_parts", bottom, arena, scales, *parts)
     if bottom.device.type == "cpu":
         return dot_interaction_oh_parts_ref(bottom, arena, slots, scales, parts,
                                             feature_map)

@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gather_dequant", "dot_interaction", "w8a8_dense")
+SOURCES = ("gather_dequant", "dot_interaction", "dot_interaction_bwd", "w8a8_dense")
 
 #: Launch count per kernel (see the module docstring).
 launches: "collections.Counter[str]" = collections.Counter()
@@ -119,6 +119,16 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.hps_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def forward_only(name: str, *tensors) -> None:
+    """Raise when autograd would record ``name``: a kernel without a
+    backward must not hand back a result cut from the graph."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only (it has no backward): call it under "
+            "torch.no_grad() or torch.inference_mode(), or on inputs that do "
+            "not require grad")
 
 
 def stream_of(t) -> int:

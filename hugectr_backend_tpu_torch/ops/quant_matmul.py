@@ -16,7 +16,8 @@ reads with 16-byte copies); they are ignored.
 :func:`w8a8_dense` launches the kernel for CUDA tensors and raises if it
 cannot; it takes the plain version, :func:`w8a8_dense_plain`, only for CPU
 tensors. The kernel takes any M, N and K up to :data:`MAX_K`: there are no
-alignment gates.
+alignment gates. The layer has no backward: under autograd it raises rather
+than return a result cut from the graph.
 """
 
 from __future__ import annotations
@@ -111,7 +112,9 @@ def w8a8_dense(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                act: Optional[str] = None) -> torch.Tensor:
     """K5. ``x`` [M, K] f32, ``wq`` [N, >= K] int8, ``wscale`` [N] f32, ``bias``
     [N] f32 or None, ``act`` one of None, "relu", "sigmoid", "tanh", "gelu"
-    (fused into the epilogue). -> [M, N] f32."""
+    (fused into the epilogue). -> [M, N] f32. Forward-only, as in the JAX
+    package: raises when autograd would record it."""
+    kernels.forward_only("w8a8_dense", x, wscale, bias)
     if x.device.type == "cpu":
         return w8a8_dense_plain(x, wq, wscale, bias, act)
     _check_args(x, wq, wscale, bias, act)

@@ -1,7 +1,9 @@
 """Fused DLRM serving: lookup + dense forward on one device, no host trip.
 
-Port of the JAX package's serving/program.py (``FusedMultiTableServer`` on
-its chunked path, and ``make_dlrm_multi_server``). The lookup outputs reach
+Port of the JAX package's serving/program.py: ``make_dlrm_forward`` and
+``FusedDlrmServer`` (one table, K keys per sample: K1 gathers the rows, the
+stacked [B, K, D] goes to K4), ``FusedMultiTableServer`` on its chunked path,
+and ``make_dlrm_multi_server``. In the multi-table server the lookup outputs reach
 the interaction CHUNKED (:class:`EmbParts`: one block per lookup group), so
 the [B, T, D] stack never materializes. By default the one-hot lookup group
 is not looked up at all: it is folded into the interaction kernel (K3), its
@@ -27,12 +29,62 @@ import torch
 from hugectr_backend_tpu_torch.cache import lookup_program
 from hugectr_backend_tpu_torch.cache.embedding_cache import EmbeddingCache
 from hugectr_backend_tpu_torch.config.params import InferenceParams
+from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant
 from hugectr_backend_tpu_torch.ops.fused_interaction import (
     EmbParts,
     interaction_permutation,
     is_part_major,
     part_major_order,
 )
+
+
+def make_dlrm_forward(model, keys_per_sample: int):
+    """-> ``forward(values, scales, slots, scin, dense)``: K1 gathers and
+    dequantizes ``slots`` [B * keys_per_sample] int32 (``scin``: per-key
+    scales or None), the rows are viewed as [B, keys_per_sample, D] and the
+    DLRM ``model`` runs on them (K4 for the interaction). -> logits [B]."""
+
+    def forward(values, scales, slots, scin, dense):
+        flat = gather_dequant(values, scales, slots, scin)
+        emb = flat.view(dense.shape[0], keys_per_sample, flat.shape[-1])
+        return model(dense, emb)
+
+    return forward
+
+
+class FusedDlrmServer:
+    """Serve a DLRM end to end against one table of an
+    :class:`EmbeddingCache`: the host translates keys to slots, the device
+    gathers (K1) and runs the model (K4 for the interaction). ``model`` is a
+    :class:`~hugectr_backend_tpu_torch.models.dlrm.DLRM` (f32 or quantized);
+    it is moved to the cache's device. Thread-safe like a LookupSession."""
+
+    def __init__(self, params: InferenceParams, cache: EmbeddingCache, model,
+                 table_idx: int = 0):
+        if cache.num_tables <= table_idx:
+            raise ValueError("cache does not hold the requested table")
+        self.params = params
+        self.cache = cache
+        self.model = model.to(cache.device).eval()
+        self.table_idx = table_idx
+        self.keys_per_sample = params.maxnum_catfeature_query_per_table_per_sample[table_idx]
+        self._forward = make_dlrm_forward(self.model, self.keys_per_sample)
+
+    def predict(self, keys, dense) -> torch.Tensor:
+        """keys [B, keys_per_sample] or flat; dense [B, num_dense].
+        -> logits [B] on the cache's device."""
+        dense = np.asarray(dense, dtype=np.float32)
+        b = dense.shape[0]
+        keys = np.asarray(keys, dtype=np.int64).reshape(b * self.keys_per_sample)
+        # Translate and snapshot the operands under one cache-lock hold.
+        vals, scales, slots, scin = self.cache.translate_resolve(self.table_idx, keys)
+        dev = self.cache.device
+        slots_d = torch.from_numpy(slots).to(dev)
+        scin_d = None if scin is None else torch.from_numpy(
+            np.ascontiguousarray(scin, np.float32)).to(dev)
+        dense_d = torch.from_numpy(dense).to(dev)
+        with torch.inference_mode():
+            return self._forward(vals, scales, slots_d, scin_d, dense_d)
 
 
 class FusedMultiTableServer:

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: it loads neither JAX nor the JAX package,
-and its entry points refuse to fall back to the CPU unless asked."""
+"""The PyTorch port stands alone: it loads neither JAX (nor optax) nor the JAX
+package, and its entry points refuse to fall back to the CPU unless asked."""
 
 import os
 import re
@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,6 +38,8 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.models.quant_dense",
     "hugectr_backend_tpu_torch.ops.quant_matmul",
     "hugectr_backend_tpu_torch.io.dense_model",
+    "hugectr_backend_tpu_torch.eval",
+    "hugectr_backend_tpu_torch.eval.auc_parity",
     "chip_smoke",
 ]
 
@@ -52,8 +55,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'ml_dtypes')\n"
-        "             or m.startswith(('jax.', 'flax.', 'jaxlib'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'ml_dtypes', 'optax')\n"
+        "             or m.startswith(('jax.', 'flax.', 'jaxlib', 'optax.'))\n"
         "             or m == 'hugectr_backend_tpu' or m.startswith('hugectr_backend_tpu.'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
@@ -64,7 +67,7 @@ def test_import_loads_no_jax_and_no_jax_package():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|flax|ml_dtypes|jaxlib)\b"
+    r"^\s*(?:from|import)\s+(?:jax|flax|ml_dtypes|jaxlib|optax)\b"
     r"|^\s*(?:from|import)\s+hugectr_backend_tpu(?:\.|\s|$)",
     re.MULTILINE,
 )
@@ -130,3 +133,31 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("entry", ["train_dlrm", "train_dlrm_multi", "serving_scores",
+                                   "multi_serving_scores"])
+def test_training_and_harness_need_a_card_unless_asked_for_cpu(tmp_path, entry):
+    from hugectr_backend_tpu_torch.eval import auc_parity as tap
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    data = tap.make_click_dataset(64, 20, num_feats=3, seed=0)
+    multi = tap.make_multi_click_dataset(64, [5, 9], seed=0)
+    model = tap.DLRM(13, 3, (8, 4), (8, 1)).init_flax_(torch.Generator().manual_seed(0))
+    table = np.zeros((20, 4), np.float32)
+    calls = {
+        "train_dlrm": lambda **kw: tap.train_dlrm(data, dim=4, steps=1, batch=8, **kw),
+        "train_dlrm_multi": lambda **kw: tap.train_dlrm_multi(multi, dim=4, steps=1, batch=8,
+                                                              **kw),
+        "serving_scores": lambda **kw: tap.serving_scores(
+            model, data.key_ids, table, data.keys_idx[:8], data.dense[:8],
+            workdir=str(tmp_path), **kw),
+        "multi_serving_scores": lambda **kw: tap.multi_serving_scores(
+            tap.DLRM(13, 2, (8, 4), (8, 1)).init_flax_(torch.Generator().manual_seed(0)),
+            multi.key_ids, [np.zeros((5, 4), np.float32), np.zeros((9, 4), np.float32)],
+            multi.keys_idx[:8], multi.dense[:8], workdir=str(tmp_path), **kw),
+    }
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[entry]()
+    assert np.isfinite(np.asarray(calls[entry](device="cpu")[-1])).all()
