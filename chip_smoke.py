@@ -13,7 +13,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    N = 0 and the miss row; K2 / K3 (dot interaction) on general and
    part-major feature maps with phantom rows and on int8 / fp8 / bf16 / f32
    arenas, within rtol 1e-5 and atol 1e-6 * max|z|^2: both sides see the same
-   bf16 z and differ only in the order of the f32 sums.
+   bf16 z and differ only in the order of the f32 sums. K6 (the one-hot
+   worklist gather, v1 and v2) bit-exact on int8 / fp8 / bf16 / f32 arenas
+   with members of [700] and [3, 1461, 2174, 5684] rows, several key tiles
+   per member, m_tile 512 and 4096, slots outside their member's tiles
+   (zero rows), and on int8 against K1; every invalid plan raises.
 3. The main path at full width: a Criteo-Kaggle-shaped DLRM (the 26
    categorical cardinalities, each capped at 262,144 rows; D = 128, int8;
    13 dense features; bottom MLP 512-256-128, top MLP 1024-1024-512-256-1;
@@ -71,6 +75,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    backward's f32 FMAs over the card's non-tensor f32 rate take less), and
    the train step: wall time (median of 10), device time and idle share from
    ``torch.profiler``.
+
+11. The lookup microbenchmarks (``hugectr_backend_tpu_torch.scripts``, this
+   slice's path; run last, after the training state is freed, so that the
+   4.32 GB of tables come and go after phase 10's timing), launch counts set
+   to 0 just before and read just after:
+   ``microbench_onehot`` (K6 v2 at m_tile 512-4096 and v1 at 4096 on the 16
+   tiny Criteo tables and on 18, K1 and a one-hot ``torch.matmul`` on the
+   same slots; at every tiling K6 equals K1 bit for bit and the host truth)
+   and ``microbench_true`` (configs A-J: the 18-table arena, 1 and 8 big
+   tables and the full Criteo-26 mix at the uncapped cardinalities, 33.76M
+   rows x 128 int8, every output bit-exact against the host truth). Both K6
+   kernels must launch. Then each K6 body timed at the tiny16 shape (batch
+   4096: 65,536 keys over 52 row tiles of 512) beside its plain version,
+   ``index_select`` and K1 on the same slots.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -147,6 +165,10 @@ SOURCES = {
                               "hugectr_backend_tpu/ops/fused_interaction.py:65"),
     "dot_interaction_bwd": ("hugectr_backend_tpu_torch/csrc/dot_interaction_bwd.cu",
                             "hugectr_backend_tpu/ops/fused_interaction.py:150"),
+    "onehot_gather": ("hugectr_backend_tpu_torch/csrc/onehot_gather.cu",
+                      "hugectr_backend_tpu/ops/onehot_gather.py:146"),
+    "onehot_gather_rows": ("hugectr_backend_tpu_torch/csrc/onehot_gather.cu",
+                           "hugectr_backend_tpu/ops/onehot_gather.py:218"),
 }
 
 
@@ -421,6 +443,105 @@ def forward_only_checks(dev) -> int:
     return len(calls)
 
 
+def k6_edge_checks(dev) -> int:
+    """K6 (both bodies) against its plain versions, bit for bit; int8 also
+    against K1; invalid plans and int4 arenas raise."""
+    from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant
+    from hugectr_backend_tpu_torch.ops.onehot_gather import (
+        OnehotPlan,
+        onehot_gather,
+        onehot_gather_ref,
+        onehot_gather_rows,
+        onehot_gather_rows_ref,
+        plan_onehot_worklist,
+    )
+    from hugectr_backend_tpu_torch.scripts.common import tile_layout
+
+    rng = np.random.default_rng(6)
+    r_tile, n_checks = 512, 0
+    for member_rows in ([700], [3, 1461, 2174, 5684]):
+        tiles, r_pad = tile_layout(member_rows, r_tile)
+        for m_tile in (512, 4096):
+            # Two key tiles for the first member, one for the others.
+            kpm = [m_tile * (2 if i == 0 else 1) for i in range(len(member_rows))]
+            plan = plan_onehot_worklist(tiles, kpm, m_tile=m_tile, r_tile=r_tile)
+            parts, inside = [], []
+            for (a, nt), r, k in zip(tiles, member_rows, kpm):
+                sl = a * r_tile + rng.integers(0, r, k)
+                # An eighth anywhere: other members, past the arena, negative.
+                sl[:k // 8] = rng.integers(-600, r_pad + 600, k // 8)
+                parts.append(sl)
+                inside.append((sl >= a * r_tile) & (sl < (a + nt) * r_tile))
+            slots = torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(dev)
+            inside = torch.from_numpy(np.concatenate(inside)).to(dev)
+            for dt in (torch.int8, torch.float8_e4m3fn, torch.bfloat16, torch.float32):
+                vals = rng.integers(-127, 128, (r_pad, DIM)).astype(np.float32)
+                if dt != torch.int8:
+                    vals *= rng.random((r_pad, DIM)).astype(np.float32)
+                values = torch.from_numpy(vals).to(dt).to(dev)
+                scales = torch.from_numpy((rng.random(r_pad) + 0.01).astype(np.float32)).to(dev)
+                for body, got, want in (
+                        ("v1", onehot_gather(values, scales, slots, plan),
+                         onehot_gather_ref(values, scales, slots, plan)),
+                        ("v1 no scales", onehot_gather(values, None, slots, plan),
+                         onehot_gather_ref(values, None, slots, plan)),
+                        ("v2", onehot_gather_rows(values, slots, plan),
+                         onehot_gather_rows_ref(values, slots, plan))):
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    what = f"K6 {body} {dt} members {member_rows} m_tile {m_tile}"
+                    if got.shape != (slots.shape[0], DIM) or not torch.equal(got, want):
+                        raise AssertionError(f"{what}: kernel != plain")
+                    if got[~inside].any():
+                        raise AssertionError(f"{what}: a slot outside its member's tiles "
+                                             "gave a nonzero row")
+                    n_checks += 1
+                if dt == torch.int8:
+                    for sc in (scales, None):
+                        k6 = (onehot_gather(values, sc, slots, plan) if sc is not None
+                              else onehot_gather_rows(values, slots, plan))
+                        if not torch.equal(k6[inside], gather_dequant(values, sc, slots[inside])):
+                            raise AssertionError(f"K6 int8 members {member_rows} m_tile "
+                                                 f"{m_tile}: != K1 on the same slots")
+                        n_checks += 1
+    # Invalid plans raise. `good`: one member of 2 row tiles, 2 key tiles of
+    # 512: kt [0, 0, 1, 1], rt [0, 1, 0, 1], first [1, 0, 1, 0].
+    values = torch.zeros(1024, DIM, dtype=torch.int8, device=dev)
+    slots = torch.zeros(1024, dtype=torch.int32, device=dev)
+    good = plan_onehot_worklist([(0, 2)], [1024])
+
+    def bad(kt=good.kt, rt=good.rt, first=good.first, nkt=good.num_key_tiles):
+        return OnehotPlan(np.asarray(kt, np.int32), np.asarray(rt, np.int32),
+                          np.asarray(first, np.int32), nkt)
+
+    cases = {
+        "steps of a key tile not consecutive": (values, slots, bad([0, 1, 0, 1], [0, 0, 1, 1],
+                                                                   [1, 1, 0, 0])),
+        "first not at the start of a run": (values, slots, bad(first=[1, 1, 1, 0])),
+        "a key tile without a run": (values, slots, bad([0, 0], [0, 1], [1, 0], 2)),
+        "row tile past the arena": (values, slots, bad(rt=[0, 2, 0, 1])),
+        "negative row tile": (values, slots, bad(rt=[-1, 1, 0, 1])),
+        "arena rows not a multiple of r_tile": (values[:1000], slots, good),
+        "slots length": (values, slots[:1000], good),
+    }
+    for what, (v, sl, plan) in cases.items():
+        for call in (lambda: onehot_gather(v, None, sl, plan),
+                     lambda: onehot_gather_rows(v, sl, plan)):
+            try:
+                call()
+            except ValueError:
+                n_checks += 1
+            else:
+                raise AssertionError(f"K6 did not raise on an invalid plan: {what}")
+    try:
+        onehot_gather_rows(values.view(torch.uint8), slots, good)
+    except TypeError:
+        n_checks += 1
+    else:
+        raise AssertionError("K6 did not raise on a nibble-packed int4 arena")
+    return n_checks
+
+
 # --------------------------------------------------------------- main path
 
 
@@ -559,28 +680,9 @@ def eager_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def device_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
     """Device time per call: ``per_graph`` calls captured in one CUDA graph,
     replayed, timed with CUDA events. No host launch overhead."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (replays * per_graph)
-    del graph
-    return ms
+    from hugectr_backend_tpu_torch.scripts.common import graph_us
+
+    return graph_us([fn] * per_graph, replays) / 1e3
 
 
 def timings(kernel, plain, library) -> dict:
@@ -756,6 +858,47 @@ def k5_measure(args, bw, int8_ops):
                   lambda: w8a8_dense_plain(x, wq, ws, b, act), int_mm_call(x, wq)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def k6_measure(arena, plan, slots, rows_only: bool, bw) -> dict:
+    """One K6 body at the microbenchmark's tiny16 shape: bit-exact against
+    its plain version, times (K1 on the same slots beside them), and the
+    bound: (distinct rows x row bytes + slots + distinct scales (v1) + the
+    f32 output) / memory rate."""
+    from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant
+    from hugectr_backend_tpu_torch.ops.onehot_gather import (
+        onehot_gather,
+        onehot_gather_ref,
+        onehot_gather_rows,
+        onehot_gather_rows_ref,
+    )
+
+    values, scales = arena.values, None if rows_only else arena.scales
+    if rows_only:
+        kernel = lambda: onehot_gather_rows(values, slots, plan)  # noqa: E731
+        plain = lambda: onehot_gather_rows_ref(values, slots, plan)  # noqa: E731
+    else:
+        kernel = lambda: onehot_gather(values, scales, slots, plan)  # noqa: E731
+        plain = lambda: onehot_gather_ref(values, scales, slots, plan)  # noqa: E731
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K6 {'v2' if rows_only else 'v1'} at the tiny16 shape: "
+                             "kernel != plain")
+    n, d = got.shape
+    uniq = torch.unique(slots).numel()
+    nbytes = uniq * d * values.element_size() + n * 4 + n * d * 4 + (0 if rows_only else uniq * 4)
+    idx = slots.long()
+    return {
+        "shape": {"keys": n, "d": d, "arena_rows": values.shape[0], "m_tile": plan.m_tile,
+                  "r_tile": plan.r_tile, "steps": plan.steps, "distinct_rows": uniq,
+                  "scales": "none" if rows_only else "device"},
+        "max_abs_err": float((got - want).abs().max()),
+        **timings(kernel, plain, lambda: torch.index_select(values, 0, idx)),
+        "k1_ms": device_ms(lambda: gather_dequant(values, scales, slots)),
+        "bound_ms": nbytes / bw * 1e3,
+        "bound_by": "bytes",
     }
 
 
@@ -998,13 +1141,14 @@ def main() -> int:
     # Phase 7's checks run here too, before anything long.
     n4 = k4_edge_checks(dev)
     n_fo = forward_only_checks(dev)
+    n6 = k6_edge_checks(dev)
     torch.cuda.synchronize()
     print(f"edge checks: K1 {n1} bit-exact, K2/K3 {n23} within rtol {RTOL}, "
           f"atol 1e-6*max|z|^2, K5 {n5} (bit-exact for act None / relu, else "
           f"rtol = atol = {K5_TOL}), K4 and the backward kernel {n4} within rtol "
           f"{RTOL} and atol 1e-6*max|z|^2 (forward) / 1e-6*F*max|g|*max|z| "
-          f"(backward), {n_fo} forward-only kernels raise under autograd "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"(backward), {n_fo} forward-only kernels raise under autograd, K6 {n6} "
+          f"(bit-exact, invalid plans raise) ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # Phase 3: the main path at full width.
     cards = [min(c, ROW_CAP) for c in CRITEO_CARDS]
@@ -1153,7 +1297,7 @@ def main() -> int:
           **results["w8a8_dense"], "card": card, "nvidia_smi": smi})
     launches["w8a8_dense"] = qlaunches["w8a8_dense"]
 
-    # Phase 8: training at full width (this slice's main path), then the
+    # Phase 8: training at full width (slice 3's path), then the
     # gradients on one batch against the port on the CPU.
     from hugectr_backend_tpu_torch.eval import (
         make_click_dataset,
@@ -1248,6 +1392,45 @@ def main() -> int:
                                          + sum(v.get("fused_dot_interaction", 0)
                                                for v in sl_s.values()))
     launches["dot_interaction_bwd"] = tl_m["dot_interaction_bwd"] + tl_s["dot_interaction_bwd"]
+
+    # Phase 11: the lookup microbenchmarks (slice 4's path), counted, with
+    # the uncapped Criteo tables on the card; then K6 timed. It runs last,
+    # after the training state is freed, so that it cannot move phase 10.
+    from hugectr_backend_tpu_torch.scripts import common, microbench_onehot, microbench_true
+
+    del trainer, model_m, table_m, model_s, table_s, k4_bottom, k4_emb, g_out, feats
+    torch.cuda.empty_cache()
+
+    def mb_emit(line):
+        emit({**line, "card": card, "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"card memory before the microbenchmarks: {torch.cuda.memory_allocated() / 1e9:.3f} "
+          "GB allocated", flush=True)
+    kernels.launches.clear()
+    mb_onehot = microbench_onehot.run(dev, emit=mb_emit)
+    mb_true = microbench_true.run(dev, emit=mb_emit)
+    torch.cuda.synchronize()
+    mb_launches = dict(kernels.launches)
+    print(f"microbenchmarks: {len(mb_onehot)} + {len(mb_true)} lines, launches {mb_launches}, "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name in ("onehot_gather", "onehot_gather_rows", "gather_dequant"):
+        if mb_launches.get(name, 0) < 1:
+            raise AssertionError(f"the microbenchmarks never launched {name}")
+    tiny = common.build_arena(common.TINY_CARDS, common.R_TILE, dev)
+    tiny_plan = tiny.plan(BATCH, microbench_onehot.V1_M_TILE)
+    _, tiny_slots = tiny.slots(1, BATCH)
+    for name, rows_only in (("onehot_gather", False), ("onehot_gather_rows", True)):
+        r = k6_measure(tiny, tiny_plan, tiny_slots, rows_only, bw)
+        results[name] = r
+        launches[name] = mb_launches[name]
+        emit({"kernel": name, **r, "card": card, "nvidia_smi": smi})
+    del tiny, tiny_slots
+    torch.cuda.empty_cache()
+    print(f"card memory after the microbenchmarks: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          "allocated", flush=True)
 
     print(smi)
     emit({"kernels": [

@@ -31,7 +31,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gather_dequant", "dot_interaction", "dot_interaction_bwd", "w8a8_dense")
+SOURCES = ("gather_dequant", "dot_interaction", "dot_interaction_bwd", "w8a8_dense",
+           "onehot_gather")
 
 #: Launch count per kernel (see the module docstring).
 launches: "collections.Counter[str]" = collections.Counter()

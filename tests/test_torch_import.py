@@ -40,6 +40,11 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.io.dense_model",
     "hugectr_backend_tpu_torch.eval",
     "hugectr_backend_tpu_torch.eval.auc_parity",
+    "hugectr_backend_tpu_torch.ops.onehot_gather",
+    "hugectr_backend_tpu_torch.scripts",
+    "hugectr_backend_tpu_torch.scripts.common",
+    "hugectr_backend_tpu_torch.scripts.microbench_onehot",
+    "hugectr_backend_tpu_torch.scripts.microbench_true",
     "chip_smoke",
 ]
 
