@@ -27,13 +27,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    one-hot group folded into the interaction (K1 + K3) and with
    ``HPS_OH_IN_KERNEL=0`` (K1 + K2). The launch counts of the run must show
    every kernel.
-4. K5 (the w8a8 dense layer) against its plain version on edge cases:
-   every activation, with and without a bias, at (M, K, N) = (7, 13, 512),
-   (4096, 479, 1024), (4096, 256, 1), (100, 1024, 300), and past K = 1024
-   (33, 1664, 200), (64, 1663, 96), and with weight rows padded to 16 bytes
-   (junk in the padding), rows of zeros and rows that quantize on
-   half-integers among them: bit-exact for act None and relu, within rtol
-   1e-6 and atol 1e-6 for sigmoid, tanh and gelu.
+4. K5 (the w8a8 dense layer) against its plain version at every boundary
+   of its launch plan (``k5_plan``: the GEMV, the narrow kernel, and the
+   quantize kernel with the mma.sync or the wgmma product): N in {1, 8, 9,
+   127, 128, 129, 256, 257, 1024}, M in {1, 63, 65, 4097}, K in {13, 256,
+   479, 479 with weight rows padded to 480, 1024, 2944}, and five more
+   shapes, with the activations and the bias cycling over the cases (all of
+   them on one shape per path); past N = 8 every other plan the kernel takes
+   for the shape as well (``k5_plans``). Rows of zeros and
+   rows that quantize on half-integers among the inputs, junk in the
+   weight rows' padding: bit-exact for act None and relu, within rtol 1e-6
+   and atol 1e-6 for sigmoid, tanh and gelu.
 5. The quantized-dense main path on the same deployment: ``DLRM(quant_fmt=
    "w8a8")`` with the f32 weights of phase 3 put through
    ``quantize_model_params``, served by ``make_dlrm_multi_server`` at batch
@@ -47,15 +51,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    version, one PyTorch call for the same product where there is one, and
    its bound: the larger of bytes over the memory rate and operations over
    the card's tensor-core rate for their type (bf16 for K2/K3, int8 for K5).
-   K5 is timed at each of its 8 layer shapes; its entry in the kernels line
-   sums the 8 (one predict's worth).
+   K5 is timed at each of its 8 layer shapes, each line naming the plan it
+   took; its entry in the kernels line sums the 8 (one predict's worth).
 7. K4 (``fused_dot_interaction``, the stacked interaction) and its backward
    kernel against their plain versions on edge cases: B in {1, 7, 4096},
    D in {16, 36, 128}, T in {1, 26}, with only one input requiring grad,
    and the chunked (K2) backward with phantom rows and unmapped subs
    (which must get exactly zero): forward within rtol 1e-5 and atol
    1e-6 * max|z|^2, backward within rtol 1e-5 and atol 1e-6 * F * max|g| *
-   max|z| (f32 sums in another order). K3 and K5 must raise under autograd.
+   max|z| (f32 sums in another order). The backward kernel also at its
+   plan's boundaries: F in {2, 27, 128}, D in {4, 64, 128, 130}, B in
+   {1, 777, 4099}, and K2's parts with gradients not asked for. K3 and K5
+   must raise under autograd.
 8. Training at full width: ``train_dlrm_multi`` on ``make_multi_click_dataset``
    over the same 26 capped vocabularies (one f32 table of 1,855,979 x 128
    rows under Adam), batch 4096, lr 5e-3, TRAIN_STEPS steps. K4 forward and
@@ -315,34 +322,79 @@ def k5_check(got, want, act, what):
     return err
 
 
-def k5_edge_checks(dev) -> int:
-    from hugectr_backend_tpu_torch.ops.quant_matmul import w8a8_dense, w8a8_dense_plain
+# K5's plan boundaries (ops/quant_matmul.py k5_plan): N around the GEMV
+# limit (8) and the slice and tile widths (64, 128), M around the narrow
+# kernel's 16-row items and the tiles (32, 64, 128), K from the byte path
+# (13) through the narrow kernel's register widths (128-512), the quantize
+# kernel's (479, with weight rows padded to 480, the serving path's layout;
+# 1024) and its two-pass rows past 1024 to MAX_K.
+K5_EDGE_N = (1, 8, 9, 127, 128, 129, 256, 257, 1024)
+K5_EDGE_M = (1, 63, 65, 4097)
+K5_EDGE_K = (13, 256, 479, 480, 1024, 2944)  # 480: K = 479, weight rows padded to 480
+# More shapes: a ragged last column tile, K past a chunk ring's depth with
+# rows not a multiple of 16 bytes, a wide N, K = 64 and K = 36 in the narrow
+# kernel from float4 rows, with and without 16-byte weight rows.
+K5_EDGE_EXTRA = ((100, 600, 520), (33, 1663, 96), (300, 1000, 2048), (65, 64, 300),
+                 (64, 36, 129))
+# All activations, with and without a bias, on one shape per path.
+K5_EDGE_ALL_ACTS = ((65, 480, 1024), (63, 256, 257), (65, 2944, 8))
+
+
+def k5_plans(m, n, k, wvec):
+    """The plan of ``k5_plan`` and, past N = 8, every other plan the kernel
+    takes for the shape: the narrow kernel (K <= 512) with both slice widths
+    on two and on four CTAs per SM, the mma.sync product with each tile (and
+    the one that quantizes its own rows, K <= 64), the wgmma product (16-byte
+    weight rows) with each tile height and ring depth."""
+    from hugectr_backend_tpu_torch.ops import quant_matmul as qm
+
+    plans = [qm.k5_plan(m, n, k, wvec=wvec)]
+    if n > 8:
+        if k <= 512:
+            plans += [qm._narrow_plan(m, n, k, bn, c * qm.H100_SMS)
+                      for bn in (64, 128) for c in (2, 4)]
+        if k <= 64:
+            plans.append(qm._tile_plan(m, n, k, 64, 128, 4))
+        plans += [qm._tile_plan(m, n, k, bm, bn) for bm, bn in qm.TILES]
+        if wvec:
+            plans += [qm._wgmma_plan(m, n, k, bm, st) for bm, st in ((128, 3), (64, 3), (64, 4))]
+    return plans
+
+
+def k5_edge_checks(dev) -> dict:
+    """K5 against its plain version at every plan boundary: each (M, K, N)
+    of the grid above with an activation and a bias that cycle over the
+    cases (all of them on K5_EDGE_ALL_ACTS), inputs with rows of zeros and
+    rows on half-integers, junk in the weight rows' padding; past N = 8 with
+    the plan and every other variant (``k5_plans``), through the wrapper's
+    private launcher. Bit-exact for act None / relu, else within K5_TOL.
+    -> checks per plan."""
+    from hugectr_backend_tpu_torch.ops.quant_matmul import _launch, w8a8_dense_plain
 
     g = torch.Generator().manual_seed(5)
-    n_checks = 0
-    for m, k, n in ((7, 13, 512), (4096, 479, 1024), (4096, 256, 1), (100, 1024, 300),
-                    (33, 1664, 200), (64, 1663, 96)):
+    shapes = [(m, k, n) for n in K5_EDGE_N for m in K5_EDGE_M for k in K5_EDGE_K]
+    cases = [(s, K5_ACTS[i % len(K5_ACTS)], (i // len(K5_ACTS)) % 2 == 0)
+             for i, s in enumerate(shapes + list(K5_EDGE_EXTRA))]
+    cases += [(s, act, bias) for s in K5_EDGE_ALL_ACTS for act in K5_ACTS for bias in (True, False)]
+    counts: dict = {}
+    for (m, kw, n), act, with_bias in cases:
+        k = 479 if kw == 480 else kw
         x, wq, ws, b = k5_inputs(m, k, n, g, dev)
-        for act in K5_ACTS:
-            for bias in (b, None):
-                got = w8a8_dense(x, wq, ws, bias, act)
-                want = w8a8_dense_plain(x, wq, ws, bias, act)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                k5_check(got, want, act, f"M {m} K {k} N {n} bias {bias is not None}")
-                n_checks += 1
-    # Weight rows padded to 16 bytes, junk in the padding (the serving path's
-    # layout for K = 479): the columns past K are ignored.
-    x, wq, ws, b = k5_inputs(4096, 479, 1024, g, dev)
-    padded = torch.randint(-127, 128, (1024, 480), generator=g, dtype=torch.int8).to(dev)
-    padded[:, :479] = wq
-    for act in K5_ACTS:
-        got = w8a8_dense(x, padded, ws, b, act)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        k5_check(got, w8a8_dense_plain(x, wq, ws, b, act), act, "K 479, rows padded to 480")
-        n_checks += 1
-    return n_checks
+        if kw != k:  # rows padded to 16 bytes with junk past K: ignored
+            padded = torch.randint(-127, 128, (n, kw), generator=g, dtype=torch.int8).to(dev)
+            padded[:, :k] = wq
+            wq = padded
+        bias = b if with_bias else None
+        want = w8a8_dense_plain(x, wq, ws, bias, act)
+        for p in k5_plans(m, n, k, kw % 16 == 0):
+            got = _launch(x, wq, ws, bias, act, p)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            what = f"{p.variant} {p.bm}x{p.bn}/{p.stages} grid {p.grid[0]}"
+            k5_check(got, want, act, f"M {m} K {k} (rows {kw}) N {n} bias {with_bias} ({what})")
+            key = f"{p.variant} {p.bm}x{p.bn}/{p.stages}"
+            counts[key] = counts.get(key, 0) + 1
+    return counts
 
 
 def bwd_err(got, want, feats: int, gmax: float, zm: float, what: str) -> float:
@@ -415,6 +467,64 @@ def k4_edge_checks(dev) -> int:
                 if gp[:, b:].any() or (unmapped and gp[unmapped].any()):
                     raise AssertionError(f"{what} part {i}: phantom rows or unmapped "
                                          "subs got a gradient")
+            n_checks += 1
+    return n_checks
+
+
+def bwd_edge_checks(dev) -> int:
+    """The backward kernel against its plain version at its plan's
+    boundaries: F in {2, 27, 128}, D in {4, 64, 128, 130} (130: two column
+    slices, off the 16-byte path), B in {1, 777} and the training shape at
+    B 4099 (no batch a multiple of the persistent grid); K2's chunked parts
+    with phantom rows, unmapped subs and gradients not asked for (null
+    pointers). Within bwd_err's tolerance; phantom rows and unmapped subs
+    exactly zero."""
+    from hugectr_backend_tpu_torch.ops.fused_interaction import (
+        dot_interaction_bwd,
+        dot_interaction_parts_bwd_ref,
+        fused_dot_interaction_bwd,
+        fused_dot_interaction_bwd_ref,
+    )
+
+    g = torch.Generator().manual_seed(7)
+    n_checks = 0
+    shapes = [(b, f, d) for f in (2, 27, 128) for d in (4, 64, 128, 130) for b in (1, 777)]
+    for b, f, d in shapes + [(4099, 27, DIM)]:
+        bottom = torch.randn(b, d, generator=g).to(dev)
+        emb = torch.randn(b, f - 1, d, generator=g).to(dev)
+        gout = torch.randn(b, d + f * (f - 1) // 2, generator=g).to(dev)
+        (gb, ge), (wb, we) = (fused_dot_interaction_bwd(bottom, emb, gout),
+                              fused_dot_interaction_bwd_ref(bottom, emb, gout))
+        gm = float(gout.abs().max())
+        zm = max(float(bottom.abs().max()), float(emb.abs().max()))
+        what = f"backward B={b} F={f} D={d}"
+        bwd_err(gb, wb, f, gm, zm, what + " g_bottom")
+        bwd_err(ge, we, f, gm, zm, what + " g_emb")
+        n_checks += 1
+    general = ((1, 2), (0, 0), (2, 0), (0, 3), (1, 0), (0, 1))
+    for b, d in ((777, 64), (4096, 130)):
+        bottom = torch.randn(b, d, generator=g).to(dev)
+        parts = [torch.randn(n, s, d, generator=g).to(dev) for n, s in ((5, b + 3), (3, b), (1, b + 8))]
+        gout = torch.randn(b, d + 7 * 6 // 2, generator=g).to(dev)
+        want_b, want_p = dot_interaction_parts_bwd_ref(bottom, parts, general, gout)
+        gm = float(gout.abs().max())
+        zm = max(float(x.abs().max()) for x in [bottom] + parts)
+        for need_b, need_p in ((True, (True, True, True)), (False, (True, False, True)),
+                               (True, (False, True, False))):
+            got_b, got_p = dot_interaction_bwd(bottom, parts, general, gout, need_b, need_p)
+            what = f"K2 backward B={b} D={d} needs {need_b, need_p}"
+            if (got_b is None) == need_b or any((gp is None) == nd for gp, nd in zip(got_p, need_p)):
+                raise AssertionError(f"{what}: a gradient was computed or left out wrongly")
+            if need_b:
+                bwd_err(got_b, want_b, len(general) + 1, gm, zm, what + " g_bottom")
+            for i, (gp, wp) in enumerate(zip(got_p, want_p)):
+                if gp is None:
+                    continue
+                bwd_err(gp, wp, len(general) + 1, gm, zm, f"{what} part {i}")
+                unmapped = [s for s in range(gp.shape[0]) if (i, s) not in general]
+                if gp[:, b:].any() or (unmapped and gp[unmapped].any()):
+                    raise AssertionError(f"{what} part {i}: phantom rows or unmapped subs got "
+                                         "a gradient")
             n_checks += 1
     return n_checks
 
@@ -840,9 +950,10 @@ def k5_measure(args, bw, int8_ops):
     """K5 at one layer shape of the main path: bit-exact against plain (act
     None / relu; the DLRM has no other), times, and the bound
     max((4MK + KN + 8N + 4MN) / memory rate, 2MKN / int8 rate)."""
-    from hugectr_backend_tpu_torch.ops.quant_matmul import w8a8_dense, w8a8_dense_plain
+    from hugectr_backend_tpu_torch.ops.quant_matmul import launch_plan, w8a8_dense, w8a8_dense_plain
 
     x, wq, ws, b, act = args
+    plan = launch_plan(x, wq)
     got = w8a8_dense(x, wq, ws, b, act)
     want = w8a8_dense_plain(x, wq, ws, b, act)
     torch.cuda.synchronize()
@@ -853,6 +964,7 @@ def k5_measure(args, bw, int8_ops):
     t_ops = 2.0 * m * k * n / int8_ops * 1e3
     return {
         "shape": {"m": m, "k": k, "n": n, "act": act},
+        "plan": plan._asdict(),
         "max_abs_err": err,
         **timings(lambda: w8a8_dense(x, wq, ws, b, act),
                   lambda: w8a8_dense_plain(x, wq, ws, b, act), int_mm_call(x, wq)),
@@ -1140,6 +1252,7 @@ def main() -> int:
     n5 = k5_edge_checks(dev)
     # Phase 7's checks run here too, before anything long.
     n4 = k4_edge_checks(dev)
+    nb = bwd_edge_checks(dev)
     n_fo = forward_only_checks(dev)
     n6 = k6_edge_checks(dev)
     torch.cuda.synchronize()
@@ -1147,7 +1260,8 @@ def main() -> int:
           f"atol 1e-6*max|z|^2, K5 {n5} (bit-exact for act None / relu, else "
           f"rtol = atol = {K5_TOL}), K4 and the backward kernel {n4} within rtol "
           f"{RTOL} and atol 1e-6*max|z|^2 (forward) / 1e-6*F*max|g|*max|z| "
-          f"(backward), {n_fo} forward-only kernels raise under autograd, K6 {n6} "
+          f"(backward), the backward kernel at its plan's boundaries {nb}, "
+          f"{n_fo} forward-only kernels raise under autograd, K6 {n6} "
           f"(bit-exact, invalid plans raise) ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # Phase 3: the main path at full width.
@@ -1295,6 +1409,15 @@ def main() -> int:
     }
     emit({"kernel": "w8a8_dense", "shape": "sum of the 8 layers of one predict",
           **results["w8a8_dense"], "card": card, "nvidia_smi": smi})
+    # What a predict pays: the 8 layers back to back in one CUDA graph (each
+    # on its recorded input), where no layer finds its weights and x in L2
+    # from a replay of itself.
+    from hugectr_backend_tpu_torch.ops.quant_matmul import w8a8_dense
+    from hugectr_backend_tpu_torch.scripts.common import graph_us
+
+    chain = [lambda a=a: w8a8_dense(*a) for a in rec_q.calls["w8a8_dense"]]
+    emit({"kernel": "w8a8_dense", "shape": "the 8 layers back to back in one CUDA graph",
+          "chained_ms": graph_us(chain) * len(chain) / 1e3, "card": card, "nvidia_smi": smi})
     launches["w8a8_dense"] = qlaunches["w8a8_dense"]
 
     # Phase 8: training at full width (slice 3's path), then the

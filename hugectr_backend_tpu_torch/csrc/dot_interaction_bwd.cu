@@ -24,27 +24,45 @@
 // What bounds it on an H100: device-memory bytes. At B = 4096, T = 26,
 // D = 128 it reads g (7.85 MB) and z (56.6 MB) and writes dz (56.6 MB),
 // about 121 MB or 36 us at 3.35 TB/s; its 0.76 GFLOP of f32 FMAs take about
-// 11 us at the 67 TFLOP/s non-tensor f32 rate. The design is the simple one:
-// a CTA stages a few samples in shared memory, each as S (F x Fp f32, the
-// symmetric pair gradients, zero diagonal and padding; Fp = F rounded up to
-// 8) and z (F x D f32). Then each thread owns one column d of one sample
-// and a tile of 8 rows f: for every h it reads z[h, d] once (consecutive
-// lanes, consecutive columns: conflict-free) and S[h, f0..f0+7] as two
-// broadcast float4 loads (S is symmetric, so row h holds column h), and
-// does 8 FMAs. The stores go row by row over consecutive columns
-// (coalesced). Several CTAs per SM overlap one's loads with another's FMAs.
+// 11 us at the 67 TFLOP/s non-tensor f32 rate. So the loads must stream:
+//
+// - Persistent CTAs of 128 threads (the caller's plan: as many as fit on an
+//   SM, times the SMs) walk work items (sample b, a slice of up to 128
+//   columns of D), with the next items' g row (the P pair gradients and the
+//   slice of the direct part) and z slice (F rows) in flight through a 2- or
+//   3-stage cp.async ring while the current item computes.
+// - S (F x SLD, symmetric) lives in shared memory: row h holds S[f, h] for
+//   the groups of 7 rows f a thread computes, 8 floats apart (SLD = 8 x the
+//   groups). Its diagonal and padding are zeroed once per CTA; per item, the
+//   P staged pair gradients are scattered into it through a table of their
+//   two positions, built once per CTA.
+// - A thread owns 4 columns (one float4 of z; 1 column off the 16-byte
+//   path) x 7 rows of dz: per h, one float4 of z and two broadcast float4s
+//   of S feed 28 FMAs (7 rows, not 8, so that F = 27 wastes one row in 28,
+//   not five in 32). The stores go straight from the registers, a warp over
+//   consecutive columns.
+// - No divide per element: every strided loop steps its (row, column) pair
+//   by a quotient and remainder taken once per launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define HPS_MAX_FEATS 128
-#define HPS_FT 8  // rows of dz per thread
+#define HPS_FT 7  // rows of dz per thread
+#define HPS_FG 8  // their stride in a row of S (two float4s)
 
 namespace {
 
+constexpr int THREADS = 128;
+constexpr int MAX_SMEM = 232448;
+
 struct Params {
-  int B, D, F, Fp, ns;        // F = 1 + n_feats; Fp = F rounded up to HPS_FT; ns samples per CTA
-  int per_sample;             // floats of shared memory per sample
+  int B, D, F, SLD, P;        // F = 1 + n_feats; SLD = HPS_FG x ceil(F / HPS_FT)
+  int DC, nslices;            // columns per work item; items per sample
+  int stage_floats;           // one ring stage: g pairs, g direct slice, then z slice
+  int z_off;                  // offset of the z slice in a stage (floats, multiple of 4)
+  int s_floats;               // S (F x SLD), rounded up to 4
+  int t_words;                // the pair table (P words), rounded up to 4
   const float* bottom;
   long long bottom_ld;
   const float* grad;          // [B, D + P], row stride grad_ld
@@ -65,88 +83,176 @@ __device__ __forceinline__ const float* z_row(const Params& p, int f, int b) {
   return p.feat[f - 1] + static_cast<long long>(b) * p.feat_stride[f - 1];
 }
 
-template <bool VEC4>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A strided walk i = start, start + 128, ... over a grid of `cols` columns,
+// as (row, column) without a divide per step.
+struct Walk {
+  int row, col, drow, dcol, cols;
+  __device__ __forceinline__ Walk(int start, int cols_) : cols(cols_) {
+    row = start / cols;
+    col = start - row * cols;
+    drow = THREADS / cols;
+    dcol = THREADS - drow * cols;
+  }
+  __device__ __forceinline__ void next() {
+    row += drow;
+    col += dcol;
+    if (col >= cols) {
+      col -= cols;
+      ++row;
+    }
+  }
+};
+
+// Work item `item` (sample b, column slice s) into ring stage `st`: the P
+// pair gradients, the slice of g's direct part, the F rows of the z slice.
+template <int VEC>
+__device__ __forceinline__ void issue_item(const Params& p, int item, float* st, int tid) {
+  const int b = item / p.nslices;
+  const int d0 = (item - b * p.nslices) * p.DC;
+  const int dcn = min(p.DC, p.D - d0);
+  const float* grow = p.grad + b * p.grad_ld;
+  for (int i = tid; i < p.P; i += THREADS) cp_async4(st + i, grow + p.D + i);
+  for (int i = tid; i < dcn; i += THREADS) cp_async4(st + p.P + i, grow + d0 + i);
+  float* zs = st + p.z_off;
+  const int cpr = p.DC / VEC;
+  for (Walk w(tid, cpr); w.row < p.F; w.next()) {
+    const int c = w.col * VEC;
+    const float* src = z_row(p, w.row, b) + d0 + c;
+    if constexpr (VEC == 4) {
+      cp_async16(zs + w.row * p.DC + c, c < dcn ? src : p.bottom, c < dcn);
+    } else if (c < dcn) {
+      cp_async4(zs + w.row * p.DC + c, src);
+    }
+  }
+}
+
+// Position of dz row f in a row of S: group f / HPS_FT, HPS_FG floats each.
+__device__ __forceinline__ int s_pos(int f) { return f / HPS_FT * HPS_FG + f % HPS_FT; }
+
+template <int VEC, int NST>
+__global__ void __launch_bounds__(THREADS)
     dot_interaction_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) float smem[];
-  const int F = p.F, D = p.D, Fp = p.Fp;
-  const int b0 = blockIdx.x * p.ns;
-  const int ns = min(p.ns, p.B - b0);
+  float* S = smem;                                                   // [F][SLD]
+  uint32_t* pairs = reinterpret_cast<uint32_t*>(smem + p.s_floats);  // [P]
+  float* ring = smem + p.s_floats + p.t_words;                       // NST stages
+  const int tid = threadIdx.x;
+  const int F = p.F, SLD = p.SLD, DC = p.DC;
+  const int items = p.B * p.nslices;
+  const int cpr = DC / VEC;           // column groups of an item
+  const int groups = SLD / HPS_FG;    // row groups of dz
 
-  // Stage S and z of each sample.
-  for (int s = 0; s < ns; ++s) {
-    const int b = b0 + s;
-    float* S = smem + s * p.per_sample;
-    float* z = S + F * Fp;
-    const float* gp = p.grad + b * p.grad_ld + D;
-    for (int i = threadIdx.x; i < F * Fp; i += blockDim.x) {
-      const int r = i / Fp;
-      const int c = i - r * Fp;
-      float v = 0.0f;
-      if (c < F && c != r) {
-        const int lo = min(r, c), hi = max(r, c);
-        v = __ldg(gp + lo * F - lo * (lo + 1) / 2 + (hi - lo - 1));
-      }
-      S[i] = v;
-    }
-    if (VEC4) {
-      const int cpr = D >> 2;
-      for (int i = threadIdx.x; i < F * cpr; i += blockDim.x) {
-        const int f = i / cpr;
-        const int c = (i - f * cpr) << 2;
-        *reinterpret_cast<float4*>(z + f * D + c) =
-            __ldg(reinterpret_cast<const float4*>(z_row(p, f, b) + c));
-      }
-    } else {
-      for (int i = threadIdx.x; i < F * D; i += blockDim.x) {
-        const int f = i / D;
-        const int d = i - f * D;
-        z[i] = __ldg(z_row(p, f, b) + d);
-      }
-    }
+  // The first items in flight.
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    const int item = blockIdx.x + s * gridDim.x;
+    if (item < items) issue_item<VEC>(p, item, ring + s * p.stage_floats, tid);
+    cp_async_commit();
   }
-  __syncthreads();
+  // S's diagonal and padding stay zero; pair (lo, hi) goes to S[hi][lo] and
+  // S[lo][hi] (F <= THREADS: a thread per lo).
+  for (int i = tid; i < F * SLD; i += THREADS) S[i] = 0.0f;
+  if (tid < F) {
+    const int lo = tid;
+    uint32_t* row = pairs + lo * F - ((lo * (lo + 1)) >> 1) - lo - 1;
+    for (int hi = lo + 1; hi < F; ++hi)
+      row[hi] = static_cast<uint32_t>(hi * SLD + s_pos(lo)) |
+                static_cast<uint32_t>(lo * SLD + s_pos(hi)) << 16;
+  }
 
-  const int nft = Fp / HPS_FT;
-  const int items = ns * nft * D;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int d = it % D;
-    const int rest = it / D;
-    const int ft = rest % nft;
-    const int s = rest / nft;
-    const float* S = smem + s * p.per_sample;
-    const float* z = S + F * Fp;
-    const int f0 = ft * HPS_FT;
-    float acc[HPS_FT];
-#pragma unroll
-    for (int i = 0; i < HPS_FT; ++i) acc[i] = 0.0f;
-    for (int h = 0; h < F; ++h) {
-      const float zh = z[h * D + d];
-      const float4 s0 = *reinterpret_cast<const float4*>(S + h * Fp + f0);
-      const float4 s1 = *reinterpret_cast<const float4*>(S + h * Fp + f0 + 4);
-      acc[0] = fmaf(s0.x, zh, acc[0]);
-      acc[1] = fmaf(s0.y, zh, acc[1]);
-      acc[2] = fmaf(s0.z, zh, acc[2]);
-      acc[3] = fmaf(s0.w, zh, acc[3]);
-      acc[4] = fmaf(s1.x, zh, acc[4]);
-      acc[5] = fmaf(s1.y, zh, acc[5]);
-      acc[6] = fmaf(s1.z, zh, acc[6]);
-      acc[7] = fmaf(s1.w, zh, acc[7]);
+  int k = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++k) {
+    cp_async_wait<NST - 2>();  // this thread's copies of item k have landed
+    __syncthreads();           // and everyone's; item k - 1 is done (its stage and S are free)
+    const int nxt = item + (NST - 1) * gridDim.x;
+    if (nxt < items) issue_item<VEC>(p, nxt, ring + ((k + NST - 1) % NST) * p.stage_floats, tid);
+    cp_async_commit();
+
+    const float* st = ring + (k % NST) * p.stage_floats;
+    const float* zs = st + p.z_off;
+    // S from the staged pair gradients.
+    for (int q = tid; q < p.P; q += THREADS) {
+      const uint32_t w = pairs[q];
+      const float v = st[q];
+      S[w & 0xFFFFu] = v;
+      S[w >> 16] = v;
     }
-    const int b = b0 + s;
+    __syncthreads();
+
+    const int b = item / p.nslices;
+    const int d0 = (item - b * p.nslices) * DC;
+    const int dcn = min(DC, p.D - d0);
+    for (Walk w(tid, cpr); w.row < groups; w.next()) {
+      const int f0 = w.row * HPS_FT;
+      const float* sg = S + w.row * HPS_FG;
+      const int c = w.col * VEC;
+      if (c >= dcn) continue;
+      float acc[HPS_FT][VEC];
 #pragma unroll
-    for (int i = 0; i < HPS_FT; ++i) {
-      const int f = f0 + i;
-      if (f >= F) break;
-      if (f == 0) {
-        if (p.g_bottom != nullptr) {
-          p.g_bottom[b * p.g_bottom_ld + d] = __ldg(p.grad + b * p.grad_ld + d) + acc[i];
+      for (int i = 0; i < HPS_FT; ++i)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[i][j] = 0.0f;
+#pragma unroll 3
+      for (int h = 0; h < F; ++h) {
+        float zv[VEC];
+        if constexpr (VEC == 4) {
+          const float4 z4 = *reinterpret_cast<const float4*>(zs + h * DC + c);
+          zv[0] = z4.x;
+          zv[1] = z4.y;
+          zv[2] = z4.z;
+          zv[3] = z4.w;
+        } else {
+          zv[0] = zs[h * DC + c];
         }
-      } else if (p.gfeat[f - 1] != nullptr) {
-        p.gfeat[f - 1][static_cast<long long>(b) * p.gfeat_stride[f - 1] + d] = acc[i];
+        const float4 s0 = *reinterpret_cast<const float4*>(sg + h * SLD);
+        const float4 s1 = *reinterpret_cast<const float4*>(sg + h * SLD + 4);
+        const float sv[HPS_FT] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z};
+#pragma unroll
+        for (int i = 0; i < HPS_FT; ++i)
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) acc[i][j] = fmaf(sv[i], zv[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < HPS_FT; ++i) {
+        const int f = f0 + i;
+        if (f >= F) break;
+        float* dst;
+        if (f == 0) {
+          if (p.g_bottom == nullptr) continue;
+          dst = p.g_bottom + b * p.g_bottom_ld + d0 + c;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) acc[0][j] += st[p.P + c + j];  // g[b, d] + dz[0, d]
+        } else {
+          if (p.gfeat[f - 1] == nullptr) continue;
+          dst = p.gfeat[f - 1] + static_cast<long long>(b) * p.gfeat_stride[f - 1] + d0 + c;
+        }
+        if constexpr (VEC == 4) {
+          *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        } else {
+          dst[0] = acc[i][0];
+        }
       }
     }
   }
+  cp_async_wait<0>();
 }
 
 }  // namespace
@@ -162,14 +268,19 @@ const char* hps_cuda_error_string(int err) {
 // grad [B, D + P] f32 (row stride grad_ld); g_bottom [B, D] (row stride
 // g_bottom_ld) or null; gradient of feature t at gfeat_ptrs[t] + b *
 // gfeat_strides[t], a 0 pointer is not written. `vec4`: D % 4 == 0 and
-// every z row start is 16-byte aligned (the caller checks). Strides fit in
-// 31 bits (the caller checks). Returns cudaGetLastError() after the launch.
+// every z and gradient row start is 16-byte aligned (the caller checks).
+// Strides fit in 31 bits (the caller checks). The launch plan (ring stages
+// nst, columns per item dc, grid, dynamic shared memory) comes from the
+// caller (ops/fused_interaction.py bwd_plan); a plan the kernel does not
+// take returns cudaErrorInvalidValue. Returns cudaGetLastError() after the
+// launch.
 int hps_dot_interaction_bwd(int device, void* stream, int B, int D, int n_feats,
                             const float* bottom, long long bottom_ld,
                             const long long* feat_ptrs, const long long* feat_strides,
                             const float* grad, long long grad_ld, float* g_bottom,
                             long long g_bottom_ld, const long long* gfeat_ptrs,
-                            const long long* gfeat_strides, int vec4) {
+                            const long long* gfeat_strides, int vec4, int nst, int dc, int grid,
+                            int smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_feats > HPS_MAX_FEATS || n_feats < 0 || D <= 0) {
@@ -180,8 +291,20 @@ int hps_dot_interaction_bwd(int device, void* stream, int B, int D, int n_feats,
   p.B = B;
   p.D = D;
   p.F = 1 + n_feats;
-  p.Fp = (p.F + HPS_FT - 1) / HPS_FT * HPS_FT;
-  p.per_sample = (p.F * p.Fp + p.F * D + 3) & ~3;  // keeps each sample's S 16-byte aligned
+  p.SLD = (p.F + HPS_FT - 1) / HPS_FT * HPS_FG;
+  p.P = p.F * (p.F - 1) / 2;
+  p.DC = dc;
+  p.nslices = dc > 0 ? (D + dc - 1) / dc : 0;
+  p.z_off = (p.P + dc + 3) & ~3;
+  p.stage_floats = (p.z_off + p.F * dc + 3) & ~3;
+  p.s_floats = (p.F * p.SLD + 3) & ~3;
+  p.t_words = (p.P + 3) & ~3;
+  const long long want =
+      4ll * (p.s_floats + p.t_words + static_cast<long long>(nst) * p.stage_floats);
+  if ((nst != 2 && nst != 3) || dc < 1 || dc > D || (vec4 && dc % 4 != 0) ||
+      (vec4 && D % 4 != 0) || grid < 1 || smem != want || smem > MAX_SMEM) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   p.bottom = bottom;
   p.bottom_ld = bottom_ld;
   p.grad = grad;
@@ -194,21 +317,15 @@ int hps_dot_interaction_bwd(int device, void* stream, int B, int D, int n_feats,
     p.gfeat[t] = reinterpret_cast<float*>(gfeat_ptrs[t]);
     p.gfeat_stride[t] = static_cast<int>(gfeat_strides[t]);
   }
-  const size_t per_sample_bytes = static_cast<size_t>(p.per_sample) * 4;
-  int ns = static_cast<int>((48 * 1024) / per_sample_bytes);
-  if (ns > 8) ns = 8;
-  if (ns < 1) ns = 1;
-  p.ns = ns;
-  const size_t smem = per_sample_bytes * ns;
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = vec4 ? dot_interaction_bwd_kernel<true> : dot_interaction_bwd_kernel<false>;
+  auto kern = vec4 ? (nst == 3 ? dot_interaction_bwd_kernel<4, 3>
+                               : dot_interaction_bwd_kernel<4, 2>)
+                   : (nst == 3 ? dot_interaction_bwd_kernel<1, 3>
+                               : dot_interaction_bwd_kernel<1, 2>);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int blocks = (B + ns - 1) / ns;
-  kern<<<blocks, 256, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,6 +41,15 @@ import torch
 from hugectr_backend_tpu_torch.ops import kernels
 
 MAX_FEATS = 128  # HPS_MAX_FEATS in csrc/dot_interaction.cu and dot_interaction_bwd.cu
+
+#: The H100's streaming multiprocessors, the dynamic shared memory one block
+#: may use and the shared memory of one SM (bytes): what :func:`bwd_plan`
+#: sizes the backward's grid for.
+H100_SMS = 132
+MAX_SMEM = 232448
+SM_SMEM = 233472
+_BWD_THREADS = 128  # THREADS in csrc/dot_interaction_bwd.cu
+_BWD_FT, _BWD_FG = 7, 8  # HPS_FT, HPS_FG there: rows of dz per thread, their stride in S
 
 # Arena dtype -> the `arena_kind` code of csrc/dot_interaction.cu.
 _ARENA_KIND = {
@@ -325,6 +334,57 @@ def _launch(name, bottom, parts, feature_map, oh=None) -> torch.Tensor:
     return out
 
 
+class BwdPlan(NamedTuple):
+    """How the backward kernel runs: ``stages`` of its cp.async ring, ``dc``
+    columns of D per work item (a sample's slice), ``grid`` persistent CTAs
+    of ``threads``, ``smem`` bytes of dynamic shared memory each, of which
+    ``ctas_per_sm`` fit on an SM."""
+
+    stages: int
+    dc: int
+    grid: int
+    threads: int
+    smem: int
+    ctas_per_sm: int
+
+
+def _up4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def bwd_smem(feats: int, dc: int, stages: int) -> int:
+    """Dynamic shared memory of the backward kernel for ``feats`` = F rows of
+    z: S (F x 8 ceil(F / 7) f32), the table of the F(F-1)/2 pairs' positions
+    in S, and ``stages`` ring stages of (the pair gradients, ``dc`` direct
+    values, F x ``dc`` of z)."""
+    sld = -(-feats // _BWD_FT) * _BWD_FG
+    pairs = feats * (feats - 1) // 2
+    stage = _up4(_up4(pairs + dc) + feats * dc)
+    return 4 * (_up4(feats * sld) + _up4(pairs) + stages * stage)
+
+
+def bwd_plan(batch: int, dim: int, n_feats: int, sms: int = H100_SMS) -> BwdPlan:
+    """The backward kernel's launch plan for B = ``batch``, D = ``dim`` and
+    ``n_feats`` fed features (F = n_feats + 1) on a card of ``sms`` SMs: the
+    widest column slice (up to 128) with a 3-stage ring, else 2 stages,
+    else narrower slices, that fits the shared memory of a block; as many
+    CTAs as fit on an SM, times the SMs, but no more than work items."""
+    if not 0 <= n_feats <= MAX_FEATS or dim < 1 or batch < 0:
+        raise ValueError(f"bwd_plan: no plan for B {batch}, D {dim}, {n_feats} features "
+                         f"(at most {MAX_FEATS})")
+    feats = n_feats + 1
+    first = min(dim, 128)
+    for dc in [first] + [c for c in (64, 32, 16, 8, 4) if c < first]:
+        for stages in (3, 2):
+            smem = bwd_smem(feats, dc, stages)
+            if smem <= MAX_SMEM:
+                per_sm = min(2048 // _BWD_THREADS, SM_SMEM // (smem + 1024))
+                items = batch * -(-dim // dc)
+                return BwdPlan(stages, dc, max(1, min(items, per_sm * sms)), _BWD_THREADS,
+                               smem, per_sm)
+    raise ValueError(f"bwd_plan: no plan fits for D {dim}, {n_feats} features")
+
+
 def _bind_bwd(lib) -> None:
     global _bwd_bound
     if _bwd_bound:
@@ -335,7 +395,8 @@ def _bind_bwd(lib) -> None:
         ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
     ]
     _bwd_bound = True
 
@@ -389,6 +450,10 @@ def dot_interaction_bwd(bottom, parts, feature_map, g, need_bottom: bool = True,
         raise ValueError(f"{name}: a feature's batch stride does not fit 31 bits")
     if b == 0:
         return g_bottom, g_parts
+    # The 16-byte path also stores the gradients a float4 at a time.
+    vec4 = int(vec4 and all(x % 16 == 0 for x in gptrs) and all(x % 4 == 0 for x in gstrides))
+    plan = bwd_plan(b, d, n,
+                    torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = kernels.library("dot_interaction_bwd")
     _bind_bwd(lib)
     arr_t = ctypes.c_longlong * max(n, 1)
@@ -396,7 +461,7 @@ def dot_interaction_bwd(bottom, parts, feature_map, g, need_bottom: bool = True,
         dev.index, kernels.stream_of(bottom), b, d, n, bottom.data_ptr(), bottom.stride(0),
         arr_t(*ptrs), arr_t(*strides), g.data_ptr(), g.stride(0),
         g_bottom.data_ptr() if g_bottom is not None else None, d,
-        arr_t(*gptrs), arr_t(*gstrides), vec4,
+        arr_t(*gptrs), arr_t(*gstrides), vec4, plan.stages, plan.dc, plan.grid, plan.smem,
     )
     kernels.check(lib, rc, name)
     kernels.launches[name] += 1

@@ -308,3 +308,34 @@ def test_dlrm_init_statistics():
             fw = flax[name]
             assert abs(float(w.std()) / float(fw.std()) - 1) < 0.05, name
             assert abs(float(w.abs().max()) / float(fw.abs().max()) - 1) < 0.05, name
+
+
+SM_SMEM = 233472  # shared memory of one H100 SM, 1 KB of it reserved per block
+
+
+@pytest.mark.parametrize("n_feats", [0, 1, 26, 127, 128])
+@pytest.mark.parametrize("dim", [1, 4, 36, 64, 128, 130, 1024])
+def test_backward_plan_fits(n_feats, dim):
+    """The backward kernel's plan fits an H100 for up to 128 fed features
+    and D up to 1,024: shared memory of a block, a slice of at most 128
+    columns (a multiple of 4 where D is), a 2- or 3-stage ring, a grid of
+    no more than the work items."""
+    plan = tfi.bwd_plan(777, dim, n_feats, tfi.H100_SMS)
+    assert plan.smem == tfi.bwd_smem(n_feats + 1, plan.dc, plan.stages) <= tfi.MAX_SMEM
+    assert plan.ctas_per_sm >= 1 and plan.ctas_per_sm * (plan.smem + 1024) <= SM_SMEM
+    assert plan.stages in (2, 3) and 1 <= plan.dc <= min(dim, 128)
+    assert dim % 4 or plan.dc % 4 == 0
+    assert 1 <= plan.grid <= 777 * -(-dim // plan.dc)
+
+
+def test_backward_plan_at_the_training_shape():
+    """B 4096, 26 features, D 128: persistent CTAs, a small multiple of the
+    SMs, each walking several samples through a 3-stage ring."""
+    plan = tfi.bwd_plan(4096, 128, 26, tfi.H100_SMS)
+    assert (plan.stages, plan.dc, plan.ctas_per_sm) == (3, 128, 4)
+    assert plan.grid == 4 * tfi.H100_SMS < 4096
+
+
+def test_backward_plan_refuses_too_many_features():
+    with pytest.raises(ValueError):
+        tfi.bwd_plan(8, 128, tfi.MAX_FEATS + 1)
