@@ -17,7 +17,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    worklist gather, v1 and v2) bit-exact on int8 / fp8 / bf16 / f32 arenas
    with members of [700] and [3, 1461, 2174, 5684] rows, several key tiles
    per member, m_tile 512 and 4096, slots outside their member's tiles
-   (zero rows), and on int8 against K1; every invalid plan raises.
+   (zero rows), and on int8 against K1; every invalid plan raises. The
+   grouped K1 (one launch per lookup) bit-exact on every storage kind in one
+   call, device / per-key / no scales, empty and skipped groups, one-hot
+   groups with slots outside their member (zero rows) and odd widths; K3, K2
+   and K4's forward at F in {2, 27, 128, 129, 300} (past 128 fed features
+   and past one 16-row block of pairs) with members and slots outside them,
+   and F = 700 at D = 128 refused.
 3. The main path at full width: a Criteo-Kaggle-shaped DLRM (the 26
    categorical cardinalities, each capped at 262,144 rows; D = 128, int8;
    13 dense features; bottom MLP 512-256-128, top MLP 1024-1024-512-256-1;
@@ -26,13 +32,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``make_dlrm_multi_server(...).predict`` on batches of 4096, with the
    one-hot group folded into the interaction (K1 + K3) and with
    ``HPS_OH_IN_KERNEL=0`` (K1 + K2). The launch counts of the run must show
-   every kernel.
+   every kernel, and K1 exactly once per lookup and per predict on both
+   paths.
 4. K5 (the w8a8 dense layer) against its plain version at every boundary
    of its launch plan (``k5_plan``: the GEMV, the narrow kernel, and the
    quantize kernel with the mma.sync or the wgmma product): N in {1, 8, 9,
    127, 128, 129, 256, 257, 1024}, M in {1, 63, 65, 4097}, K in {13, 256,
-   479, 479 with weight rows padded to 480, 1024, 2944}, and five more
-   shapes, with the activations and the bias cycling over the cases (all of
+   479, 479 with weight rows padded to 480, 1024, 2944}, five more shapes
+   and six with K from 2945 to MAX_K (29,056), with the activations and the
+   bias cycling over the cases (all of
    them on one shape per path); past N = 8 every other plan the kernel takes
    for the shape as well (``k5_plans``). Rows of zeros and
    rows that quantize on half-integers among the inputs, junk in the
@@ -52,7 +60,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its bound: the larger of bytes over the memory rate and operations over
    the card's tensor-core rate for their type (bf16 for K2/K3, int8 for K5).
    K5 is timed at each of its 8 layer shapes, each line naming the plan it
-   took; its entry in the kernels line sums the 8 (one predict's worth).
+   took; its entry in the kernels line sums the 8 (one predict's worth). K1
+   is timed as each path's one grouped launch (its library time: the
+   groups' ``index_select`` calls chained in one graph; the fold path's is
+   the kernels line's entry) and on the arena group alone.
 7. K4 (``fused_dot_interaction``, the stacked interaction) and its backward
    kernel against their plain versions on edge cases: B in {1, 7, 4096},
    D in {16, 36, 128}, T in {1, 26}, with only one input requiring grad,
@@ -129,6 +140,8 @@ TOP = (1024, 1024, 512, 256, 1)
 SEED = 2026
 
 RTOL = 1e-5  # K2/K3 vs plain: f32 summation order only
+BWD_MAX_F = 147  # the backward's largest F (S, the pair table and a ring in shared memory)
+K3_EDGE_F = (2, 27, 128, 129, 300)  # forward interaction: past 128 fed descriptors, row blocks
 REL_LOGITS = 5e-3  # fold vs no fold, the JAX package's bar (test_fused_models.py)
 TRAIN_STEPS = 200  # steps of each training run (batch BATCH)
 TRAIN_LR = 5e-3
@@ -294,6 +307,165 @@ def k2_k3_edge_checks(dev) -> int:
     return n_checks
 
 
+def k1_group_edge_checks(dev) -> int:
+    """The grouped K1 (one launch per lookup) bit-exact against its plain
+    version: every storage kind in one call, device, per-key and no scales,
+    empty and skipped groups, a one-hot group with slots outside their
+    member (zero rows), odd widths (the element path), and groups whose
+    sizes are no multiple of a unit, so that one warp's units straddle
+    groups."""
+    from hugectr_backend_tpu_torch.ops.dequant_gather import (
+        gather_dequant_groups,
+        gather_dequant_groups_ref,
+    )
+    from hugectr_backend_tpu_torch.tiers.hbm import quantize_host_rows
+
+    rng = np.random.default_rng(11)
+    n_checks = 0
+    tables = []
+    for quant, dim, rows in (("int8", DIM, 1000), ("fp8", DIM, 700), ("bf16", 64, 300),
+                             ("fp32", 37, 500), ("int4", DIM, 900), ("int8", 36, 400)):
+        vals, scales = quantize_host_rows(rng.standard_normal((rows, dim)).astype(np.float32),
+                                          quant, 0.25)
+        tables.append((vals.to(dev), None if scales is None else torch.from_numpy(scales).to(dev)))
+    oh_int8 = tables[0][0][:512].contiguous()
+    oh_bf16 = tables[2][0][:300].contiguous()
+    for sizes in ((33, 1, 0, 70, 4096, 31), (4096, 16384, 5, 257, 1, 999)):
+        vals, dsc, meta, slots_l, scin_l = [], [], [], [], []
+        for (v, sc), n, mode in zip(tables, sizes, ("device", "per-key", "none", "per-key",
+                                                     "device", "none")):
+            vals.append(v)
+            dsc.append(sc if mode == "device" and sc is not None else None)
+            meta.append(("gather",))
+            slots_l.append(rng.integers(0, v.shape[0], n).astype(np.int32))
+            scin_l.append((rng.random(n) + 0.5).astype(np.float32) if mode == "per-key" else None)
+        for arena, members, counts in (
+                (oh_int8, ((0, 128), (128, 256), (384, 128)), (40, 0, 77)),
+                (oh_bf16, ((0, 100), (100, 150), (250, 50)), (8, 8, 8))):
+            sl = []
+            for (off, size), c in zip(members, counts):
+                s_ = rng.integers(0, arena.shape[0], c).astype(np.int32)  # some outside
+                s_[: c // 2] = rng.integers(off, off + size, c // 2)
+                sl.append(s_)
+            vals.append(arena)
+            dsc.append(None)
+            meta.append(("onehot", tuple(o for o, _ in members), tuple(z for _, z in members),
+                         counts))
+            slots_l.append(np.concatenate(sl))
+            scin_l.append((rng.random(sum(counts)) + 0.5).astype(np.float32))
+        vals.append(tables[0][0])  # a skipped group
+        dsc.append(tables[0][1])
+        meta.append(("skip",))
+        slots_l.append(rng.integers(0, 1000, 64).astype(np.int32))
+        scin_l.append(None)
+        bounds, off = [], 0
+        for a_ in slots_l:
+            bounds.append((off, off + a_.size))
+            off += a_.size
+        cbounds, coff = [], 0
+        for a_ in scin_l:
+            cbounds.append(None if a_ is None else (coff, coff + a_.size))
+            coff += 0 if a_ is None else a_.size
+        slots_cat = torch.from_numpy(np.concatenate(slots_l)).to(dev)
+        scin_cat = torch.from_numpy(np.concatenate([a_ for a_ in scin_l if a_ is not None])).to(dev)
+        args = (vals, dsc, slots_cat, scin_cat, tuple(meta), tuple(bounds), tuple(cbounds))
+        got = gather_dequant_groups(*args)
+        want = gather_dequant_groups_ref(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        for gi, (x, y) in enumerate(zip(got, want)):
+            if (x is None) != (y is None) or (x is not None and (
+                    x.shape != y.shape or not torch.equal(x, y))):
+                raise AssertionError(f"grouped K1 sizes {sizes} group {gi} ({meta[gi][0]}): "
+                                     "kernel != plain")
+            n_checks += 1
+        # Slots outside their member gave zero rows.
+        for gi in range(len(tables), len(tables) + 2):
+            _, offs, szs, counts = meta[gi]
+            sl = slots_cat[bounds[gi][0]:bounds[gi][1]].cpu()
+            p0, outside = 0, []
+            for o, z, c in zip(offs, szs, counts):
+                part = sl[p0:p0 + c]
+                outside.append((part < o) | (part >= o + z))
+                p0 += c
+            outside = torch.cat(outside)
+            if not outside.any() or got[gi].cpu()[outside].any():
+                raise AssertionError(f"grouped K1 one-hot group {gi}: slots outside their member "
+                                     "did not give zero rows")
+            n_checks += 1
+    return n_checks
+
+
+def k3_wide_checks(dev) -> int:
+    """K3, K2 and K4's forward past 128 fed features and past one 16-row
+    block of pairs: F in K3_EDGE_F (bottom + one-hot + fed) at D 128 (the
+    16-byte paths), 36 (one-hot rows off the 16-byte path) and 30 (fed rows
+    too), int8 and bf16 one-hot arenas with members and slots outside them
+    (zero rows), within rtol RTOL and atol 1e-6 * max|z|^2 of the plain
+    versions; a shape past a block's shared memory is refused."""
+    from hugectr_backend_tpu_torch.ops.fused_interaction import (
+        dot_interaction_oh_parts,
+        dot_interaction_oh_parts_ref,
+        dot_interaction_parts,
+        dot_interaction_parts_ref,
+        fused_dot_interaction,
+        fused_dot_interaction_ref,
+        oh_rows_ref,
+    )
+
+    g = torch.Generator().manual_seed(12)
+    n_checks = 0
+    b = 37
+    for f in K3_EDGE_F:
+        n_oh = max(1, min(f // 3, 100))
+        n_fed = f - 1 - n_oh
+        for d, dt in ((DIM, torch.int8), (DIM, torch.bfloat16), (36, torch.int8),
+                      (30, torch.int8)):
+            bottom = torch.randn(b, d, generator=g).to(dev)
+            rows = 64 * n_oh
+            arena = (torch.randn(rows, d, generator=g) * 40).clamp(-127, 127).round().to(dt).to(dev)
+            members = tuple((64 * j, 64 - (j % 5)) for j in range(n_oh))
+            slots = torch.stack([torch.randint(max(0, o - 8), min(rows, o + z + 8), (b + 3,),
+                                               generator=g, dtype=torch.int32)
+                                 for o, z in members]).to(dev)
+            scales = (torch.rand(n_oh, b + 3, generator=g) + 0.01).to(dev)
+            stacked = torch.randn(b + 2, max(n_fed, 1), d, generator=g).to(dev)
+            parts = [stacked.transpose(0, 1)]
+            fmap = tuple((0, t) for t in range(n_fed))
+            got = dot_interaction_oh_parts(bottom, arena, slots, scales, parts, fmap, members)
+            want = dot_interaction_oh_parts_ref(bottom, arena, slots, scales, parts, fmap, members)
+            oh = oh_rows_ref(arena, slots, scales, b, members)
+            zm = zmax([bottom] + oh + [stacked[:b, t] for t in range(n_fed)])
+            ok, err = interaction_err(got, want, zm)
+            if not ok:
+                raise AssertionError(f"K3 F={f} D={d} {dt}: max err {err}")
+            n_checks += 1
+            if dt != torch.int8:
+                continue
+            emb = torch.randn(b, f - 1, d, generator=g).to(dev)
+            feats = [bottom] + list(emb.unbind(1))
+            for name, got, want in (
+                    ("K4", fused_dot_interaction(bottom, emb),
+                     fused_dot_interaction_ref(bottom, emb)),
+                    ("K2", dot_interaction_parts(bottom, [emb.transpose(0, 1)],
+                                                 tuple((0, t) for t in range(f - 1))),
+                     dot_interaction_parts_ref(bottom, [emb.transpose(0, 1)],
+                                               tuple((0, t) for t in range(f - 1))))):
+                ok, err = interaction_err(got, want, zmax(feats))
+                if not ok:
+                    raise AssertionError(f"{name} F={f} D={d}: max err {err}")
+                n_checks += 1
+    if dev.type == "cuda":  # past a block's shared memory (F = 700 at D = 128): refused
+        try:
+            fused_dot_interaction(torch.zeros(1, DIM, device=dev),
+                                  torch.zeros(1, 699, DIM, device=dev))
+        except ValueError:
+            n_checks += 1
+        else:
+            raise AssertionError("the forward interaction took F = 700 at D = 128")
+    return n_checks
+
+
 def k5_inputs(m, k, n, g, dev):
     """x [M, K] f32 with rows of zeros, a few rows scaled far up, and rows
     whose quotients x / xs fall on half-integers (absmax 127, so xs = 1: the
@@ -336,6 +508,10 @@ K5_EDGE_K = (13, 256, 479, 480, 1024, 2944)  # 480: K = 479, weight rows padded 
 # kernel from float4 rows, with and without 16-byte weight rows.
 K5_EDGE_EXTRA = ((100, 600, 520), (33, 1663, 96), (300, 1000, 2048), (65, 64, 300),
                  (64, 36, 129))
+# K past the old limit of 2944: the products' K loop, the quantize kernel's
+# two passes and the GEMV up to its shared memory (MAX_K).
+K5_EDGE_WIDE_K = ((4097, 2945, 1024), (65, 4096, 257), (63, 4096, 8), (33, 2945, 300),
+                  (17, 29056, 8), (40, 29056, 129))
 # All activations, with and without a bias, on one shape per path.
 K5_EDGE_ALL_ACTS = ((65, 480, 1024), (63, 256, 257), (65, 2944, 8))
 
@@ -374,7 +550,7 @@ def k5_edge_checks(dev) -> dict:
     g = torch.Generator().manual_seed(5)
     shapes = [(m, k, n) for n in K5_EDGE_N for m in K5_EDGE_M for k in K5_EDGE_K]
     cases = [(s, K5_ACTS[i % len(K5_ACTS)], (i // len(K5_ACTS)) % 2 == 0)
-             for i, s in enumerate(shapes + list(K5_EDGE_EXTRA))]
+             for i, s in enumerate(shapes + list(K5_EDGE_EXTRA) + list(K5_EDGE_WIDE_K))]
     cases += [(s, act, bias) for s in K5_EDGE_ALL_ACTS for act in K5_ACTS for bias in (True, False)]
     counts: dict = {}
     for (m, kw, n), act, with_bias in cases:
@@ -473,12 +649,13 @@ def k4_edge_checks(dev) -> int:
 
 def bwd_edge_checks(dev) -> int:
     """The backward kernel against its plain version at its plan's
-    boundaries: F in {2, 27, 128}, D in {4, 64, 128, 130} (130: two column
-    slices, off the 16-byte path), B in {1, 777} and the training shape at
+    boundaries: F in {2, 27, 128, 129, 147}, D in {4, 64, 128, 130} (130: two
+    column slices, off the 16-byte path), B in {1, 777} and the training shape at
     B 4099 (no batch a multiple of the persistent grid); K2's chunked parts
     with phantom rows, unmapped subs and gradients not asked for (null
     pointers). Within bwd_err's tolerance; phantom rows and unmapped subs
-    exactly zero."""
+    exactly zero. F = 148 is refused (its S and pair table pass a block's
+    shared memory)."""
     from hugectr_backend_tpu_torch.ops.fused_interaction import (
         dot_interaction_bwd,
         dot_interaction_parts_bwd_ref,
@@ -488,7 +665,8 @@ def bwd_edge_checks(dev) -> int:
 
     g = torch.Generator().manual_seed(7)
     n_checks = 0
-    shapes = [(b, f, d) for f in (2, 27, 128) for d in (4, 64, 128, 130) for b in (1, 777)]
+    shapes = [(b, f, d) for f in (2, 27, 128, 129, BWD_MAX_F) for d in (4, 64, 128, 130)
+              for b in (1, 777)]
     for b, f, d in shapes + [(4099, 27, DIM)]:
         bottom = torch.randn(b, d, generator=g).to(dev)
         emb = torch.randn(b, f - 1, d, generator=g).to(dev)
@@ -526,6 +704,16 @@ def bwd_edge_checks(dev) -> int:
                     raise AssertionError(f"{what} part {i}: phantom rows or unmapped subs got "
                                          "a gradient")
             n_checks += 1
+    if dev.type == "cuda":  # one feature more than its shared memory holds: refused
+        bottom = torch.randn(1, 4, generator=g).to(dev)
+        emb = torch.randn(1, BWD_MAX_F, 4, generator=g).to(dev)
+        try:
+            fused_dot_interaction_bwd(
+                bottom, emb, torch.zeros(1, 4 + BWD_MAX_F * (BWD_MAX_F + 1) // 2, device=dev))
+        except ValueError:
+            n_checks += 1
+        else:
+            raise AssertionError(f"the backward took F = {BWD_MAX_F + 1}, past its shared memory")
     return n_checks
 
 
@@ -739,7 +927,7 @@ class Recorder:
         import hugectr_backend_tpu_torch.models.dlrm as dl
         import hugectr_backend_tpu_torch.models.quant_dense as qd
 
-        self._patches = [(lp, "gather_dequant"), (dl, "dot_interaction_parts"),
+        self._patches = [(lp, "gather_dequant_groups"), (dl, "dot_interaction_parts"),
                          (dl, "dot_interaction_oh_parts"), (qd, "w8a8_dense")]
         self.calls = {name: [] for _, name in self._patches}
         self._orig = {}
@@ -855,6 +1043,51 @@ def k1_measure(args, bw):
         **timings(lambda: gather_dequant(values, ds, slots, si),
                   lambda: gather_dequant_ref(values, ds, slots, si),
                   lambda: torch.index_select(values, 0, idx)),
+        "bound_ms": nbytes / bw * 1e3,
+        "bound_by": "bytes",
+    }
+
+
+def k1_group_measure(args, bw):
+    """The grouped K1 at a predict's recorded groups (one launch): bit-exact
+    against its plain version, times, the ``index_select`` of each group
+    chained in one CUDA graph as the library yardstick, and the bound: per
+    group, its distinct rows, slots, scales and f32 output once."""
+    from hugectr_backend_tpu_torch.ops.dequant_gather import (
+        gather_dequant_groups,
+        gather_dequant_groups_ref,
+    )
+
+    vals, dsc, slots_cat, scin_cat, meta, sb, cb = args
+    got = gather_dequant_groups(*args)
+    want = gather_dequant_groups_ref(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for gi, (x, y) in enumerate(zip(got, want)):
+        if x is None:
+            continue
+        if not torch.equal(x, y):
+            raise AssertionError(f"grouped K1 at a main-path shape, group {gi}: kernel != plain")
+        err = max(err, float((x - y).abs().max()) if x.numel() else 0.0)
+    nbytes, groups, idx = 0, [], []
+    for v, ds, m, (a, b), c in zip(vals, dsc, meta, sb, cb):
+        if m[0] == "skip":
+            continue
+        sl = slots_cat[a:b]
+        n, uniq = b - a, torch.unique(sl).numel()
+        d = v.shape[1] * (2 if v.dtype == torch.uint8 else 1)
+        ds = ds if m[0] == "gather" else None
+        nbytes += (uniq * v.shape[1] * v.element_size() + n * 4 + n * d * 4
+                   + (uniq * 4 if ds is not None else 0) + (n * 4 if c is not None else 0))
+        groups.append({"kind": m[0], "rows": n, "table_rows": v.shape[0],
+                       "scales": "device" if ds is not None else "per-key" if c else "none"})
+        idx.append((v, sl.long()))
+    return {
+        "shape": {"groups": groups},
+        "max_abs_err": err,
+        **timings(lambda: gather_dequant_groups(*args),
+                  lambda: gather_dequant_groups_ref(*args),
+                  lambda: [torch.index_select(v, 0, i) for v, i in idx]),
         "bound_ms": nbytes / bw * 1e3,
         "bound_by": "bytes",
     }
@@ -1248,7 +1481,9 @@ def main() -> int:
     # Phase 2: kernels vs plain on edge cases.
     t0 = time.perf_counter()
     n1 = k1_edge_checks(dev)
+    n1g = k1_group_edge_checks(dev)
     n23 = k2_k3_edge_checks(dev)
+    n3w = k3_wide_checks(dev)
     n5 = k5_edge_checks(dev)
     # Phase 7's checks run here too, before anything long.
     n4 = k4_edge_checks(dev)
@@ -1256,7 +1491,8 @@ def main() -> int:
     n_fo = forward_only_checks(dev)
     n6 = k6_edge_checks(dev)
     torch.cuda.synchronize()
-    print(f"edge checks: K1 {n1} bit-exact, K2/K3 {n23} within rtol {RTOL}, "
+    print(f"edge checks: K1 {n1} bit-exact, grouped K1 {n1g} bit-exact, K2/K3 {n23} and "
+          f"past 128 features {n3w} within rtol {RTOL}, "
           f"atol 1e-6*max|z|^2, K5 {n5} (bit-exact for act None / relu, else "
           f"rtol = atol = {K5_TOL}), K4 and the backward kernel {n4} within rtol "
           f"{RTOL} and atol 1e-6*max|z|^2 (forward) / 1e-6*F*max|g|*max|z| "
@@ -1302,6 +1538,15 @@ def main() -> int:
     for name in ("gather_dequant", "dot_interaction_parts", "dot_interaction_oh_parts"):
         if lookup_launches.get(name, 0) + launches.get(name, 0) < 1:
             raise AssertionError(f"the main path never launched {name}")
+    # K1 gathers every group of a lookup in one launch: once per lookup,
+    # once per predict on either path.
+    k1_fold = after_fold.get("gather_dequant", 0)
+    k1_k2 = launches.get("gather_dequant", 0) - k1_fold
+    if lookup_launches.get("gather_dequant", 0) != 1 or (k1_fold, k1_k2) != (N_BATCHES,
+                                                                              N_BATCHES):
+        raise AssertionError(f"K1 launches: lookup {lookup_launches.get('gather_dequant', 0)}, "
+                             f"fold predicts {k1_fold}, K2 predicts {k1_k2}; expected one "
+                             f"each per lookup and per predict ({N_BATCHES} predicts a path)")
     launches["gather_dequant"] += lookup_launches.get("gather_dequant", 0)
 
     want_rows = host_dequant(cache, lookup_keys)
@@ -1362,14 +1607,22 @@ def main() -> int:
 
     # Phase 6: each kernel at its main-path shapes.
     results = {}
-    # K1: the fold predict's arena and solo groups, and the no-fold
-    # predict's one-hot group (the largest call).
-    onehot = max(rec_plain.calls["gather_dequant"], key=lambda a: a[2].shape[0])
-    for args in rec_fold.calls["gather_dequant"] + [onehot]:
-        r = k1_measure(args, bw)
-        emit({"kernel": "gather_dequant", **r, "card": card, "nvidia_smi": smi})
-        if r["shape"]["scales"] == "device":
+    # K1: the fold predict's groups (arena and solo) and the K2 path's (the
+    # one-hot group too), each in its one launch; then the arena group alone
+    # through the one-table entry.
+    (fold_args,) = rec_fold.calls["gather_dequant_groups"]
+    (k2_args,) = rec_plain.calls["gather_dequant_groups"]
+    for path, args in (("fold", fold_args), ("k2", k2_args)):
+        r = k1_group_measure(args, bw)
+        emit({"kernel": "gather_dequant", "path": path, **r, "card": card, "nvidia_smi": smi})
+        if path == "fold":
             results["gather_dequant"] = r
+    vals, dsc, slots_cat, _, meta, sb, _ = fold_args
+    arena_g = next(gi for gi, ds in enumerate(dsc) if ds is not None and meta[gi][0] == "gather")
+    r = k1_measure((vals[arena_g], dsc[arena_g],
+                    slots_cat[sb[arena_g][0]:sb[arena_g][1]], None), bw)
+    emit({"kernel": "gather_dequant", "path": "one table (the arena group)", **r, "card": card,
+          "nvidia_smi": smi})
     b, d = BATCH, DIM
     (bottom, parts, fmap), = rec_plain.calls["dot_interaction_parts"]
     feats = [bottom] + [parts[p][s][:b] for p, s in fmap]
@@ -1378,10 +1631,11 @@ def main() -> int:
                             feats, len(feats) * b * d * 4, bw, flops)
     results["dot_interaction_parts"] = r
     emit({"kernel": "dot_interaction_parts", **r, "card": card, "nvidia_smi": smi})
-    (bottom, arena, slots, scales, parts, fmap), = rec_fold.calls["dot_interaction_oh_parts"]
+    (bottom, arena, slots, scales, parts, fmap, members), = \
+        rec_fold.calls["dot_interaction_oh_parts"]
     n_oh = slots.shape[0]
     fed = [bottom] + [parts[p][s][:b] for p, s in fmap]
-    feats = [bottom] + oh_rows_ref(arena, slots, scales, b) + fed[1:]
+    feats = [bottom] + oh_rows_ref(arena, slots, scales, b, members) + fed[1:]
     # The one-hot rows are read from the arena (its distinct rows), with a
     # slot and a scale per (feature, sample).
     in_bytes = (len(fed) * b * d * 4
@@ -1389,7 +1643,7 @@ def main() -> int:
                 + n_oh * b * (4 + (4 if scales is not None else 0)))
     r = interaction_measure("dot_interaction_oh_parts", dot_interaction_oh_parts,
                             dot_interaction_oh_parts_ref,
-                            (bottom, arena, slots, scales, parts, fmap),
+                            (bottom, arena, slots, scales, parts, fmap, members),
                             feats, in_bytes, bw, flops)
     results["dot_interaction_oh_parts"] = r
     emit({"kernel": "dot_interaction_oh_parts", **r, "card": card, "nvidia_smi": smi})

@@ -148,7 +148,7 @@ class EmbeddingCache:
         ``self._lock`` so slots and tensor snapshots stay consistent).
 
         -> (vals, dscales, slots_np, scin_np, meta, table_pos) where
-        ``meta[g]`` describes group g for gather_rows_for_groups and
+        ``meta[g]`` describes group g for lookup_program.lookup_groups and
         ``table_pos[t]`` is the (group, start) of table t's rows in the group
         output."""
         vals_l, dscales_l, slots_l, scin_l, metas = [], [], [], [], []

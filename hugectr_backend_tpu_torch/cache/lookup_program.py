@@ -1,14 +1,15 @@
 """The shared device lookup program: one access path for every serving
 surface (EmbeddingCache.lookup / lookup_flat and the fused DLRM server).
 
-Port of the JAX package's cache/lookup_program.py. Every group kind runs on
-K1 (ops/dequant_gather.py):
+Port of the JAX package's cache/lookup_program.py. Every group of a lookup
+runs in ONE launch of K1 (``gather_dequant_groups``, ops/dequant_gather.py),
+as the JAX package jits them into one program:
 
 - "gather": ``values[slots] * device_scales[slots]`` (the arena kind), or
   ``values[slots] * scin`` with host-gathered per-key scales (the solo kind);
 - "onehot": the JAX package multiplies a one-hot mask into each member table
   on the TPU's matrix unit; the product is exact, so a gather of the member
-  rows gives the same bits and K1 serves the whole group in one launch;
+  rows gives the same bits, and a slot outside its member a zero row;
 - "skip": the caller consumes the group elsewhere (the fused DLRM server
   folds a one-hot group into the interaction kernel).
 
@@ -18,36 +19,10 @@ The functions run eagerly; capturing them per batch bucket in CUDA graphs
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
-
 import numpy as np
 import torch
 
-from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant
-
-
-def gather_rows_for_groups(
-    vals: Sequence[torch.Tensor],
-    dscales: Sequence[Optional[torch.Tensor]],
-    slots: Sequence[torch.Tensor],
-    scin: Sequence[Optional[torch.Tensor]],
-    meta: tuple,
-) -> "list[Optional[torch.Tensor]]":
-    """Device lookup over arena groups: one entry per group in each parallel
-    list; ``meta[g]`` is ``("gather",)``, ``("onehot", offsets, sizes,
-    padded_counts)`` or ``("skip",)`` (-> None)."""
-    outs = []
-    for v, ds, sl, si, m in zip(vals, dscales, slots, scin, meta):
-        if m[0] == "skip":
-            outs.append(None)
-            continue
-        if m[0] == "onehot" and v.dtype == torch.uint8:
-            raise TypeError(
-                "one-hot lookup cannot consume nibble-packed int4 arenas; use "
-                "the gather path (lookup_kind='arena'/'solo')"
-            )
-        outs.append(gather_dequant(v, ds, sl, si))
-    return outs
+from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant_groups
 
 
 def pack_host_args(slots_l, scin_l):
@@ -71,14 +46,6 @@ def pack_host_args(slots_l, scin_l):
     return slots_cat, tuple(bounds), scin_cat, tuple(sbounds)
 
 
-def _unpack_device_args(slots_cat, scin_cat, slot_bounds, scin_bounds):
-    slots = [slots_cat[a:b] for (a, b) in slot_bounds]
-    scin = [
-        None if ab is None else scin_cat[ab[0] : ab[1]] for ab in scin_bounds
-    ]
-    return slots, scin
-
-
 def upload_host_args(vals, slots_l, scin_l, device):
     """Check every group's slots against its table on the host, pack them
     and upload. -> (slots_cat, slot_bounds, scin_cat, scin_bounds) with the
@@ -99,9 +66,10 @@ def upload_host_args(vals, slots_l, scin_l, device):
 
 def lookup_groups(vals, dscales, slots_cat, scin_cat, meta, slot_bounds,
                   scin_bounds):
-    """Group lookups over packed device inputs -> per-group f32 rows."""
-    slots, scin = _unpack_device_args(slots_cat, scin_cat, slot_bounds, scin_bounds)
-    return gather_rows_for_groups(vals, dscales, slots, scin, meta)
+    """Group lookups over packed device inputs -> per-group f32 rows, in one
+    K1 launch."""
+    return gather_dequant_groups(vals, dscales, slots_cat, scin_cat, meta, slot_bounds,
+                                 scin_bounds)
 
 
 def lookup_flat(vals, dscales, slots_cat, scin_cat, meta, slot_bounds,

@@ -1,62 +1,104 @@
-// K2 and K3: the fused DLRM dot interaction over chunked features.
+// K2, K3 and K4's forward: the fused DLRM dot interaction.
 //
 // Replaces the Pallas kernels `_kernel_parts` and `_kernel_parts_fm` (K2,
-// hugectr_backend_tpu/ops/fused_interaction.py:298 and :322) and
-// `_kernel_oh_parts` (K3, the same file, :620). Per sample b:
+// hugectr_backend_tpu/ops/fused_interaction.py:298 and :322),
+// `_kernel_oh_parts` (K3, the same file, :620) and `_kernel` (K4, :65). Per
+// sample b:
 //
 //     z    = [bottom[b]; oh rows; fed feature rows]   F x D, rounded to bf16
 //     out  = [bottom[b] | triu(z z^T, 1)]              D + F(F-1)/2 floats, f32
 //
 // The pairs come in the order of np.triu_indices(F, 1). For K3 the first
-// n_oh rows after the bottom are built here from a small quantized arena,
-// exactly as the Pallas body does (:626-638): z_j = bf16(f32(arena[slot]) *
-// scale). For K2 n_oh is 0. A bf16 x bf16 product is exact in f32, so the
-// result differs from the TPU's only in the order of the f32 sums.
+// n_oh rows after the bottom are built here from a small quantized arena, as
+// the Pallas body does (:626-638): z_j = bf16(f32(arena[slot]) * scale) for
+// a slot inside its member's rows [off, off + size), a zero row (0 * scale)
+// for a slot outside them, as the body's one-hot mask gives, and a NaN row
+// for a slot outside the arena. For K2 and K4 n_oh is 0. A bf16 x bf16
+// product is exact in f32, so the result differs from the TPU's only in the
+// order of the f32 sums.
 //
 // What bounds it on an H100: device-memory bytes. At the Criteo shape
-// (B = 4096, F = 27, D = 128) it reads 56.6 MB of f32 features and writes
-// 7.8 MB, against 0.37 GFLOP of pair products, which the bf16 tensor cores
-// finish in well under a microsecond. The TPU kernel assembles z for a block
-// of 256 samples in VMEM; here one warp owns one sample at a time: it loads
-// the F feature rows (16-byte loads where the layout allows, several in
-// flight per lane), rounds them to bf16 into a padded shared-memory tile,
-// and runs the upper triangle of z z^T as mma.sync m16n8k16 tiles with f32
-// accumulation. The pairs are staged in shared memory and written with
-// coalesced stores. Features arrive as descriptors (base pointer, batch
-// stride) passed by value, so general and part-major feature maps, strided
-// views of a stacked [B, T, D] tensor, and parts with phantom tail rows all
-// take the same code; rows that no feature names are never read.
+// (B = 4096, F = 27, D = 128) K3 reads 28.3 MB of f32 rows and the one-hot
+// rows, slots and scales, and writes 7.8 MB, against 0.37 GFLOP of pair
+// products, which the bf16 tensor cores finish in well under a microsecond.
+// So the kernel is a latency problem: a sample's rows must all be in flight
+// at once, and enough samples with them.
+//
+// - A warp owns one sample at a time; CTAs of up to 8 warps, as many per SM
+//   as shared memory and 128 registers a thread allow (2 at the Criteo
+//   shape: 16 warps an SM), on a persistent grid that fits the card at
+//   once: warp w takes samples w, w + warps, ...
+// - A sample is loaded in two dependent rounds: its fed rows (16-byte
+//   loads, up to 14 a lane) with the slots and scales of its one-hot rows,
+//   then the one-hot rows themselves (16-byte loads, 4 chunks a lane). Wider
+//   samples take further rounds. Keeping the next sample's rows in flight
+//   under this one's product (in registers, or staged in shared memory with
+//   cp.async) measured slower at the Criteo shape: it costs registers or
+//   shared memory, so fewer warps are resident (PERF.md).
+// - The rows are rounded to bf16 into a per-warp z tile in shared memory
+//   (rows padded to 16, a 16-byte skew per row for conflict-free fragment
+//   loads), and the upper triangle of z z^T runs as mma.sync m16n8k16 tiles
+//   with f32 accumulation, one 16-row block of z at a time, 4 column tiles
+//   at once on the block's A fragments (4 independent accumulations).
+// - A row block's pairs are one contiguous run of the output row (the pairs
+//   are row-major), so each block is staged in shared memory (the first
+//   with the f32 bottom copy in front) at the alignment it has in device
+//   memory, and written with 16-byte stores. The pair triangle is thus
+//   tiled in row blocks: the only limit on F is the z tile and one block's
+//   stage in shared memory (688 features at D = 128).
+//
+// Fed features arrive as descriptors (base pointer, batch stride), so
+// general and part-major feature maps, strided views of a stacked [B, T, D]
+// tensor, and parts with phantom tail rows all take the same code; rows that
+// no feature names are never read. The launch plan (warps per CTA, grid,
+// shared memory) comes from the caller (ops/fused_interaction.py k3_plan);
+// a plan the kernel does not take is refused.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
 
-#define HPS_MAX_FEATS 128
+#include <type_traits>
 
 namespace {
 
 enum Kind { KIND_I8 = 0, KIND_FP8 = 1, KIND_BF16 = 2, KIND_F32 = 3 };
+
+constexpr int MAX_WARPS = 8;    // warps per CTA
+constexpr int MIN_CTAS = 2;     // of 256 threads per SM: at most 128 registers a thread
+constexpr int NF = 14;          // fed 16-byte loads per lane per round (no spills at 128 registers)
+constexpr int NO = 4;           // one-hot 16-byte loads per lane per round
+constexpr int NG = 4;           // column tiles of the product sharing A fragments
+constexpr int MAX_DESC = 1024;  // fed features and one-hot members a launch takes
+constexpr int SMALL_DESC = 64;  // ... in the small parameter block
+constexpr int MAX_SMEM = 232448;
 
 struct Feat {
   const float* ptr;
   long long stride;  // elements between consecutive samples
 };
 
+struct Member {
+  int off, size;  // the member's arena rows [off, off + size)
+};
+
+template <int MAXD>
 struct Params {
-  int B, D, F, n_oh, n_feats;  // F = 1 + n_oh + n_feats
-  int D_pad, F_pad, ld, P;     // tile geometry (bf16 elements), pair count
-  long long out_ld;            // D + P
-  const float* bottom;
-  long long bottom_ld;
+  int B, D, F, n_oh, n_fed;     // F = n_fed + n_oh; fed row 0 is the bottom
+  int D_pad, F_pad, ld, P;      // tile geometry (bf16 elements), pair count
+  int stage_len, warp_bytes;    // one warp's stage (floats); z tile + stage (bytes)
+  int oh_vec, oh_cpr;           // one-hot rows of whole 16-byte chunks; chunks per row
+  long long out_ld;             // D + P
   float* out;
   const void* arena;
   long long arena_rows;
   const int* slots;
   long long slots_ld;
-  const float* scales;  // null -> 1
+  const float* scales;          // null -> 1
   long long scales_ld;
-  Feat feats[HPS_MAX_FEATS];
+  Feat fed[MAXD + 1];           // fed row i of sample b: fed[i].ptr + b * fed[i].stride
+  Member members[MAXD];
 };
 
 __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
@@ -78,160 +120,382 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Fed row i (0 = bottom, i >= 1 = feats[i - 1]) of sample b.
-__device__ __forceinline__ const float* fed_row(const Params& p, int i, int b) {
-  if (i == 0) return p.bottom + b * p.bottom_ld;
-  const Feat& f = p.feats[i - 1];
-  return f.ptr + b * f.stride;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ int fed_zrow(const Params& p, int i) {
-  return i == 0 ? 0 : p.n_oh + i;
+// A lane's walk over a grid of `cols` columns in steps of 32 elements, as
+// (row, column), without a divide per step.
+struct Walk {
+  int row, col, drow, dcol, cols;
+  __device__ __forceinline__ void start(int k, int cols_) {
+    cols = cols_;
+    row = k / cols;
+    col = k - row * cols;
+    drow = 32 / cols;
+    dcol = 32 - drow * cols;
+  }
+  __device__ __forceinline__ void next() {
+    row += drow;
+    col += dcol;
+    if (col >= cols) {
+      col -= cols;
+      ++row;
+    }
+  }
+};
+
+// Index of pair (r, r + 1) in the row-major upper triangle of F features.
+__device__ __forceinline__ int pair_start(int r, int F) { return r * (2 * F - r - 1) / 2; }
+
+// A fed element a lane loads: a 16-byte vector, or a single float (rows off
+// the 16-byte path); NF of them a round.
+template <bool VEC4>
+using FedT = typename std::conditional<VEC4, float4, float>::type;
+
+template <bool VEC4, int MAXD>
+__device__ __forceinline__ void load_fed(const Params<MAXD>& p, int b, Walk w,
+                                         FedT<VEC4> (&fr)[NF]) {
+#pragma unroll
+  for (int i = 0; i < NF; ++i) {
+    if (w.row < p.n_fed) {
+      const float* src = p.fed[w.row].ptr + b * p.fed[w.row].stride;
+      if constexpr (VEC4) {
+        fr[i] = __ldg(reinterpret_cast<const float4*>(src) + w.col);
+      } else {
+        fr[i] = __ldg(src + w.col);
+      }
+    }
+    w.next();
+  }
 }
 
-template <typename AT, bool VEC4>
-__global__ void __launch_bounds__(256)
-    dot_interaction_kernel(const __grid_constant__ Params p) {
+// Round the loaded fed elements to bf16 into z; the bottom (fed row 0) also
+// goes to the stage in f32, at `shift`.
+template <bool VEC4, int MAXD>
+__device__ __forceinline__ void store_fed(const Params<MAXD>& p, Walk w,
+                                          const FedT<VEC4> (&fr)[NF],
+                                          __nv_bfloat16* z, float* stage, int shift) {
+#pragma unroll
+  for (int i = 0; i < NF; ++i) {
+    if (w.row < p.n_fed) {
+      const int zr = w.row == 0 ? 0 : p.n_oh + w.row;
+      if constexpr (VEC4) {
+        const float4 v = fr[i];
+        *reinterpret_cast<uint2*>(z + zr * p.ld + 4 * w.col) =
+            make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+        if (w.row == 0) {
+          float* s = stage + shift + 4 * w.col;
+          s[0] = v.x;
+          s[1] = v.y;
+          s[2] = v.z;
+          s[3] = v.w;
+        }
+      } else {
+        z[zr * p.ld + w.col] = __float2bfloat16_rn(fr[i]);
+        if (w.row == 0) stage[shift + w.col] = fr[i];
+      }
+    }
+    w.next();
+  }
+}
+
+// The first round of one-hot chunks: each chunk's slot and scale.
+template <int MAXD>
+__device__ __forceinline__ void load_oh_keys(const Params<MAXD>& p, int b, Walk w,
+                                             int (&sl)[NO], float (&sc)[NO]) {
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    sl[j] = 0;
+    sc[j] = 1.0f;
+    if (w.row < p.n_oh) {
+      sl[j] = __ldg(p.slots + w.row * p.slots_ld + b);
+      if (p.scales != nullptr) sc[j] = __ldg(p.scales + w.row * p.scales_ld + b);
+    }
+    w.next();
+  }
+}
+
+// The chunks' arena rows: zeros outside the member (and outside the arena).
+template <int MAXD>
+__device__ __forceinline__ void load_oh_rows(const Params<MAXD>& p, Walk w, const int (&sl)[NO],
+                                             uint4 (&raw)[NO]) {
+  const char* arena = static_cast<const char*>(p.arena);
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    raw[j] = make_uint4(0u, 0u, 0u, 0u);
+    if (w.row < p.n_oh) {
+      const Member m = p.members[w.row];
+      const int s = sl[j];
+      if (s >= m.off && s < m.off + m.size && s >= 0 && s < p.arena_rows)
+        raw[j] = __ldg(reinterpret_cast<const uint4*>(
+                           arena + static_cast<int64_t>(s) * p.oh_cpr * 16) + w.col);
+    }
+    w.next();
+  }
+}
+
+// z_j = bf16(f32(arena[slot]) * scale) into z row 1 + j; a zero chunk gives
+// 0 * scale, a slot outside the arena NaN.
+template <typename AT, int MAXD>
+__device__ __forceinline__ void store_oh(const Params<MAXD>& p, Walk w, const int (&sl)[NO],
+                                         const float (&sc)[NO], const uint4 (&raw)[NO],
+                                         __nv_bfloat16* z) {
+  constexpr int V = 16 / sizeof(AT);
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    if (w.row < p.n_oh) {
+      const bool nan = sl[j] < 0 || sl[j] >= p.arena_rows;
+      const AT* e = reinterpret_cast<const AT*>(&raw[j]);
+      uint32_t out[V / 2];
+#pragma unroll
+      for (int k = 0; k < V / 2; ++k) {
+        const float lo = nan ? __int_as_float(0x7fc00000) : to_f32(e[2 * k]) * sc[j];
+        const float hi = nan ? __int_as_float(0x7fc00000) : to_f32(e[2 * k + 1]) * sc[j];
+        out[k] = pack_bf16(lo, hi);
+      }
+      __nv_bfloat16* dst = z + (1 + w.row) * p.ld + V * w.col;
+      if constexpr (V == 16) {
+        reinterpret_cast<uint4*>(dst)[0] = make_uint4(out[0], out[1], out[2], out[3]);
+        reinterpret_cast<uint4*>(dst)[1] = make_uint4(out[4], out[5], out[6], out[7]);
+      } else if constexpr (V == 8) {
+        reinterpret_cast<uint4*>(dst)[0] = make_uint4(out[0], out[1], out[2], out[3]);
+      } else {
+        reinterpret_cast<uint2*>(dst)[0] = make_uint2(out[0], out[1]);
+      }
+    }
+    w.next();
+  }
+}
+
+// The one-hot rows one element a lane at a time: rows that are not whole
+// 16-byte chunks, or an arena that is not 16-byte aligned.
+template <typename AT, int MAXD>
+__device__ __forceinline__ void oh_elements(const Params<MAXD>& p, int b, int lane,
+                                            __nv_bfloat16* z) {
+  const AT* arena = static_cast<const AT*>(p.arena);
+  const int total = p.n_oh * p.D;
+  for (int k = lane; k < total; k += 32) {
+    const int j = k / p.D;
+    const int c = k - j * p.D;
+    const int s = __ldg(p.slots + j * p.slots_ld + b);
+    const float sc = p.scales != nullptr ? __ldg(p.scales + j * p.scales_ld + b) : 1.0f;
+    const Member m = p.members[j];
+    float v;
+    if (s < 0 || s >= p.arena_rows) v = __int_as_float(0x7fc00000);
+    else if (s < m.off || s >= m.off + m.size) v = 0.0f * sc;
+    else v = to_f32(arena[static_cast<int64_t>(s) * p.D + c]) * sc;
+    z[(1 + j) * p.ld + c] = __float2bfloat16_rn(v);
+  }
+}
+
+template <typename AT, bool VEC4, int MAXD>
+__global__ void __launch_bounds__(MAX_WARPS * 32, MIN_CTAS)
+    dot_interaction_kernel(const __grid_constant__ Params<MAXD> p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int tile = p.F_pad * p.ld;
-  const int stage_len = (p.P + 3) & ~3;
-  __nv_bfloat16* z = reinterpret_cast<__nv_bfloat16*>(smem) + warp * tile;
-  float* stage =
-      reinterpret_cast<float*>(smem + static_cast<size_t>(nwarps) * tile * 2) + warp * stage_len;
+  unsigned char* mine = smem + static_cast<size_t>(warp) * p.warp_bytes;
+  __nv_bfloat16* z = reinterpret_cast<__nv_bfloat16*>(mine);
+  float* stage = reinterpret_cast<float*>(mine + static_cast<size_t>(p.F_pad) * p.ld * 2);
 
   // Padding rows (>= F) and columns (>= D) stay zero for every sample.
-  for (int i = lane; i < tile; i += 32) z[i] = __float2bfloat16_rn(0.0f);
+  for (int i = lane; i < p.F_pad * p.ld / 8; i += 32)
+    reinterpret_cast<uint4*>(z)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncwarp();
 
-  const int n_fed = 1 + p.n_feats;
-  const AT* arena = static_cast<const AT*>(p.arena);
-  for (int b = blockIdx.x * nwarps + warp; b < p.B; b += gridDim.x * nwarps) {
-    float* out_row = p.out + b * p.out_ld;
-    // Fed rows: load, copy the bottom row out, round to bf16 into the tile.
-    if (VEC4) {
-      const int cpr = p.D >> 2;
-      const int total = n_fed * cpr;
-      constexpr int U = 4;
-      for (int base = 0; base < total; base += 32 * U) {
-        float4 v[U];
-        int fi[U], ci[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int idx = base + u * 32 + lane;
-          fi[u] = -1;
-          if (idx < total) {
-            fi[u] = idx / cpr;
-            ci[u] = (idx - fi[u] * cpr) << 2;
-            v[u] = __ldg(reinterpret_cast<const float4*>(fed_row(p, fi[u], b) + ci[u]));
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (fi[u] < 0) continue;
-          __nv_bfloat16* dst = z + fed_zrow(p, fi[u]) * p.ld + ci[u];
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v[u].x, v[u].y);
-          *reinterpret_cast<__nv_bfloat162*>(dst + 2) = __floats2bfloat162_rn(v[u].z, v[u].w);
-          if (fi[u] == 0) {
-            out_row[ci[u]] = v[u].x;
-            out_row[ci[u] + 1] = v[u].y;
-            out_row[ci[u] + 2] = v[u].z;
-            out_row[ci[u] + 3] = v[u].w;
-          }
-        }
-      }
-    } else {
-      const int total = n_fed * p.D;
-      constexpr int U = 8;
-      for (int base = 0; base < total; base += 32 * U) {
-        float v[U];
-        int fi[U], ci[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int idx = base + u * 32 + lane;
-          fi[u] = -1;
-          if (idx < total) {
-            fi[u] = idx / p.D;
-            ci[u] = idx - fi[u] * p.D;
-            v[u] = __ldg(fed_row(p, fi[u], b) + ci[u]);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (fi[u] < 0) continue;
-          z[fed_zrow(p, fi[u]) * p.ld + ci[u]] = __float2bfloat16_rn(v[u]);
-          if (fi[u] == 0) out_row[ci[u]] = v[u];
-        }
-      }
+  const int fcols = VEC4 ? p.D >> 2 : p.D;  // fed loads per row
+  Walk fw0, ow0;
+  fw0.start(lane, fcols);
+  ow0.start(lane, p.oh_vec ? p.oh_cpr : 1);
+  const int fed_rounds = (p.n_fed * fcols + 32 * NF - 1) / (32 * NF);
+  const int oh_rounds = p.oh_vec ? (p.n_oh * p.oh_cpr + 32 * NO - 1) / (32 * NO) : 0;
+  const int step = gridDim.x * nwarps;
+  const int F = p.F;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  for (int b = blockIdx.x * nwarps + warp; b < p.B; b += step) {
+    const long long row0 = static_cast<long long>(b) * p.out_ld;
+    const int shift0 = static_cast<int>(row0 & 3);
+    // Round one: the one-hot slots and scales with the fed rows (14 16-byte
+    // loads a lane a round; one round at the Criteo shape's 13 fed rows).
+    int sl[NO];
+    float sc[NO];
+    if (oh_rounds > 0) load_oh_keys(p, b, ow0, sl, sc);
+    Walk fw = fw0;
+    for (int r = 0; r < fed_rounds; ++r) {
+      FedT<VEC4> fr[NF];
+      load_fed<VEC4>(p, b, fw, fr);
+      store_fed<VEC4>(p, fw, fr, z, stage, shift0);
+      for (int i = 0; i < NF; ++i) fw.next();
     }
-    // Gathered one-hot rows (K3): z_j = bf16(f32(arena[slot]) * scale).
-    for (int j = 0; j < p.n_oh; ++j) {
-      const int slot = __ldg(p.slots + j * p.slots_ld + b);
-      const float s = p.scales != nullptr ? __ldg(p.scales + j * p.scales_ld + b) : 1.0f;
-      __nv_bfloat16* dst = z + (1 + j) * p.ld;
-      if (slot < 0 || slot >= p.arena_rows) {
-        for (int k = lane; k < p.D; k += 32) dst[k] = __float2bfloat16_rn(__int_as_float(0x7fc00000));
-        continue;
+    // Round two: the one-hot rows.
+    if (oh_rounds > 0) {
+      Walk ow = ow0;
+      for (int r = 0; r < oh_rounds; ++r) {
+        if (r > 0) load_oh_keys(p, b, ow, sl, sc);
+        uint4 raw[NO];
+        load_oh_rows(p, ow, sl, raw);
+        store_oh<AT>(p, ow, sl, sc, raw, z);
+        for (int j = 0; j < NO; ++j) ow.next();
       }
-      const AT* src = arena + static_cast<int64_t>(slot) * p.D;
-      for (int k = lane; k < p.D; k += 32) dst[k] = __float2bfloat16_rn(to_f32(src[k]) * s);
+    } else if (p.n_oh > 0) {
+      oh_elements<AT>(p, b, lane, z);
     }
     __syncwarp();
 
-    // Upper triangle of z z^T on the tensor cores, into the stage.
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    for (int mt = 0; mt * 16 < p.F - 1; ++mt) {
+    // The upper triangle of z z^T, one block of 16 rows at a time; in a
+    // block, NG column tiles at once share the A fragments.
+    const int nt_end = (F + 7) >> 3;
+    for (int mt = 0; mt == 0 || mt * 16 < F - 1; ++mt) {
+      const int r0 = mt * 16;
+      const int r1 = min(r0 + 16, F - 1);
+      const int plo = pair_start(r0, F);
+      const int phi = pair_start(r1, F);
+      const long long gs = row0 + (mt == 0 ? 0 : p.D + plo);
+      const int len = (mt == 0 ? p.D : 0) + phi - plo;
+      const int shift = static_cast<int>(gs & 3);
+      const int base = shift + (mt == 0 ? p.D : 0) - plo;  // stage index of pair q: base + q
+      const __nv_bfloat16* a_lo = z + (r0 + g) * p.ld + 2 * t;
+      const __nv_bfloat16* a_hi = a_lo + 8 * p.ld;
       // Column tiles left of 16 * mt hold no pair with col > row.
-      for (int nt = 2 * mt; nt * 8 < p.F; ++nt) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        const __nv_bfloat16* a_lo = z + (mt * 16 + g) * p.ld + 2 * t;
-        const __nv_bfloat16* a_hi = a_lo + 8 * p.ld;
-        const __nv_bfloat16* bq = z + (nt * 8 + g) * p.ld + 2 * t;
+      for (int nt0 = 2 * mt; nt0 < nt_end; nt0 += NG) {
+        float c[NG][4];
+#pragma unroll
+        for (int j = 0; j < NG; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
         for (int kk = 0; kk < p.D_pad; kk += 16) {
-          mma_bf16(c, ld32(a_lo + kk), ld32(a_hi + kk), ld32(a_lo + kk + 8),
-                   ld32(a_hi + kk + 8), ld32(bq + kk), ld32(bq + kk + 8));
+          const uint32_t a0 = ld32(a_lo + kk), a1 = ld32(a_hi + kk);
+          const uint32_t a2 = ld32(a_lo + kk + 8), a3 = ld32(a_hi + kk + 8);
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            if (nt0 + j < nt_end) {
+              const __nv_bfloat16* bq = z + ((nt0 + j) * 8 + g) * p.ld + 2 * t + kk;
+              mma_bf16(c[j], a0, a1, a2, a3, ld32(bq), ld32(bq + 8));
+            }
+          }
         }
-        const int rows[2] = {mt * 16 + g, mt * 16 + g + 8};
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = rows[h];
+        for (int j = 0; j < NG; ++j) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = nt * 8 + 2 * t + e;
-            if (r < col && col < p.F) {
-              stage[r * p.F - r * (r + 1) / 2 + (col - r - 1)] = c[2 * h + e];
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + g + 8 * h;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = (nt0 + j) * 8 + 2 * t + e;
+              if (r < col && col < F)
+                stage[base + pair_start(r, F) + (col - r - 1)] = c[j][2 * h + e];
             }
           }
         }
       }
+      __syncwarp();
+      // stage[shift, shift + len) -> out[gs, gs + len), 16 bytes at a time
+      // where a whole vector lies inside.
+      float* dst = p.out + (gs - shift);
+      const int n4 = (shift + len + 3) >> 2;
+      for (int q = lane; q < n4; q += 32) {
+        const int lo = 4 * q;
+        if (lo >= shift && lo + 4 <= shift + len) {
+          reinterpret_cast<float4*>(dst)[q] = reinterpret_cast<const float4*>(stage)[q];
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (lo + e >= shift && lo + e < shift + len) dst[lo + e] = stage[lo + e];
+        }
+      }
+      __syncwarp();  // the next block (or sample) overwrites the stage
     }
-    __syncwarp();
-    for (int q = lane; q < p.P; q += 32) out_row[p.D + q] = stage[q];
-    __syncwarp();  // the next sample overwrites z and the stage
   }
 }
 
-template <typename AT>
-int launch(Params& p, bool vec4, cudaStream_t stream) {
-  const size_t per_warp =
-      static_cast<size_t>(p.F_pad) * p.ld * 2 + static_cast<size_t>((p.P + 3) & ~3) * 4;
-  int warps = static_cast<int>((48 * 1024) / per_warp);
-  if (warps > 8) warps = 8;
-  if (warps < 1) warps = 1;
-  const size_t smem = per_warp * warps;
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = vec4 ? dot_interaction_kernel<AT, true> : dot_interaction_kernel<AT, false>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// The stage of one warp: the largest row block (the first: the bottom copy
+// and the pairs of rows 0..15) plus 3 floats of alignment, in floats.
+int stage_len(int F, int D) {
+  const int r1 = F - 1 < 16 ? F - 1 : 16;
+  return (3 + D + r1 * (2 * F - r1 - 1) / 2 + 3) & ~3;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, uint64_t& done) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && (done >> device & 1u)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (err == cudaSuccess && device < 64) done |= uint64_t{1} << device;
+  return err;
+}
+
+struct Args {
+  int B, D, n_oh, n_feats;
+  const float* bottom;
+  long long bottom_ld;
+  const long long *feat_ptrs, *feat_strides;
+  const void* arena;
+  long long arena_rows;
+  const int* slots;
+  long long slots_ld;
+  const float* scales;
+  long long scales_ld;
+  const int *member_offs, *member_sizes;
+  float* out;
+  int vec4, oh_vec, warps, grid, smem;
+};
+
+template <typename AT, int MAXD>
+int launch(const Args& a, cudaStream_t stream) {
+  Params<MAXD> p;
+  p.B = a.B;
+  p.D = a.D;
+  p.n_oh = a.n_oh;
+  p.n_fed = 1 + a.n_feats;
+  p.F = p.n_fed + a.n_oh;
+  p.D_pad = (a.D + 15) / 16 * 16;
+  p.F_pad = (p.F + 15) / 16 * 16;
+  p.ld = p.D_pad + 8;  // 16-byte row skew: conflict-free fragment loads
+  p.P = p.F * (p.F - 1) / 2;
+  p.stage_len = stage_len(p.F, a.D);
+  p.warp_bytes = p.F_pad * p.ld * 2 + 4 * p.stage_len;
+  p.oh_vec = a.oh_vec;
+  p.oh_cpr = a.oh_vec ? a.D * static_cast<int>(sizeof(AT)) / 16 : 0;
+  p.out_ld = a.D + p.P;
+  p.out = a.out;
+  p.arena = a.arena;
+  p.arena_rows = a.arena_rows;
+  p.slots = a.slots;
+  p.slots_ld = a.slots_ld;
+  p.scales = a.scales;
+  p.scales_ld = a.scales_ld;
+  p.fed[0].ptr = a.bottom;
+  p.fed[0].stride = a.bottom_ld;
+  for (int i = 0; i < a.n_feats; ++i) {
+    p.fed[1 + i].ptr = reinterpret_cast<const float*>(a.feat_ptrs[i]);
+    p.fed[1 + i].stride = a.feat_strides[i];
   }
-  const int blocks = (p.B + warps - 1) / warps;
-  kern<<<blocks, warps * 32, smem, stream>>>(p);
+  for (int j = 0; j < a.n_oh; ++j) {
+    p.members[j].off = a.member_offs[j];
+    p.members[j].size = a.member_sizes[j];
+  }
+  if (a.warps < 1 || a.warps > MAX_WARPS || a.grid < 1 ||
+      a.smem != a.warps * p.warp_bytes || a.smem > MAX_SMEM ||
+      (a.oh_vec && a.D * static_cast<int>(sizeof(AT)) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static uint64_t done[2] = {0, 0};
+  auto kern = a.vec4 ? dot_interaction_kernel<AT, true, MAXD>
+                     : dot_interaction_kernel<AT, false, MAXD>;
+  cudaError_t err = allow_smem(kern, done[a.vec4 ? 1 : 0]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<a.grid, a.warps * 32, a.smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename AT>
+int launch_kind(const Args& a, cudaStream_t s) {
+  if (a.n_feats < SMALL_DESC && a.n_oh <= SMALL_DESC) return launch<AT, SMALL_DESC>(a, s);
+  return launch<AT, MAX_DESC>(a, s);
 }
 
 }  // namespace
@@ -246,52 +510,36 @@ const char* hps_cuda_error_string(int err) {
 // at feat_ptrs[i] + b * feat_strides[i] (f32, contiguous over D); n_oh
 // gathered features from `arena` [arena_rows, D] of `arena_kind`, slot of
 // (j, b) at slots[j * slots_ld + b], scale at scales[j * scales_ld + b]
-// (scales may be null); out [B, D + P] f32. `vec4`: D % 4 == 0 and every
-// fed row start is 16-byte aligned (the caller checks). Returns
-// cudaGetLastError() after the launch.
+// (scales may be null), member j's rows [member_offs[j], + member_sizes[j]);
+// out [B, D + P] f32, 16-byte aligned. `vec4`: D % 4 == 0 and every fed row
+// start is 16-byte aligned; `oh_vec`: arena rows are whole 16-byte chunks
+// and the arena is 16-byte aligned (the caller checks). The plan (warps per
+// CTA, grid, dynamic shared memory) comes from the caller
+// (ops/fused_interaction.py k3_plan); a plan or a shape the kernel does not
+// take returns cudaErrorInvalidValue. Returns cudaGetLastError() after the
+// launch.
 int hps_dot_interaction(int device, void* stream, int B, int D, int n_oh, int n_feats,
                         const float* bottom, long long bottom_ld,
                         const long long* feat_ptrs, const long long* feat_strides,
                         int arena_kind, const void* arena, long long arena_rows,
                         const int* slots, long long slots_ld, const float* scales,
-                        long long scales_ld, float* out, int vec4) {
+                        long long scales_ld, const int* member_offs, const int* member_sizes,
+                        float* out, int vec4, int oh_vec, int warps, int grid, int smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_feats > HPS_MAX_FEATS || n_feats < 0 || n_oh < 0) {
+  if (n_feats > MAX_DESC || n_feats < 0 || n_oh < 0 || n_oh > MAX_DESC || D < 1 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
   if (B == 0) return 0;
-  Params p;
-  p.B = B;
-  p.D = D;
-  p.n_oh = n_oh;
-  p.n_feats = n_feats;
-  p.F = 1 + n_oh + n_feats;
-  p.D_pad = (D + 15) / 16 * 16;
-  p.F_pad = (p.F + 15) / 16 * 16;
-  p.ld = p.D_pad + 8;  // 16-byte row skew: conflict-free fragment loads
-  p.P = p.F * (p.F - 1) / 2;
-  p.out_ld = D + p.P;
-  p.bottom = bottom;
-  p.bottom_ld = bottom_ld;
-  p.out = out;
-  p.arena = arena;
-  p.arena_rows = arena_rows;
-  p.slots = slots;
-  p.slots_ld = slots_ld;
-  p.scales = scales;
-  p.scales_ld = scales_ld;
-  for (int i = 0; i < n_feats; ++i) {
-    p.feats[i].ptr = reinterpret_cast<const float*>(feat_ptrs[i]);
-    p.feats[i].stride = feat_strides[i];
-  }
+  const Args a{B, D, n_oh, n_feats, bottom, bottom_ld, feat_ptrs, feat_strides, arena,
+               arena_rows, slots, slots_ld, scales, scales_ld, member_offs, member_sizes,
+               out, vec4, n_oh > 0 && oh_vec, warps, grid, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool v = vec4 != 0;
   switch (arena_kind) {
-    case KIND_I8: return launch<int8_t>(p, v, s);
-    case KIND_FP8: return launch<__nv_fp8_e4m3>(p, v, s);
-    case KIND_BF16: return launch<__nv_bfloat16>(p, v, s);
-    case KIND_F32: return launch<float>(p, v, s);
+    case KIND_I8: return launch_kind<int8_t>(a, s);
+    case KIND_FP8: return launch_kind<__nv_fp8_e4m3>(a, s);
+    case KIND_BF16: return launch_kind<__nv_bfloat16>(a, s);
+    case KIND_F32: return launch_kind<float>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

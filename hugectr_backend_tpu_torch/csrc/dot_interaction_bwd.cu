@@ -43,11 +43,16 @@
 //   consecutive columns.
 // - No divide per element: every strided loop steps its (row, column) pair
 //   by a quotient and remainder taken once per launch.
+//
+// A launch takes up to 1,024 features (their descriptors ride in the
+// parameter block, a small one up to 128). S, the pair table and two ring
+// stages must fit a block's shared memory, which holds F = 147 at most (with
+// 4-column slices); past that ops/fused_interaction.py bwd_plan refuses the
+// shape (tiling S in row blocks would lift it).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define HPS_MAX_FEATS 128
 #define HPS_FT 7  // rows of dz per thread
 #define HPS_FG 8  // their stride in a row of S (two float4s)
 
@@ -55,7 +60,10 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int MAX_SMEM = 232448;
+constexpr int MAX_FEATS = 1024;   // features a launch takes
+constexpr int SMALL_FEATS = 128;  // ... in the small parameter block
 
+template <int MAXD>
 struct Params {
   int B, D, F, SLD, P;        // F = 1 + n_feats; SLD = HPS_FG x ceil(F / HPS_FT)
   int DC, nslices;            // columns per work item; items per sample
@@ -71,14 +79,15 @@ struct Params {
   long long g_bottom_ld;
   // Feature t of sample b: feat[t] + b * feat_stride[t] (z), gfeat[t] +
   // b * gfeat_stride[t] (its gradient; a null gfeat[t] is not written).
-  // 32-bit strides keep the parameter block under 4 KB.
-  const float* feat[HPS_MAX_FEATS];
-  float* gfeat[HPS_MAX_FEATS];
-  int feat_stride[HPS_MAX_FEATS];
-  int gfeat_stride[HPS_MAX_FEATS];
+  // 32-bit strides keep the parameter block small.
+  const float* feat[MAXD];
+  float* gfeat[MAXD];
+  int feat_stride[MAXD];
+  int gfeat_stride[MAXD];
 };
 
-__device__ __forceinline__ const float* z_row(const Params& p, int f, int b) {
+template <int MAXD>
+__device__ __forceinline__ const float* z_row(const Params<MAXD>& p, int f, int b) {
   if (f == 0) return p.bottom + b * p.bottom_ld;
   return p.feat[f - 1] + static_cast<long long>(b) * p.feat_stride[f - 1];
 }
@@ -123,8 +132,8 @@ struct Walk {
 
 // Work item `item` (sample b, column slice s) into ring stage `st`: the P
 // pair gradients, the slice of g's direct part, the F rows of the z slice.
-template <int VEC>
-__device__ __forceinline__ void issue_item(const Params& p, int item, float* st, int tid) {
+template <int VEC, int MAXD>
+__device__ __forceinline__ void issue_item(const Params<MAXD>& p, int item, float* st, int tid) {
   const int b = item / p.nslices;
   const int d0 = (item - b * p.nslices) * p.DC;
   const int dcn = min(p.DC, p.D - d0);
@@ -147,9 +156,9 @@ __device__ __forceinline__ void issue_item(const Params& p, int item, float* st,
 // Position of dz row f in a row of S: group f / HPS_FT, HPS_FG floats each.
 __device__ __forceinline__ int s_pos(int f) { return f / HPS_FT * HPS_FG + f % HPS_FT; }
 
-template <int VEC, int NST>
+template <int VEC, int NST, int MAXD>
 __global__ void __launch_bounds__(THREADS)
-    dot_interaction_bwd_kernel(const __grid_constant__ Params p) {
+    dot_interaction_bwd_kernel(const __grid_constant__ Params<MAXD> p) {
   extern __shared__ __align__(16) float smem[];
   float* S = smem;                                                   // [F][SLD]
   uint32_t* pairs = reinterpret_cast<uint32_t*>(smem + p.s_floats);  // [P]
@@ -164,14 +173,13 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int s = 0; s < NST - 1; ++s) {
     const int item = blockIdx.x + s * gridDim.x;
-    if (item < items) issue_item<VEC>(p, item, ring + s * p.stage_floats, tid);
+    if (item < items) issue_item<VEC, MAXD>(p, item, ring + s * p.stage_floats, tid);
     cp_async_commit();
   }
   // S's diagonal and padding stay zero; pair (lo, hi) goes to S[hi][lo] and
-  // S[lo][hi] (F <= THREADS: a thread per lo).
+  // S[lo][hi] (a thread per lo).
   for (int i = tid; i < F * SLD; i += THREADS) S[i] = 0.0f;
-  if (tid < F) {
-    const int lo = tid;
+  for (int lo = tid; lo < F; lo += THREADS) {
     uint32_t* row = pairs + lo * F - ((lo * (lo + 1)) >> 1) - lo - 1;
     for (int hi = lo + 1; hi < F; ++hi)
       row[hi] = static_cast<uint32_t>(hi * SLD + s_pos(lo)) |
@@ -183,7 +191,8 @@ __global__ void __launch_bounds__(THREADS)
     cp_async_wait<NST - 2>();  // this thread's copies of item k have landed
     __syncthreads();           // and everyone's; item k - 1 is done (its stage and S are free)
     const int nxt = item + (NST - 1) * gridDim.x;
-    if (nxt < items) issue_item<VEC>(p, nxt, ring + ((k + NST - 1) % NST) * p.stage_floats, tid);
+    if (nxt < items)
+      issue_item<VEC, MAXD>(p, nxt, ring + ((k + NST - 1) % NST) * p.stage_floats, tid);
     cp_async_commit();
 
     const float* st = ring + (k % NST) * p.stage_floats;
@@ -255,6 +264,66 @@ __global__ void __launch_bounds__(THREADS)
   cp_async_wait<0>();
 }
 
+struct Args {
+  int B, D, n_feats;
+  const float* bottom;
+  long long bottom_ld;
+  const long long *feat_ptrs, *feat_strides;
+  const float* grad;
+  long long grad_ld;
+  float* g_bottom;
+  long long g_bottom_ld;
+  const long long *gfeat_ptrs, *gfeat_strides;
+  int vec4, nst, dc, grid, smem;
+};
+
+template <int MAXD>
+int launch(const Args& a, cudaStream_t stream) {
+  Params<MAXD> p;
+  p.B = a.B;
+  p.D = a.D;
+  p.F = 1 + a.n_feats;
+  p.SLD = (p.F + HPS_FT - 1) / HPS_FT * HPS_FG;
+  p.P = p.F * (p.F - 1) / 2;
+  p.DC = a.dc;
+  p.nslices = a.dc > 0 ? (a.D + a.dc - 1) / a.dc : 0;
+  p.z_off = (p.P + a.dc + 3) & ~3;
+  p.stage_floats = (p.z_off + p.F * a.dc + 3) & ~3;
+  p.s_floats = (p.F * p.SLD + 3) & ~3;
+  p.t_words = (p.P + 3) & ~3;
+  const long long want =
+      4ll * (p.s_floats + p.t_words + static_cast<long long>(a.nst) * p.stage_floats);
+  // Pair positions in S are 16-bit.
+  if ((a.nst != 2 && a.nst != 3) || a.dc < 1 || a.dc > a.D || (a.vec4 && a.dc % 4 != 0) ||
+      (a.vec4 && a.D % 4 != 0) || a.grid < 1 || a.smem != want || a.smem > MAX_SMEM ||
+      p.F * p.SLD > 65536) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.bottom = a.bottom;
+  p.bottom_ld = a.bottom_ld;
+  p.grad = a.grad;
+  p.grad_ld = a.grad_ld;
+  p.g_bottom = a.g_bottom;
+  p.g_bottom_ld = a.g_bottom_ld;
+  for (int t = 0; t < a.n_feats; ++t) {
+    p.feat[t] = reinterpret_cast<const float*>(a.feat_ptrs[t]);
+    p.feat_stride[t] = static_cast<int>(a.feat_strides[t]);
+    p.gfeat[t] = reinterpret_cast<float*>(a.gfeat_ptrs[t]);
+    p.gfeat_stride[t] = static_cast<int>(a.gfeat_strides[t]);
+  }
+  auto kern = a.vec4 ? (a.nst == 3 ? dot_interaction_bwd_kernel<4, 3, MAXD>
+                                   : dot_interaction_bwd_kernel<4, 2, MAXD>)
+                     : (a.nst == 3 ? dot_interaction_bwd_kernel<1, 3, MAXD>
+                                   : dot_interaction_bwd_kernel<1, 2, MAXD>);
+  if (a.smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<a.grid, THREADS, a.smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -283,50 +352,14 @@ int hps_dot_interaction_bwd(int device, void* stream, int B, int D, int n_feats,
                             int smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_feats > HPS_MAX_FEATS || n_feats < 0 || D <= 0) {
+  if (n_feats > MAX_FEATS || n_feats < 0 || D <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
-  Params p;
-  p.B = B;
-  p.D = D;
-  p.F = 1 + n_feats;
-  p.SLD = (p.F + HPS_FT - 1) / HPS_FT * HPS_FG;
-  p.P = p.F * (p.F - 1) / 2;
-  p.DC = dc;
-  p.nslices = dc > 0 ? (D + dc - 1) / dc : 0;
-  p.z_off = (p.P + dc + 3) & ~3;
-  p.stage_floats = (p.z_off + p.F * dc + 3) & ~3;
-  p.s_floats = (p.F * p.SLD + 3) & ~3;
-  p.t_words = (p.P + 3) & ~3;
-  const long long want =
-      4ll * (p.s_floats + p.t_words + static_cast<long long>(nst) * p.stage_floats);
-  if ((nst != 2 && nst != 3) || dc < 1 || dc > D || (vec4 && dc % 4 != 0) ||
-      (vec4 && D % 4 != 0) || grid < 1 || smem != want || smem > MAX_SMEM) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  p.bottom = bottom;
-  p.bottom_ld = bottom_ld;
-  p.grad = grad;
-  p.grad_ld = grad_ld;
-  p.g_bottom = g_bottom;
-  p.g_bottom_ld = g_bottom_ld;
-  for (int t = 0; t < n_feats; ++t) {
-    p.feat[t] = reinterpret_cast<const float*>(feat_ptrs[t]);
-    p.feat_stride[t] = static_cast<int>(feat_strides[t]);
-    p.gfeat[t] = reinterpret_cast<float*>(gfeat_ptrs[t]);
-    p.gfeat_stride[t] = static_cast<int>(gfeat_strides[t]);
-  }
-  auto kern = vec4 ? (nst == 3 ? dot_interaction_bwd_kernel<4, 3>
-                               : dot_interaction_bwd_kernel<4, 2>)
-                   : (nst == 3 ? dot_interaction_bwd_kernel<1, 3>
-                               : dot_interaction_bwd_kernel<1, 2>);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{B, D, n_feats, bottom, bottom_ld, feat_ptrs, feat_strides, grad, grad_ld,
+               g_bottom, g_bottom_ld, gfeat_ptrs, gfeat_strides, vec4, nst, dc, grid, smem};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return n_feats <= SMALL_FEATS ? launch<SMALL_FEATS>(a, s) : launch<MAX_FEATS>(a, s);
 }
 
 }  // extern "C"

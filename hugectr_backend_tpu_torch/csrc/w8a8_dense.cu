@@ -73,7 +73,7 @@ constexpr int SKEW = 16;      // product: row padding (bytes), conflict-free fra
 constexpr int BS_LD = BK + SKEW;
 constexpr int KREG = 1024;    // up to this K, a row is quantized from registers
 constexpr int MAX_SMEM = 232448;  // 227 KB of dynamic shared memory per block
-constexpr int MAX_K = 2944;   // the GEMV's weight in shared memory (8 x 2944 bytes) and the API
+constexpr int MAX_K = 29056;  // the GEMV's weight in shared memory: 8 x 29056 <= MAX_SMEM
 constexpr int GEMV_MAX_N = 8;
 
 enum Variant { V_GEMV = 0, V_NARROW = 1, V_TILE = 2, V_WGMMA = 3 };

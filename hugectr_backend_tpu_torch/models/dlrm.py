@@ -104,9 +104,9 @@ class DotInteraction(nn.Module):
             return torch.cat([bottom, zzt[:, r, c]], dim=1)
         if isinstance(emb, EmbParts):
             if emb.oh is not None:
-                values, slots, scales, _members = emb.oh
+                values, slots, scales, members = emb.oh
                 return dot_interaction_oh_parts(bottom, values, slots, scales,
-                                                emb.parts, emb.feature_map)
+                                                emb.parts, emb.feature_map, members)
             return dot_interaction_parts(bottom, emb.parts, emb.feature_map)
         return fused_dot_interaction(bottom, emb.to(bottom.dtype))
 

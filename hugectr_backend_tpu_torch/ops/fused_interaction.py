@@ -13,8 +13,9 @@ Pallas bodies compute (its ops/fused_interaction.py:65, :298, :322, :620):
   ``feature_map[t] = (part, sub)``. Unmapped (phantom) rows are never read.
 - K3 :func:`dot_interaction_oh_parts`: K2 whose first ``n_oh`` features are
   built in the kernel from a small quantized one-hot arena:
-  ``bf16(f32(arena[slots[j, b]]) * scales[j, b])``. Forward-only, as in the
-  JAX package: under autograd it raises.
+  ``bf16(f32(arena[slots[j, b]]) * scales[j, b])`` for a slot inside its
+  member's rows, a zero row outside them (the Pallas body's one-hot mask).
+  Forward-only, as in the JAX package: under autograd it raises.
 
 K4 and K2 are ``torch.autograd.Function``s whose backward is the JAX
 package's custom VJP (``_bwd`` :150, ``_bwd_parts`` :536): the pair
@@ -23,7 +24,8 @@ the forward's bf16 z), summed in f32. Each feature's gradient goes back to
 its (part, sub); unmapped subs and rows past the batch get zero.
 
 The wrappers launch the kernels for CUDA tensors and raise if they cannot;
-they take the plain versions (``*_ref``) only for CPU tensors. The host-side
+they take the plain versions (``*_ref``) only for CPU tensors. The launch
+plans (:func:`k3_plan`, :func:`bwd_plan`) are plain Python. The host-side
 helpers for feature orders (``is_part_major``, ``part_major_order``,
 ``interaction_permutation``, ``permute_top_mlp_kernel``) are copies of the
 JAX package's.
@@ -40,16 +42,20 @@ import torch
 
 from hugectr_backend_tpu_torch.ops import kernels
 
-MAX_FEATS = 128  # HPS_MAX_FEATS in csrc/dot_interaction.cu and dot_interaction_bwd.cu
+#: Fed features (and one-hot members) one launch takes: MAX_DESC in
+#: csrc/dot_interaction.cu, MAX_FEATS in csrc/dot_interaction_bwd.cu.
+MAX_FEATS = 1024
 
 #: The H100's streaming multiprocessors, the dynamic shared memory one block
 #: may use and the shared memory of one SM (bytes): what :func:`bwd_plan`
-#: sizes the backward's grid for.
+#: and :func:`k3_plan` size their grids for.
 H100_SMS = 132
 MAX_SMEM = 232448
 SM_SMEM = 233472
 _BWD_THREADS = 128  # THREADS in csrc/dot_interaction_bwd.cu
 _BWD_FT, _BWD_FG = 7, 8  # HPS_FT, HPS_FG there: rows of dz per thread, their stride in S
+_K3_MAX_WARPS = 8  # MAX_WARPS in csrc/dot_interaction.cu
+_K3_SM_WARPS = 16  # its __launch_bounds__(256, 2): at most 16 warps on an SM
 
 # Arena dtype -> the `arena_kind` code of csrc/dot_interaction.cu.
 _ARENA_KIND = {
@@ -169,19 +175,29 @@ def _mapped(parts, feature_map, batch):
     return [parts[p][s][:batch] for p, s in feature_map]
 
 
-def oh_rows_ref(arena, slots, scales, batch):
+def oh_rows_ref(arena, slots, scales, batch, members=None):
     """The first ``batch`` one-hot features K3 builds, the plain way: a list
-    of [batch, D] f32 rows ``f32(arena[slots[j]]) * scales[j]``."""
+    of [batch, D] f32 rows ``f32(arena[slots[j]]) * scales[j]``, a zero row
+    (``0 * scale``) where a slot lies outside its member's rows ``members[j]
+    = (offset, size)``, as the Pallas body's one-hot mask gives, and a NaN
+    row where it lies outside the arena, as the kernel writes. ``members``
+    None: each member is the whole arena."""
+    n_rows = arena.shape[0]
     rows = []
     for j in range(slots.shape[0]):
-        idx = slots[j, :batch].long()
+        sl = slots[j, :batch]
+        off, size = members[j] if members is not None else (0, n_rows)
+        inside = (sl >= off) & (sl < off + size)
+        in_arena = (sl >= 0) & (sl < n_rows)
+        idx = sl.long().clamp(0, max(n_rows - 1, 0))
         if arena.dtype == torch.float8_e4m3fn:
             r = arena.view(torch.uint8).index_select(0, idx).view(arena.dtype).float()
         else:
             r = arena.index_select(0, idx).float()
+        r = r.masked_fill(~inside[:, None], 0.0)
         if scales is not None:
             r = r * scales[j, :batch][:, None]
-        rows.append(r)
+        rows.append(r.masked_fill(~in_arena[:, None], float("nan")))
     return rows
 
 
@@ -234,10 +250,10 @@ def dot_interaction_parts_bwd_ref(bottom, parts, feature_map, g):
 
 
 def dot_interaction_oh_parts_ref(bottom, arena, slots, scales, parts,
-                                 feature_map) -> torch.Tensor:
+                                 feature_map, members=None) -> torch.Tensor:
     """Plain version of K3."""
     b = bottom.shape[0]
-    feats = oh_rows_ref(arena, slots, scales, b) + _mapped(parts, feature_map, b)
+    feats = oh_rows_ref(arena, slots, scales, b, members) + _mapped(parts, feature_map, b)
     return _interaction_ref(bottom, feats)
 
 
@@ -254,10 +270,64 @@ def _bind(lib) -> None:
         ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
         ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
     _bound = True
+
+
+class K3Plan(NamedTuple):
+    """How the forward interaction kernel (K2, K3, K4) runs: CTAs of
+    ``warps`` warps (the samples a CTA holds: a warp per sample at a time),
+    ``smem`` bytes of dynamic shared memory a CTA (a z tile and a stage per
+    warp), ``grid`` persistent CTAs, of which ``ctas_per_sm`` fit on an
+    SM."""
+
+    warps: int
+    smem: int
+    grid: int
+    ctas_per_sm: int
+
+
+def k3_stage_len(feats: int, dim: int) -> int:
+    """Floats of one warp's stage: the first row block of the output (the
+    bottom copy and the pairs of rows 0..15, the largest block) and 3 of
+    alignment, rounded up to 4 (``stage_len`` in csrc/dot_interaction.cu)."""
+    r1 = min(feats - 1, 16)
+    return (3 + dim + r1 * (2 * feats - r1 - 1) // 2 + 3) // 4 * 4
+
+
+def k3_warp_bytes(feats: int, dim: int) -> int:
+    """Shared memory of one warp: the bf16 z tile (F and D padded to 16,
+    rows 16 bytes longer) and the stage."""
+    d_pad, f_pad = -(-dim // 16) * 16, -(-feats // 16) * 16
+    return f_pad * (d_pad + 8) * 2 + 4 * k3_stage_len(feats, dim)
+
+
+def k3_plan(batch: int, feats: int, dim: int, sms: int = H100_SMS) -> K3Plan:
+    """The forward kernel's launch plan for B = ``batch``, F = ``feats`` (the
+    bottom, the one-hot and the fed features) and D = ``dim`` on a card of
+    ``sms`` SMs: the warps per CTA (up to 8) and CTAs per SM (up to 16 warps
+    an SM, 128 registers a thread) that keep the most warps resident, more
+    warps a CTA on a tie, and a grid of no more CTAs than fit on the card
+    at once (a persistent grid), nor than the batch needs. Raises where one
+    sample's tile does not fit a block's shared memory."""
+    if batch < 0 or feats < 1 or dim < 1:
+        raise ValueError(f"k3_plan: no plan for B {batch}, F {feats}, D {dim}")
+    per_warp = k3_warp_bytes(feats, dim)
+    if per_warp > MAX_SMEM:
+        raise ValueError(
+            f"k3_plan: F = {feats} features at D = {dim} need {per_warp} bytes of shared "
+            f"memory for one sample's bf16 z tile and stage; a block has {MAX_SMEM}")
+    best = None
+    for warps in range(1, min(_K3_MAX_WARPS, MAX_SMEM // per_warp) + 1):
+        smem = warps * per_warp
+        per_sm = min(_K3_SM_WARPS // warps, SM_SMEM // (smem + 1024))
+        if best is None or per_sm * warps >= best[0]:
+            best = (per_sm * warps, warps, smem, per_sm)
+    _, warps, smem, per_sm = best
+    return K3Plan(warps, smem, max(1, min(-(-batch // warps), per_sm * sms)), per_sm)
 
 
 def _feature_descs(name, bottom, parts, feature_map):
@@ -271,7 +341,8 @@ def _feature_descs(name, bottom, parts, feature_map):
         raise ValueError(f"{name}: bottom must be f32 [B, D] with unit column stride")
     b, d = bottom.shape
     if len(feature_map) > MAX_FEATS:
-        raise ValueError(f"{name}: at most {MAX_FEATS} fed features, got {len(feature_map)}")
+        raise ValueError(f"{name}: at most {MAX_FEATS} fed features on the card, got "
+                         f"{len(feature_map)}")
     ptrs, strides = [], []
     for p, s in feature_map:
         part = parts[p]
@@ -289,15 +360,20 @@ def _feature_descs(name, bottom, parts, feature_map):
     return ptrs, strides, vec4
 
 
-def _launch(name, bottom, parts, feature_map, oh=None) -> torch.Tensor:
+def _launch(name, bottom, parts, feature_map, oh=None,
+            plan: Optional[K3Plan] = None) -> torch.Tensor:
+    """The forward kernel on CUDA operands; ``oh`` = (arena, slots, scales,
+    members or None) for K3. ``plan``: :func:`k3_plan`'s, or a timing
+    sweep's (the kernel checks it)."""
     dev = bottom.device
     ptrs, strides, vec4 = _feature_descs(name, bottom, parts, feature_map)
     b, d = bottom.shape
-    n_oh, kind, arena_ptr, arena_rows = 0, 3, None, 0
+    n_oh, kind, arena_ptr, arena_rows, oh_vec = 0, 3, None, 0, 0
     slots_ptr = scales_ptr = None
     slots_ld = scales_ld = 0
+    offs, sizes = [], []
     if oh is not None:
-        arena, slots, scales = oh
+        arena, slots, scales, members = oh
         n_oh = slots.shape[0]
         if arena.dtype not in _ARENA_KIND:
             raise TypeError(f"{name}: unsupported arena dtype {arena.dtype} "
@@ -312,7 +388,17 @@ def _launch(name, bottom, parts, feature_map, oh=None) -> torch.Tensor:
                 scales.device != dev or scales.dtype != torch.float32
                 or scales.shape[0] != n_oh or scales.shape[1] < b or scales.stride(1) != 1):
             raise ValueError(f"{name}: scales must be f32 [{n_oh}, >= {b}] on {dev}")
-        kind, arena_ptr, arena_rows = _ARENA_KIND[arena.dtype], arena.data_ptr(), arena.shape[0]
+        if n_oh > MAX_FEATS:
+            raise ValueError(f"{name}: at most {MAX_FEATS} one-hot features on the card, "
+                             f"got {n_oh}")
+        rows = arena.shape[0]
+        members = [(0, rows)] * n_oh if members is None else [tuple(m) for m in members]
+        if len(members) != n_oh or any(not (0 <= o <= o + sz <= rows) for o, sz in members):
+            raise ValueError(f"{name}: {n_oh} members (offset, size) inside the arena's "
+                             f"{rows} rows expected, got {members}")
+        offs, sizes = [o for o, _ in members], [sz for _, sz in members]
+        kind, arena_ptr, arena_rows = _ARENA_KIND[arena.dtype], arena.data_ptr(), rows
+        oh_vec = int(d * arena.element_size() % 16 == 0 and arena.data_ptr() % 16 == 0)
         slots_ptr, slots_ld = slots.data_ptr(), slots.stride(0)
         if scales is not None:
             scales_ptr, scales_ld = scales.data_ptr(), scales.stride(0)
@@ -320,14 +406,18 @@ def _launch(name, bottom, parts, feature_map, oh=None) -> torch.Tensor:
     out = torch.empty((b, d + f * (f - 1) // 2), dtype=torch.float32, device=dev)
     if b == 0:
         return out
+    if plan is None:
+        plan = k3_plan(b, f, d, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = kernels.library("dot_interaction")
     _bind(lib)
     arr_t = ctypes.c_longlong * max(len(ptrs), 1)
+    int_t = ctypes.c_int * max(n_oh, 1)
     rc = lib.hps_dot_interaction(
         dev.index, kernels.stream_of(bottom), b, d, n_oh, len(ptrs),
         bottom.data_ptr(), bottom.stride(0), arr_t(*ptrs), arr_t(*strides),
         kind, arena_ptr, arena_rows, slots_ptr, slots_ld, scales_ptr,
-        scales_ld, out.data_ptr(), vec4,
+        scales_ld, int_t(*offs), int_t(*sizes), out.data_ptr(), vec4, oh_vec,
+        plan.warps, plan.grid, plan.smem,
     )
     kernels.check(lib, rc, name)
     kernels.launches[name] += 1
@@ -373,6 +463,8 @@ def bwd_plan(batch: int, dim: int, n_feats: int, sms: int = H100_SMS) -> BwdPlan
         raise ValueError(f"bwd_plan: no plan for B {batch}, D {dim}, {n_feats} features "
                          f"(at most {MAX_FEATS})")
     feats = n_feats + 1
+    if feats * (-(-feats // _BWD_FT) * _BWD_FG) > 65536:
+        raise ValueError(f"bwd_plan: {n_feats} features: S's positions pass 16 bits")
     first = min(dim, 128)
     for dc in [first] + [c for c in (64, 32, 16, 8, 4) if c < first]:
         for stages in (3, 2):
@@ -382,7 +474,9 @@ def bwd_plan(batch: int, dim: int, n_feats: int, sms: int = H100_SMS) -> BwdPlan
                 items = batch * -(-dim // dc)
                 return BwdPlan(stages, dc, max(1, min(items, per_sm * sms)), _BWD_THREADS,
                                smem, per_sm)
-    raise ValueError(f"bwd_plan: no plan fits for D {dim}, {n_feats} features")
+    raise ValueError(f"bwd_plan: no plan fits for D {dim}, {n_feats} features: S, the pair "
+                     f"table and two stages of 4 columns need {bwd_smem(feats, 4, 2)} bytes "
+                     f"of shared memory, a block has {MAX_SMEM}")
 
 
 def _bind_bwd(lib) -> None:
@@ -520,15 +614,18 @@ def dot_interaction_parts(bottom: torch.Tensor, parts, feature_map) -> torch.Ten
 
 def dot_interaction_oh_parts(bottom: torch.Tensor, arena: torch.Tensor,
                              slots: torch.Tensor, scales: Optional[torch.Tensor],
-                             parts, feature_map) -> torch.Tensor:
+                             parts, feature_map, members=None) -> torch.Tensor:
     """K3. As K2, with ``n_oh = slots.shape[0]`` features before the
     ``feature_map`` ones, built from ``arena`` [R, D] (int8, fp8, bf16 or
     f32): feature j of sample b is ``f32(arena[slots[j, b]]) * scales[j, b]``
-    (``scales`` None -> 1), rounded to bf16 like every z row. Forward-only:
-    raises when autograd would record it."""
+    (``scales`` None -> 1), rounded to bf16 like every z row, where the slot
+    lies inside ``members[j] = (offset, size)``; outside it the row is zero,
+    as the JAX package's one-hot mask gives (``members`` None: the whole
+    arena), and outside the arena NaN. Forward-only: raises when autograd
+    would record it."""
     kernels.forward_only("dot_interaction_oh_parts", bottom, arena, scales, *parts)
     if bottom.device.type == "cpu":
         return dot_interaction_oh_parts_ref(bottom, arena, slots, scales, parts,
-                                            feature_map)
+                                            feature_map, members)
     return _launch("dot_interaction_oh_parts", bottom, parts, feature_map,
-                   oh=(arena, slots, scales))
+                   oh=(arena, slots, scales, members))

@@ -49,9 +49,10 @@ _ACTS = {
 # Activation name -> the `act` code of csrc/w8a8_dense.cu.
 _ACT_CODE = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "gelu": 4}
 
-#: The largest K the kernel takes (the GEMV keeps up to 8 weight rows of K
-#: bytes in shared memory; the tile path takes any K).
-MAX_K = 2944
+#: The largest K the kernel takes: the GEMV keeps up to 8 weight rows of K
+#: bytes (rounded up to 128) in a block's shared memory, 232,448 bytes; the
+#: quantize kernel and the products stream K in chunks and take any K.
+MAX_K = 29056
 
 #: The H100's streaming multiprocessors and the dynamic shared memory one
 #: block may use (bytes): what :func:`k5_plan` sizes its grids and tiles for.

@@ -15,7 +15,9 @@ D = 128 int8 and Zipf(1.05) keys, batch 4096 keys per table:
   J  K6 v1 (``onehot_gather``, m_tile 4096, r_tile 512) on the 16 tiny tables,
      and J' K1 on the same slots
 
-Every gather of A-I and J' is K1 (``gather_dequant``). The JAX script's
+Each config of A-I is one K1 launch over all its tables
+(``gather_dequant_groups``), as the JAX script jits one program per config;
+J' is K1 on one table (``gather_dequant``). The JAX script's
 config K, the Pallas grouped-DMA gather on one big table with per-key scales,
 is K1 itself in the port, so it merges into E. The tables, 33.76M rows x 128
 int8 (4.32 GB) and 135 MB of scales, are built on the device.
@@ -36,7 +38,7 @@ import json
 import numpy as np
 import torch
 
-from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant
+from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant, gather_dequant_groups
 from hugectr_backend_tpu_torch.ops.onehot_gather import onehot_gather
 from hugectr_backend_tpu_torch.scripts.common import (
     BATCH,
@@ -62,13 +64,35 @@ PER_KEY_SCALE = 0.013
 ONEHOT_M_TILE = 4096  # config J's m_tile (its r_tile is R_TILE, 512)
 
 
-def _leg_call(leg, k: int) -> list:
-    """A K1 gather of each table of ``leg`` on slot set ``k``, with device
-    scales, the leg's per-key scales or none."""
-    tables, _, dsets, scales, scin = leg
-    return [gather_dequant(v, s if scales == "device" else None, dsets[k][i],
-                           scin if scales == "per-key" else None)
-            for i, (v, s) in enumerate(tables)]
+def _packed(legs, n_sets: int):
+    """The one K1 call of a config: per slot set, every table's slots packed
+    into one device tensor, as a lookup uploads them. -> (tables, device
+    scales per table, [slots_cat per set], scin_cat, meta, slot bounds,
+    scin bounds)."""
+    vals, dsc, sb, cb, scin, off, soff = [], [], [], [], [], 0, 0
+    for tables, hsets, _, scales in legs:
+        for i, (v, s) in enumerate(tables):
+            n = hsets[0][i].size
+            vals.append(v)
+            dsc.append(s if scales == "device" else None)
+            sb.append((off, off + n))
+            off += n
+            if scales == "per-key":
+                scin.append(torch.full((n,), PER_KEY_SCALE, device=v.device))
+                cb.append((soff, soff + n))
+                soff += n
+            else:
+                cb.append(None)
+    cats = [torch.cat([d[k][i] for _, _, d, _ in legs for i in range(len(d[k]))])
+            for k in range(n_sets)]
+    scin_cat = torch.cat(scin) if scin else None
+    return vals, dsc, cats, scin_cat, (("gather",),) * len(vals), tuple(sb), tuple(cb)
+
+
+def _config_call(packed, k: int) -> list:
+    """K1 over every table of a config on slot set ``k``: one launch."""
+    vals, dsc, cats, scin_cat, meta, sb, cb = packed
+    return gather_dequant_groups(vals, dsc, cats[k], scin_cat, meta, sb, cb)
 
 
 def run(device=None, batch: int = BATCH, n_sets: int = N_SETS, big_cards=BIG_CARDS,
@@ -90,20 +114,17 @@ def run(device=None, batch: int = BATCH, n_sets: int = N_SETS, big_cards=BIG_CAR
                        len(big_cards)) for sd in seeds]
     arena_sets, big_sets = ([[torch.from_numpy(s).to(dev) for s in per] for per in sets]
                             for sets in (arena_np, big_np))
-    scin_small = torch.full((batch * len(small_cards),), PER_KEY_SCALE, device=dev)
-    scin_big = torch.full((batch,), PER_KEY_SCALE, device=dev)
 
     # config -> legs: (tables, slot sets [set][table] on the host, the same
-    # on the device, scales, per-key scales)
+    # on the device, scales)
     parts = {
-        "A": [([arena], arena_np, arena_sets, "device", None)],
-        "B": [([arena], arena_np, arena_sets, "per-key", scin_small)],
-        "C": [([arena], arena_np, arena_sets, None, None)],
-        "D": [(bigs[:1], [p[:1] for p in big_np], [p[:1] for p in big_sets], "device", None)],
-        "E": [(bigs[:1], [p[:1] for p in big_np], [p[:1] for p in big_sets], "per-key",
-               scin_big)],
-        "F": [(bigs, big_np, big_sets, "device", None)],
-        "G": [(bigs, big_np, big_sets, "per-key", scin_big)],
+        "A": [([arena], arena_np, arena_sets, "device")],
+        "B": [([arena], arena_np, arena_sets, "per-key")],
+        "C": [([arena], arena_np, arena_sets, None)],
+        "D": [(bigs[:1], [p[:1] for p in big_np], [p[:1] for p in big_sets], "device")],
+        "E": [(bigs[:1], [p[:1] for p in big_np], [p[:1] for p in big_sets], "per-key")],
+        "F": [(bigs, big_np, big_sets, "device")],
+        "G": [(bigs, big_np, big_sets, "per-key")],
     }
     parts["H"] = parts["A"] + parts["F"]
     parts["I"] = parts["B"] + parts["G"]
@@ -119,12 +140,13 @@ def run(device=None, batch: int = BATCH, n_sets: int = N_SETS, big_cards=BIG_CAR
 
     for name, label in labels.items():
         keys, nbytes, rows = 0, 0.0, 0
-        for leg in parts[name]:
-            tables, hsets, _, scales, _ = leg
-            for i, ((v, _), got) in enumerate(zip(tables, _leg_call(leg, 0))):
+        packed = _packed(parts[name], n_sets)
+        got = iter(_config_call(packed, 0))
+        for tables, hsets, _, scales in parts[name]:
+            for i, (v, _) in enumerate(tables):
                 want = flat_truth(hsets[0][i], "device" if scales == "device"
                                   else PER_KEY_SCALE if scales == "per-key" else None)
-                if not np.array_equal(got.cpu().numpy(), want):
+                if not np.array_equal(next(got).cpu().numpy(), want):
                     raise AssertionError(f"microbench_true {name}: table {i} != host truth")
                 keys += hsets[0][i].size
                 rows += v.shape[0]
@@ -132,8 +154,7 @@ def run(device=None, batch: int = BATCH, n_sets: int = N_SETS, big_cards=BIG_CAR
         head = {"config": name, "label": label, "table_rows": rows}
         put({**head, "check": "bit-exact vs host truth"})
         if timed:
-            us = graph_us([lambda k=k: [_leg_call(leg, k) for leg in parts[name]]
-                           for k in range(n_sets)])
+            us = graph_us([lambda k=k: _config_call(packed, k) for k in range(n_sets)])
             put(timed_line(keys, us, nbytes, **head))
 
     # J: K6 v1 and K1 (J') on the tiny tables' tile-padded arena.

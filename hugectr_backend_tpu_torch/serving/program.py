@@ -101,17 +101,23 @@ class FusedMultiTableServer:
         self.assemble_fn = assemble_fn
         self.keys_per_sample = list(params.maxnum_catfeature_query_per_table_per_sample)
 
-    def _forward(self, vals, dscales, slots, scin, dense, batch, meta, slices):
-        gather = lookup_program.gather_rows_for_groups
+    def _forward(self, vals, dscales, slots_cat, sb, scin_cat, cb, dense, batch, meta,
+                 slices):
+        """The device program over the packed lookup arguments: one K1
+        launch for the groups the model reads as rows, then the model."""
+
+        def gather(meta_):
+            return lookup_program.lookup_groups(vals, dscales, slots_cat, scin_cat, meta_,
+                                                sb, cb)
+
         chunk_plan = (
-            self._chunk_plan(slices, {g: int(slots[g].shape[0])
-                                      for g in {s[0] for s in slices}})
+            self._chunk_plan(slices, {g: sb[g][1] - sb[g][0] for g in {s[0] for s in slices}})
             if all(k == 1 and d == slices[0][4] for (_, _, _, k, d) in slices)
             else None
         )
         order = None
         if chunk_plan is None:
-            gouts = gather(vals, dscales, slots, scin, meta)
+            gouts = gather(meta)
             embs = torch.cat([
                 gouts[g][start : start + cnt].reshape(batch, k, d)
                 for (g, start, cnt, k, d) in slices
@@ -126,18 +132,17 @@ class FusedMultiTableServer:
             stride = group_shape[pi][2]
             n_oh = len(members)
             # The kernel reads the first `batch` entries of each member row.
-            slots_oh = slots[g_oh].view(n_oh, stride)
-            sc = scin[g_oh]
-            scales_oh = sc.view(n_oh, stride) if sc is not None else None
-            meta_eff = tuple(("skip",) if g == g_oh else m for g, m in enumerate(meta))
-            gouts = gather(vals, dscales, slots, scin, meta_eff)
+            slots_oh = slots_cat[sb[g_oh][0]:sb[g_oh][1]].view(n_oh, stride)
+            scales_oh = (None if cb[g_oh] is None
+                         else scin_cat[cb[g_oh][0]:cb[g_oh][1]].view(n_oh, stride))
+            gouts = gather(tuple(("skip",) if g == g_oh else m for g, m in enumerate(meta)))
             parts = [gouts[g].view(nblk, stride_, d) for (g, nblk, stride_) in rest_parts]
             if ord_l != tuple(range(len(fmap))):
                 order = ord_l
             embs = EmbParts(parts, fmap_rest, batch,
                             oh=(vals[g_oh], slots_oh, scales_oh, members))
         else:
-            gouts = gather(vals, dscales, slots, scin, meta)
+            gouts = gather(meta)
             parts = [gouts[g].view(nblk, stride, d) for (g, nblk, stride) in group_shape]
             if not is_part_major(fmap):
                 o, fmap = part_major_order(fmap)
@@ -224,10 +229,10 @@ class FusedMultiTableServer:
         )
         slots_cat, sb, scin_cat, cb = lookup_program.upload_host_args(
             vals, slots, scin, cache.device)
-        slots_d, scin_d = lookup_program._unpack_device_args(slots_cat, scin_cat, sb, cb)
         dense_d = torch.from_numpy(dense).to(cache.device)
         with torch.inference_mode():
-            return self._forward(vals, dscales, slots_d, scin_d, dense_d, b, meta, slices)
+            return self._forward(vals, dscales, slots_cat, sb, scin_cat, cb, dense_d, b, meta,
+                                 slices)
 
 
 def _permute_columns(w: torch.Tensor, src: torch.Tensor, pad16: bool = False) -> torch.Tensor:

@@ -179,3 +179,136 @@ def test_scatter_rows_wraps_negative_slots():
                             torch.from_numpy(rows))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want[[r - 1, 0, 1]], rows[[0, 1, 4]])
+
+
+# ------------------------------------------------- K1 over every group at once
+
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+from hugectr_backend_tpu.cache.lookup_program import gather_rows_for_groups  # noqa: E402
+from hugectr_backend_tpu_torch.cache import lookup_program as tlp  # noqa: E402
+from hugectr_backend_tpu_torch.ops.dequant_gather import (  # noqa: E402
+    H100_SMS,
+    gather_dequant_groups,
+    gather_dequant_groups_ref,
+    k1_plan,
+)
+
+MEMBERS = ((0, 128), (128, 128), (256, 128))  # 128-aligned member blocks, as the arena lays them
+
+
+def _groups(oh_quant, seed):
+    """A lookup of four groups: an arena with device scales, a solo table
+    with per-key scales, an unscaled bf16 table and a one-hot group over
+    ``oh_quant`` member blocks with per-key scales, some of its slots outside
+    their member (inside the arena). -> (JAX args, port args)."""
+    rng = np.random.default_rng(seed)
+    ja, jas, ta, tas = _table("int8", rows=300, seed=seed)
+    js, _, ts, _ = _table("fp8", rows=200, seed=seed + 1)
+    jb, _, tb, _ = _table("bf16", rows=90, seed=seed + 2)
+    jo, _, to, _ = _table(oh_quant, rows=384, seed=seed + 3)
+    counts = (40, 7, 25)
+    oh = []
+    for (off, size), c in zip(MEMBERS, counts):
+        s = rng.integers(off, off + size, c)
+        s[::3] = rng.integers(0, 384, len(s[::3]))  # some outside the member
+        oh.append(s)
+    slots = [rng.integers(0, 300, 33), rng.integers(0, 200, 70), rng.integers(0, 90, 5),
+             np.concatenate(oh)]
+    slots = [s.astype(np.int32) for s in slots]
+    scin = [None, (rng.random(70) + 0.5).astype(np.float32), None,
+            (rng.random(sum(counts)) + 0.5).astype(np.float32)]
+    meta = (("gather",), ("gather",), ("gather",),
+            ("onehot", tuple(o for o, _ in MEMBERS), tuple(z for _, z in MEMBERS), counts))
+    jargs = ([jnp.asarray(ja), jnp.asarray(js), jnp.asarray(jb), jnp.asarray(jo)],
+             [jnp.asarray(jas), None, None, None], [jnp.asarray(s) for s in slots],
+             [None if c is None else jnp.asarray(c) for c in scin], meta)
+    slots_cat, sb, scin_cat, cb = tlp.pack_host_args(slots, scin)
+    targs = ([ta, ts, tb, to], [torch.from_numpy(tas), None, None, None],
+             torch.from_numpy(slots_cat), torch.from_numpy(scin_cat), meta, sb, cb)
+    return jargs, targs, oh, counts
+
+
+@pytest.mark.parametrize("oh_quant", ["int8", "fp8", "bf16", "fp32"])
+def test_grouped_ref_vs_jax_gather_rows_for_groups(oh_quant):
+    """Every group of a lookup at once, bit-identical to the JAX lookup
+    program, with the one-hot group's out-of-member slots giving zero rows
+    (the one-hot product's all-zero mask; times the per-key scale)."""
+    jargs, targs, oh, counts = _groups(oh_quant, seed=len(oh_quant))
+    want = gather_rows_for_groups(*jargs)
+    got = gather_dequant_groups_ref(*targs)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(_bytes_t(g), _bytes_np(np.asarray(w, np.float32)))
+    outside = np.concatenate([(s < o) | (s >= o + z) for s, (o, z) in zip(oh, MEMBERS)])
+    assert outside.any() and not got[3].numpy()[outside].any()
+    # The wrapper takes the plain version for CPU tensors, and so do the
+    # lookup program's entry points.
+    via = gather_dequant_groups(*targs)
+    lg = tlp.lookup_groups(targs[0], targs[1], targs[2], targs[3], targs[4], targs[5], targs[6])
+    for g, v, w in zip(got, via, lg):
+        assert torch.equal(g, v) and torch.equal(g, w)
+
+
+def test_grouped_ref_skips_and_refuses():
+    _, targs, _, _ = _groups("int8", seed=3)
+    vals, dsc, slots, scin, meta, sb, cb = targs
+    skipped = gather_dequant_groups_ref(vals, dsc, slots, scin,
+                                        (("skip",),) + meta[1:], sb, cb)
+    assert skipped[0] is None and torch.equal(skipped[1], gather_dequant_groups_ref(*targs)[1])
+    bad = meta[:3] + (("onehot", (0, 128, 300), (128, 128, 128), meta[3][3]),)
+    with pytest.raises(ValueError, match="inside the table"):
+        gather_dequant_groups_ref(vals, dsc, slots, scin, bad, sb, cb)
+    packed = vals[:3] + [torch.zeros((384, 64), dtype=torch.uint8)]
+    with pytest.raises(TypeError, match="nibble-packed"):
+        gather_dequant_groups_ref(packed, dsc, slots, scin, meta, sb, cb)
+    # The plain version serves CPU tensors only: tables elsewhere are refused.
+    elsewhere = vals[:3] + [vals[3].to("meta")]
+    with pytest.raises(ValueError, match="slots on the CPU"):
+        gather_dequant_groups(elsewhere, dsc, slots, scin, meta, sb, cb)
+
+
+def test_grouped_plan_at_the_criteo_lookups():
+    """The fold predict's groups (an arena of 16,384 rows and 8 solo groups
+    of 4,096) and the K2 path's (a one-hot group of 14 members of 4,096
+    more): one launch, every unit a warp resident at once."""
+    fold = k1_plan([16384] + [4096] * 8)
+    assert fold.rows == 16 and fold.units == 3072 and fold.grid == 384
+    assert k1_plan([4096]) == (128, 256, 4, 1024)  # one big table: 128 CTAs
+    k2 = k1_plan([4096] * 14 + [16384] + [4096] * 8)
+    assert k2.rows == 32 and k2.units == 3328 and k2.grid == 3 * H100_SMS  # persistent
+
+
+def k1_units(plan, group_rows):
+    """The rows each unit of ``plan`` covers, in the order the kernel numbers
+    them: ``(group, first row, rows)``."""
+    return [(g, r0, min(plan.rows, n - r0))
+            for g, n in enumerate(group_rows) for r0 in range(0, n, plan.rows)]
+
+
+@settings(max_examples=300, deadline=None)
+@given(rows=st.lists(st.integers(1, 70_000), min_size=1, max_size=40),
+       sms=st.sampled_from([H100_SMS, 1, 7, 114]))
+def test_grouped_plan_covers_every_row_once(rows, sms):
+    plan = k1_plan(rows, sms)
+    assert plan.rows in (4, 8, 16, 32) and plan.threads == 256
+    assert 1 <= plan.grid <= 3 * sms and plan.grid * 8 >= min(plan.units, 3 * sms * 8)
+    units = k1_units(plan, rows)
+    assert len(units) == plan.units
+    covered = {}
+    for g, r0, n in units:
+        assert 1 <= n <= plan.rows
+        covered.setdefault(g, []).append((r0, n))
+    for g, n in enumerate(rows):
+        spans = sorted(covered[g])
+        assert spans[0][0] == 0 and sum(c for _, c in spans) == n
+        assert all(a + c == b for (a, c), (b, _) in zip(spans, spans[1:]))
+    # Smaller units only while they all fit the card at once.
+    if plan.rows > 4:
+        assert sum(-(-n // (plan.rows // 2)) for n in rows) > 3 * sms * 8
+
+
+def test_grouped_plan_refuses():
+    with pytest.raises(ValueError):
+        k1_plan([4096, 0])
+    with pytest.raises(ValueError):
+        k1_plan([1] * 257)

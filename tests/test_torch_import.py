@@ -45,6 +45,8 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.scripts.common",
     "hugectr_backend_tpu_torch.scripts.microbench_onehot",
     "hugectr_backend_tpu_torch.scripts.microbench_true",
+    "hugectr_backend_tpu_torch.scripts.predict_kernels",
+    "hugectr_backend_tpu_torch.scripts.k3_phase_split",
     "chip_smoke",
 ]
 

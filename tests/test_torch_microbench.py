@@ -163,3 +163,19 @@ def test_timing_needs_a_card():
         common.graph_us([lambda: None])
     with pytest.raises(RuntimeError, match='device="cpu"'):
         mo.run(batch=BATCH, n_sets=1, emit=lambda line: None)
+
+
+def test_kernel_timing_scripts_need_a_card():
+    """The predict-kernel timer and the phase split refuse to run without a
+    card (a CPU time is no device metric); the phase split also refuses a
+    kernel that is not the warp-per-sample one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from hugectr_backend_tpu_torch.scripts import k3_phase_split, predict_kernels
+
+    root = Path(__file__).resolve().parent.parent
+    assert predict_kernels.main(["--tree", str(root)]) == 2
+    assert k3_phase_split.main(["--tree", str(root)]) == 2
+    src = (root / "hugectr_backend_tpu_torch/csrc/dot_interaction.cu").read_text()
+    with pytest.raises(ValueError, match="warp-per-sample"):
+        k3_phase_split.stamped_source(src)

@@ -290,3 +290,27 @@ def test_plan_refuses_what_the_kernel_does_not_take():
         qm._tile_plan(1, 65535 * 64 + 1, 1024, 32, 64)
     with pytest.raises(ValueError):  # the in-product quantize takes one chunk of K
         qm._tile_plan(64, 64, 65, 64, 128, 4)
+
+
+@pytest.mark.parametrize("k", [2945, 4096])
+@pytest.mark.parametrize("act", ["relu", None])
+def test_plain_matches_xla_formulation_past_the_old_k_limit(k, act):
+    """K past 2,944, the card's former limit: the plain version against
+    ``xla_w8a8`` (the JAX package takes any K)."""
+    x, wq, ws, b = _layer(9, k, 5)
+    _check(_port(x, wq, ws, b, act), _jax(xla_w8a8, x, wq, ws, b, act), act)
+
+
+@pytest.mark.parametrize("k", [2945, 4096, MAX_K])
+@pytest.mark.parametrize("n", [1, 8, 300, 1024])
+def test_plan_takes_k_past_the_old_limit(k, n):
+    """Every path past K = 2,944: the GEMV's weight rows still fit a block's
+    shared memory up to MAX_K, the products stream K after the quantize
+    kernel."""
+    plan = k5_plan(4096, n, k)
+    assert plan.smem <= MAX_SMEM
+    if n <= 8:
+        assert plan.variant == "gemv" and plan.smem == n * -(-k // 128) * 128
+    else:
+        assert plan.variant in ("tile", "wgmma") and plan.qgrid == 4096 // 8
+    assert 8 * -(-MAX_K // 128) * 128 <= MAX_SMEM < 8 * (MAX_K + 128)

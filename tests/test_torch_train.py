@@ -313,11 +313,11 @@ def test_dlrm_init_statistics():
 SM_SMEM = 233472  # shared memory of one H100 SM, 1 KB of it reserved per block
 
 
-@pytest.mark.parametrize("n_feats", [0, 1, 26, 127, 128])
+@pytest.mark.parametrize("n_feats", [0, 1, 26, 127, 128, 129, 146])
 @pytest.mark.parametrize("dim", [1, 4, 36, 64, 128, 130, 1024])
 def test_backward_plan_fits(n_feats, dim):
-    """The backward kernel's plan fits an H100 for up to 128 fed features
-    and D up to 1,024: shared memory of a block, a slice of at most 128
+    """The backward kernel's plan fits an H100 for up to 146 fed features
+    (F = 147) and D up to 1,024: shared memory of a block, a slice of at most 128
     columns (a multiple of 4 where D is), a 2- or 3-stage ring, a grid of
     no more than the work items."""
     plan = tfi.bwd_plan(777, dim, n_feats, tfi.H100_SMS)
@@ -339,3 +339,6 @@ def test_backward_plan_at_the_training_shape():
 def test_backward_plan_refuses_too_many_features():
     with pytest.raises(ValueError):
         tfi.bwd_plan(8, 128, tfi.MAX_FEATS + 1)
+    # F = 148: S, the pair table and two stages pass a block's shared memory.
+    with pytest.raises(ValueError, match="shared memory"):
+        tfi.bwd_plan(8, 128, 147)
