@@ -14,16 +14,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    part-major feature maps with phantom rows and on int8 / fp8 / bf16 / f32
    arenas, within rtol 1e-5 and atol 1e-6 * max|z|^2: both sides see the same
    bf16 z and differ only in the order of the f32 sums. K6 (the one-hot
-   worklist gather, v1 and v2) bit-exact on int8 / fp8 / bf16 / f32 arenas
-   with members of [700] and [3, 1461, 2174, 5684] rows, several key tiles
-   per member, m_tile 512 and 4096, slots outside their member's tiles
-   (zero rows), and on int8 against K1; every invalid plan raises. The
-   grouped K1 (one launch per lookup) bit-exact on every storage kind in one
-   call, device / per-key / no scales, empty and skipped groups, one-hot
-   groups with slots outside their member (zero rows) and odd widths; K3, K2
-   and K4's forward at F in {2, 27, 128, 129, 300} (past 128 fed features
-   and past one 16-row block of pairs) with members and slots outside them,
-   and F = 700 at D = 128 refused.
+   worklist gather, v1 and v2) bit for bit (compared as int32 bit patterns,
+   so the sign of a zero counts) on int8 / fp8 / bf16 / f32 arenas holding
+   -0.0 and, for bf16 / f32, +-inf, with members of [700] and [3, 1461,
+   2174, 5684] rows, several key tiles per member, m_tile 32, 64, 512 and
+   4096, slots outside their member's tiles (zero rows), on int8 against K1,
+   and on plans that visit a row tile twice (with and without a miss
+   between) at D 36 and 128; every invalid plan raises. The grouped K1 (one
+   launch per lookup) bit-exact on every storage kind in one call, device /
+   per-key / no scales, empty and skipped groups, one-hot groups with slots
+   outside their member (zero rows) and odd widths; K3, K2 and K4's forward
+   at F in {2, 27, 128, 129, 300} (past 128 fed features and past one
+   16-row block of pairs) with members and slots outside them. The routes
+   past the former limits against their plain versions (each must take its
+   wide plan): the forward at F 689 and 1,100 (z in shared memory; past one
+   warp's tile and past 1,024 fed features or one-hot members) and at 800
+   and 850 (z in device memory), the backward at F 148 and 700 (through
+   autograd, and K2's parts with gradients not asked for), K5 with N <= 8
+   at K 29,057, 30,000 and 100,000 (every activation).
 3. The main path at full width: a Criteo-Kaggle-shaped DLRM (the 26
    categorical cardinalities, each capped at 262,144 rows; D = 128, int8;
    13 dense features; bottom MLP 512-256-128, top MLP 1024-1024-512-256-1;
@@ -39,13 +47,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    quantize kernel with the mma.sync or the wgmma product): N in {1, 8, 9,
    127, 128, 129, 256, 257, 1024}, M in {1, 63, 65, 4097}, K in {13, 256,
    479, 479 with weight rows padded to 480, 1024, 2944}, five more shapes
-   and six with K from 2945 to MAX_K (29,056), with the activations and the
-   bias cycling over the cases (all of
-   them on one shape per path); past N = 8 every other plan the kernel takes
-   for the shape as well (``k5_plans``). Rows of zeros and
-   rows that quantize on half-integers among the inputs, junk in the
-   weight rows' padding: bit-exact for act None and relu, within rtol 1e-6
-   and atol 1e-6 for sigmoid, tanh and gelu.
+   and six with K from 2945 to GEMV_MAX_K (29,056), with the activations
+   and the bias cycling over the cases (all of them on one shape per path);
+   past N = 8 every other plan the kernel takes for the shape as well
+   (``k5_plans``). Rows of zeros and rows that quantize on half-integers
+   among the inputs, junk in the weight rows' padding: bit-exact for act
+   None and relu, within rtol 1e-6 and atol 1e-6 for sigmoid, tanh and
+   gelu.
 5. The quantized-dense main path on the same deployment: ``DLRM(quant_fmt=
    "w8a8")`` with the f32 weights of phase 3 put through
    ``quantize_model_params``, served by ``make_dlrm_multi_server`` at batch
@@ -63,7 +71,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    took; its entry in the kernels line sums the 8 (one predict's worth). K1
    is timed as each path's one grouped launch (its library time: the
    groups' ``index_select`` calls chained in one graph; the fold path's is
-   the kernels line's entry) and on the arena group alone.
+   the kernels line's entry) and on the arena group alone. Then each route
+   past the former limits timed at its edge shape (``WIDE_TIMED``) beside
+   its plain version and its bound.
 7. K4 (``fused_dot_interaction``, the stacked interaction) and its backward
    kernel against their plain versions on edge cases: B in {1, 7, 4096},
    D in {16, 36, 128}, T in {1, 26}, with only one input requiring grad,
@@ -106,7 +116,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    rows x 128 int8, every output bit-exact against the host truth). Both K6
    kernels must launch. Then each K6 body timed at the tiny16 shape (batch
    4096: 65,536 keys over 52 row tiles of 512) beside its plain version,
-   ``index_select`` and K1 on the same slots.
+   ``index_select`` and K1 on the same slots, bit for bit against the plain
+   version.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -140,7 +151,8 @@ TOP = (1024, 1024, 512, 256, 1)
 SEED = 2026
 
 RTOL = 1e-5  # K2/K3 vs plain: f32 summation order only
-BWD_MAX_F = 147  # the backward's largest F (S, the pair table and a ring in shared memory)
+BWD_MAX_F = 147  # the shared-memory backward kernel's largest F (S, the pair table, a ring)
+K6_EDGE_M_TILES = (32, 64, 512, 4096)  # keys per key tile of the K6 edge checks
 K3_EDGE_F = (2, 27, 128, 129, 300)  # forward interaction: past 128 fed descriptors, row blocks
 REL_LOGITS = 5e-3  # fold vs no fold, the JAX package's bar (test_fused_models.py)
 TRAIN_STEPS = 200  # steps of each training run (batch BATCH)
@@ -402,7 +414,7 @@ def k3_wide_checks(dev) -> int:
     16-byte paths), 36 (one-hot rows off the 16-byte path) and 30 (fed rows
     too), int8 and bf16 one-hot arenas with members and slots outside them
     (zero rows), within rtol RTOL and atol 1e-6 * max|z|^2 of the plain
-    versions; a shape past a block's shared memory is refused."""
+    versions. Past a block's shared memory, see repaired_route_checks."""
     from hugectr_backend_tpu_torch.ops.fused_interaction import (
         dot_interaction_oh_parts,
         dot_interaction_oh_parts_ref,
@@ -455,14 +467,6 @@ def k3_wide_checks(dev) -> int:
                 if not ok:
                     raise AssertionError(f"{name} F={f} D={d}: max err {err}")
                 n_checks += 1
-    if dev.type == "cuda":  # past a block's shared memory (F = 700 at D = 128): refused
-        try:
-            fused_dot_interaction(torch.zeros(1, DIM, device=dev),
-                                  torch.zeros(1, 699, DIM, device=dev))
-        except ValueError:
-            n_checks += 1
-        else:
-            raise AssertionError("the forward interaction took F = 700 at D = 128")
     return n_checks
 
 
@@ -499,7 +503,7 @@ def k5_check(got, want, act, what):
 # kernel's 16-row items and the tiles (32, 64, 128), K from the byte path
 # (13) through the narrow kernel's register widths (128-512), the quantize
 # kernel's (479, with weight rows padded to 480, the serving path's layout;
-# 1024) and its two-pass rows past 1024 to MAX_K.
+# 1024) and its two-pass rows past 1024 to GEMV_MAX_K.
 K5_EDGE_N = (1, 8, 9, 127, 128, 129, 256, 257, 1024)
 K5_EDGE_M = (1, 63, 65, 4097)
 K5_EDGE_K = (13, 256, 479, 480, 1024, 2944)  # 480: K = 479, weight rows padded to 480
@@ -509,7 +513,7 @@ K5_EDGE_K = (13, 256, 479, 480, 1024, 2944)  # 480: K = 479, weight rows padded 
 K5_EDGE_EXTRA = ((100, 600, 520), (33, 1663, 96), (300, 1000, 2048), (65, 64, 300),
                  (64, 36, 129))
 # K past the old limit of 2944: the products' K loop, the quantize kernel's
-# two passes and the GEMV up to its shared memory (MAX_K).
+# two passes and the GEMV up to its shared memory (GEMV_MAX_K).
 K5_EDGE_WIDE_K = ((4097, 2945, 1024), (65, 4096, 257), (63, 4096, 8), (33, 2945, 300),
                   (17, 29056, 8), (40, 29056, 129))
 # All activations, with and without a bias, on one shape per path.
@@ -654,8 +658,7 @@ def bwd_edge_checks(dev) -> int:
     B 4099 (no batch a multiple of the persistent grid); K2's chunked parts
     with phantom rows, unmapped subs and gradients not asked for (null
     pointers). Within bwd_err's tolerance; phantom rows and unmapped subs
-    exactly zero. F = 148 is refused (its S and pair table pass a block's
-    shared memory)."""
+    exactly zero. Past F = 147, see repaired_route_checks."""
     from hugectr_backend_tpu_torch.ops.fused_interaction import (
         dot_interaction_bwd,
         dot_interaction_parts_bwd_ref,
@@ -704,17 +707,185 @@ def bwd_edge_checks(dev) -> int:
                     raise AssertionError(f"{what} part {i}: phantom rows or unmapped subs got "
                                          "a gradient")
             n_checks += 1
-    if dev.type == "cuda":  # one feature more than its shared memory holds: refused
-        bottom = torch.randn(1, 4, generator=g).to(dev)
-        emb = torch.randn(1, BWD_MAX_F, 4, generator=g).to(dev)
-        try:
-            fused_dot_interaction_bwd(
-                bottom, emb, torch.zeros(1, 4 + BWD_MAX_F * (BWD_MAX_F + 1) // 2, device=dev))
-        except ValueError:
-            n_checks += 1
-        else:
-            raise AssertionError(f"the backward took F = {BWD_MAX_F + 1}, past its shared memory")
     return n_checks
+
+
+# The repaired routes (ops/fused_interaction.py k3_plan / bwd_plan and
+# ops/quant_matmul.py k5_plan past their former limits). Forward: (B, F, D,
+# one-hot members): F 689 at D 128 (past one warp's z tile), 1,101 with
+# 1,100 fed features (past the 1,024 descriptors) and 1,041 with 1,030
+# one-hot members, and 1,100 at D 36 (1,059 fed), all with z in shared
+# memory; 800 and 850 at D 128, z in device memory. Backward: (B, F, D): F
+# 148 (past the shared memory) and 700. K5: (M, K, N) with N <= 8 past the
+# GEMV's K of 29,056.
+WIDE_FWD = ((8, 689, DIM, 0), (5, 689, DIM, 60), (4, 1101, 16, 0), (3, 1041, 16, 1030),
+            (7, 1100, 36, 40), (3, 800, DIM, 0), (2, 850, DIM, 30))
+WIDE_BWD = ((1, 148, 4), (37, 148, DIM), (9, 148, 130), (3, 700, DIM), (2, 700, 36))
+K5_PAST_GEMV = ((1, 29057, 8), (63, 29057, 1), (257, 100000, 8), (5, 100000, 1),
+                (65, 30000, 3))
+# The shapes each repaired route is timed at.
+WIDE_TIMED = {"forward F 689": (256, 689, DIM, 0), "forward F 1101": (256, 1101, 16, 0),
+              "forward F 800 (z in device memory)": (256, 800, DIM, 0),
+              "backward F 148": (256, 148, DIM), "backward F 700": (64, 700, DIM),
+              "K5 K 29057 N 8": (4096, 29057, 8), "K5 K 100000 N 1": (1024, 100000, 1)}
+
+
+def _wide_fwd_case(b, f, d, n_oh, g, dev):
+    """-> (kernel call, plain call, max|z|) for the forward at (B, F, D) with
+    ``n_oh`` one-hot members (K3; K4 when 0), slots outside the members."""
+    from hugectr_backend_tpu_torch.ops.fused_interaction import (
+        dot_interaction_oh_parts,
+        dot_interaction_oh_parts_ref,
+        fused_dot_interaction,
+        fused_dot_interaction_ref,
+        oh_rows_ref,
+    )
+
+    bottom = torch.randn(b, d, generator=g).to(dev)
+    emb = torch.randn(b, f - 1 - n_oh, d, generator=g).to(dev)
+    if n_oh == 0:
+        zm = zmax([bottom] + list(emb.unbind(1)))
+        return (lambda: fused_dot_interaction(bottom, emb),
+                lambda: fused_dot_interaction_ref(bottom, emb), zm)
+    rows = 8 * n_oh
+    arena = (torch.randn(rows, d, generator=g) * 40).clamp(-127, 127).round()
+    arena = arena.to(torch.int8).to(dev)
+    members = tuple((8 * j, 8 - (j % 3)) for j in range(n_oh))
+    slots = torch.stack([torch.randint(max(0, o - 2), min(rows, o + z + 2), (b,), generator=g,
+                                       dtype=torch.int32) for o, z in members]).to(dev)
+    scales = (torch.rand(n_oh, b, generator=g) + 0.01).to(dev)
+    parts = [emb.transpose(0, 1)]
+    fmap = tuple((0, t) for t in range(emb.shape[1]))
+    zm = zmax([bottom] + oh_rows_ref(arena, slots, scales, b, members) + list(emb.unbind(1)))
+    args = (bottom, arena, slots, scales, parts, fmap, members)
+    return (lambda: dot_interaction_oh_parts(*args),
+            lambda: dot_interaction_oh_parts_ref(*args), zm)
+
+
+def repaired_route_checks(dev) -> dict:
+    """The routes past the card's former limits against their plain
+    versions: the forward (K4 and K3, zero rows outside the members) at
+    WIDE_FWD, the backward (K4 through autograd with one input not
+    requiring grad, and K2's chunked parts with phantom rows, unmapped subs
+    and gradients not asked for) at WIDE_BWD, K5 at K5_PAST_GEMV for every
+    activation (bit-exact for None / relu). Each must take the wide plan.
+    -> checks per route."""
+    from hugectr_backend_tpu_torch.ops import fused_interaction as fi
+    from hugectr_backend_tpu_torch.ops.quant_matmul import k5_plan, w8a8_dense, w8a8_dense_plain
+
+    g = torch.Generator().manual_seed(17)
+    counts = {"forward": 0, "backward": 0, "K5": 0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    for b, f, d, n_oh in WIDE_FWD:
+        if not isinstance(fi.k3_plan(b, f, d, sms, max(f - 1 - n_oh, n_oh)), fi.K3WidePlan):
+            raise AssertionError(f"forward F={f} D={d}: not the wide route")
+        kernel, plain, zm = _wide_fwd_case(b, f, d, n_oh, g, dev)
+        got, want = kernel(), plain()
+        ok, err = interaction_err(got, want, zm)
+        if not ok:
+            raise AssertionError(f"wide forward B={b} F={f} D={d} one-hot {n_oh}: max err {err}")
+        if n_oh and not torch.isfinite(got).all():
+            raise AssertionError(f"wide forward F={f}: a slot outside its member was not a "
+                                 "zero row")
+        counts["forward"] += 1
+    for b, f, d in WIDE_BWD:
+        if not isinstance(fi.bwd_plan(b, d, f - 1, sms), fi.BwdWidePlan):
+            raise AssertionError(f"backward F={f} D={d}: not the wide route")
+        bottom = torch.randn(b, d, generator=g).to(dev)
+        emb = torch.randn(b, f - 1, d, generator=g).to(dev)
+        gout = torch.randn(b, d + f * (f - 1) // 2, generator=g).to(dev)
+        wb, we = fi.fused_dot_interaction_bwd_ref(bottom, emb, gout)
+        gm = float(gout.abs().max())
+        zm = max(float(bottom.abs().max()), float(emb.abs().max()))
+        for need_b, need_e in ((True, True), (False, True), (True, False)):
+            xb, xe = bottom.clone().requires_grad_(need_b), emb.clone().requires_grad_(need_e)
+            wrt = [x for x, need in ((xb, need_b), (xe, need_e)) if need]
+            grads = list(torch.autograd.grad(fi.fused_dot_interaction(xb, xe), wrt, gout))
+            what = f"wide backward B={b} F={f} D={d} needs {need_b, need_e}"
+            if need_b:
+                bwd_err(grads.pop(0), wb, f, gm, zm, what + " g_bottom")
+            if need_e:
+                bwd_err(grads.pop(0), we, f, gm, zm, what + " g_emb")
+            counts["backward"] += 1
+    # K2's chunked parts past F = 147: two parts with phantom rows, one sub
+    # never mapped, gradients of the second part not asked for.
+    b, d = 11, 64
+    bottom = torch.randn(b, d, generator=g).to(dev)
+    parts = [torch.randn(100, b + 3, d, generator=g).to(dev),
+             torch.randn(60, b, d, generator=g).to(dev)]
+    fmap = tuple([(0, s) for s in range(99)] + [(1, s) for s in range(60)])
+    gout = torch.randn(b, d + 160 * 159 // 2, generator=g).to(dev)
+    want_b, want_p = fi.dot_interaction_parts_bwd_ref(bottom, parts, fmap, gout)
+    got_b, got_p = fi.dot_interaction_bwd(bottom, parts, fmap, gout, True, (True, False))
+    gm = float(gout.abs().max())
+    zm = max(float(x.abs().max()) for x in [bottom] + parts)
+    bwd_err(got_b, want_b, 160, gm, zm, "wide K2 backward g_bottom")
+    bwd_err(got_p[0], want_p[0], 160, gm, zm, "wide K2 backward part 0")
+    if got_p[1] is not None or got_p[0][99].any() or got_p[0][:, b:].any():
+        raise AssertionError("wide K2 backward: a gradient not asked for, an unmapped sub or "
+                             "a phantom row got a value")
+    counts["backward"] += 1
+    for i, (m, k, n) in enumerate(K5_PAST_GEMV):
+        if k5_plan(m, n, k, sms).variant != "tile":
+            raise AssertionError(f"K5 M {m} K {k} N {n}: not the mma.sync product")
+        x, wq, ws, bias = k5_inputs(m, k, n, g, dev)
+        for j, act in enumerate(K5_ACTS):
+            bb = bias if (i + j) % 2 == 0 else None
+            k5_check(w8a8_dense(x, wq, ws, bb, act), w8a8_dense_plain(x, wq, ws, bb, act), act,
+                     f"M {m} K {k} N {n} bias {bb is not None} (past the GEMV)")
+            counts["K5"] += 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return counts
+
+
+def repaired_route_timings(dev, bw, f32_flops, emit_line) -> None:
+    """Each repaired route at its WIDE_TIMED shape: device time per call of
+    the kernel and of the plain version (CUDA-graph replay; the backward
+    kernel by ``torch.profiler``, since its gradient buffers, and so its
+    descriptor table, are new each call and a graph cannot capture the
+    upload), the host-inclusive time of back-to-back calls (CUDA events: at
+    1,100 features the wrapper's per-feature checks in Python show there),
+    and the bound (bytes: inputs once, outputs once; the backward also its
+    f32 FMAs)."""
+    from hugectr_backend_tpu_torch.ops import fused_interaction as fi
+    from hugectr_backend_tpu_torch.ops.quant_matmul import w8a8_dense, w8a8_dense_plain
+
+    g = torch.Generator().manual_seed(18)
+    for what, shape in WIDE_TIMED.items():
+        if what.startswith("forward"):
+            b, f, d, n_oh = shape
+            kernel, plain, _ = _wide_fwd_case(b, f, d, n_oh, g, dev)
+            nbytes = 4 * b * (f * d + d + f * (f - 1) // 2)
+            t_ops = 0.0
+        elif what.startswith("backward"):
+            b, f, d = shape
+            bottom = torch.randn(b, d, generator=g).to(dev)
+            emb = torch.randn(b, f - 1, d, generator=g).to(dev)
+            gout = torch.randn(b, d + f * (f - 1) // 2, generator=g).to(dev)
+            kernel = lambda: fi.fused_dot_interaction_bwd(bottom, emb, gout)  # noqa: E731
+            plain = lambda: fi.fused_dot_interaction_bwd_ref(bottom, emb, gout)  # noqa: E731
+            nbytes = 4 * b * (2 * f * d + d + f * (f - 1) // 2)
+            t_ops = 2 * b * f * (f - 1) * d / f32_flops
+        else:
+            m, k, n = shape
+            x, wq, ws, bias = k5_inputs(m, k, n, g, dev)
+            kernel = lambda: w8a8_dense(x, wq, ws, bias, "relu")  # noqa: E731
+            plain = lambda: w8a8_dense_plain(x, wq, ws, bias, "relu")  # noqa: E731
+            nbytes = 4 * m * k + n * k + 8 * n + 4 * m * n
+            t_ops = 0.0
+        if what.startswith("backward"):
+            kernel()
+            _, top = device_profile(lambda: [kernel() for _ in range(5)], 5)
+            kernel_ms = sum(ms for name, ms in top if "bwd_wide" in name)
+        else:
+            kernel_ms = device_ms(kernel, per_graph=2, replays=3)
+        t_bytes = nbytes / bw
+        emit_line({"repaired_route": what, "shape": list(shape), "kernel_ms": kernel_ms,
+                   "plain_ms": device_ms(plain, per_graph=2, replays=3),
+                   "eager_ms": eager_ms(kernel, iters=5, warmup=1),
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
 
 
 def forward_only_checks(dev) -> int:
@@ -741,9 +912,15 @@ def forward_only_checks(dev) -> int:
     return len(calls)
 
 
+def same_bits(got, want) -> bool:
+    """Equal bit for bit: -0.0 is not +0.0, and a NaN equals itself."""
+    return got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def k6_edge_checks(dev) -> int:
-    """K6 (both bodies) against its plain versions, bit for bit; int8 also
-    against K1; invalid plans and int4 arenas raise."""
+    """K6 (both bodies) against its plain versions, bit for bit (the sign of
+    a zero included); int8 also against K1; invalid plans and int4 arenas
+    raise."""
     from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant
     from hugectr_backend_tpu_torch.ops.onehot_gather import (
         OnehotPlan,
@@ -755,13 +932,35 @@ def k6_edge_checks(dev) -> int:
     )
     from hugectr_backend_tpu_torch.scripts.common import tile_layout
 
+    def bodies(values, scales, slots, plan):
+        return (("v1", onehot_gather(values, scales, slots, plan),
+                 onehot_gather_ref(values, scales, slots, plan)),
+                ("v1 no scales", onehot_gather(values, None, slots, plan),
+                 onehot_gather_ref(values, None, slots, plan)),
+                ("v2", onehot_gather_rows(values, slots, plan),
+                 onehot_gather_rows_ref(values, slots, plan)))
+
+    def arena(rng, rows, dt, dim=DIM):
+        """Values over int8's range; for the float types scaled down, with
+        an eighth of them -0.0 and, for bf16 / f32, a few +-inf."""
+        vals = rng.integers(-127, 128, (rows, dim)).astype(np.float32)
+        if dt != torch.int8:
+            vals *= rng.random((rows, dim)).astype(np.float32)
+            vals[rng.random((rows, dim)) < 0.125] = -0.0
+            if dt != torch.float8_e4m3fn:
+                vals[rng.random((rows, dim)) < 0.002] = np.inf
+                vals[rng.random((rows, dim)) < 0.002] = -np.inf
+        return torch.from_numpy(vals).to(dt).to(dev)
+
     rng = np.random.default_rng(6)
     r_tile, n_checks = 512, 0
     for member_rows in ([700], [3, 1461, 2174, 5684]):
         tiles, r_pad = tile_layout(member_rows, r_tile)
-        for m_tile in (512, 4096):
-            # Two key tiles for the first member, one for the others.
-            kpm = [m_tile * (2 if i == 0 else 1) for i in range(len(member_rows))]
+        for m_tile in K6_EDGE_M_TILES:
+            # Two key tiles' worth for the first member, one for the others
+            # (at least 1,024 keys a member: many key tiles at small m_tile).
+            reps = max(1, 1024 // m_tile)
+            kpm = [m_tile * reps * (2 if i == 0 else 1) for i in range(len(member_rows))]
             plan = plan_onehot_worklist(tiles, kpm, m_tile=m_tile, r_tile=r_tile)
             parts, inside = [], []
             for (a, nt), r, k in zip(tiles, member_rows, kpm):
@@ -773,22 +972,13 @@ def k6_edge_checks(dev) -> int:
             slots = torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(dev)
             inside = torch.from_numpy(np.concatenate(inside)).to(dev)
             for dt in (torch.int8, torch.float8_e4m3fn, torch.bfloat16, torch.float32):
-                vals = rng.integers(-127, 128, (r_pad, DIM)).astype(np.float32)
-                if dt != torch.int8:
-                    vals *= rng.random((r_pad, DIM)).astype(np.float32)
-                values = torch.from_numpy(vals).to(dt).to(dev)
+                values = arena(rng, r_pad, dt)
                 scales = torch.from_numpy((rng.random(r_pad) + 0.01).astype(np.float32)).to(dev)
-                for body, got, want in (
-                        ("v1", onehot_gather(values, scales, slots, plan),
-                         onehot_gather_ref(values, scales, slots, plan)),
-                        ("v1 no scales", onehot_gather(values, None, slots, plan),
-                         onehot_gather_ref(values, None, slots, plan)),
-                        ("v2", onehot_gather_rows(values, slots, plan),
-                         onehot_gather_rows_ref(values, slots, plan))):
+                for body, got, want in bodies(values, scales, slots, plan):
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)
                     what = f"K6 {body} {dt} members {member_rows} m_tile {m_tile}"
-                    if got.shape != (slots.shape[0], DIM) or not torch.equal(got, want):
+                    if got.shape != (slots.shape[0], DIM) or not same_bits(got, want):
                         raise AssertionError(f"{what}: kernel != plain")
                     if got[~inside].any():
                         raise AssertionError(f"{what}: a slot outside its member's tiles "
@@ -798,10 +988,27 @@ def k6_edge_checks(dev) -> int:
                     for sc in (scales, None):
                         k6 = (onehot_gather(values, sc, slots, plan) if sc is not None
                               else onehot_gather_rows(values, slots, plan))
-                        if not torch.equal(k6[inside], gather_dequant(values, sc, slots[inside])):
+                        if not same_bits(k6[inside], gather_dequant(values, sc, slots[inside])):
                             raise AssertionError(f"K6 int8 members {member_rows} m_tile "
                                                  f"{m_tile}: != K1 on the same slots")
                         n_checks += 1
+    # Runs that visit a row tile twice, with and without a miss between:
+    # v + v, and -0.0 kept only where every step hits. Rows of 36 (the
+    # element path for int8 / fp8, pieces for bf16 / f32) and of 128.
+    for kt, rt in (([0, 0], [0, 0]), ([0, 0, 0], [0, 1, 0]), ([0, 0, 1], [1, 1, 0])):
+        first = [1] + [int(kt[i] != kt[i - 1]) for i in range(1, len(kt))]
+        plan = OnehotPlan(np.asarray(kt, np.int32), np.asarray(rt, np.int32),
+                          np.asarray(first, np.int32), kt[-1] + 1, m_tile=32, r_tile=64)
+        slots = torch.from_numpy(rng.integers(-8, 136, 32 * (kt[-1] + 1)).astype(np.int32)).to(dev)
+        for dim in (36, DIM):
+            for dt in (torch.int8, torch.float8_e4m3fn, torch.bfloat16, torch.float32):
+                values = arena(rng, 128, dt, dim)
+                scales = torch.from_numpy((rng.random(128) + 0.01).astype(np.float32)).to(dev)
+                for body, got, want in bodies(values, scales, slots, plan):
+                    if not same_bits(got, want):
+                        raise AssertionError(f"K6 {body} {dt} D {dim} plan kt {kt} rt {rt}: "
+                                             "kernel != plain")
+                    n_checks += 1
     # Invalid plans raise. `good`: one member of 2 row tiles, 2 key tiles of
     # 512: kt [0, 0, 1, 1], rt [0, 1, 0, 1], first [1, 0, 1, 0].
     values = torch.zeros(1024, DIM, dtype=torch.int8, device=dev)
@@ -1228,7 +1435,7 @@ def k6_measure(arena, plan, slots, rows_only: bool, bw) -> dict:
         plain = lambda: onehot_gather_ref(values, scales, slots, plan)  # noqa: E731
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
+    if not same_bits(got, want):
         raise AssertionError(f"K6 {'v2' if rows_only else 'v1'} at the tiny16 shape: "
                              "kernel != plain")
     n, d = got.shape
@@ -1490,6 +1697,7 @@ def main() -> int:
     nb = bwd_edge_checks(dev)
     n_fo = forward_only_checks(dev)
     n6 = k6_edge_checks(dev)
+    n_rep = repaired_route_checks(dev)
     torch.cuda.synchronize()
     print(f"edge checks: K1 {n1} bit-exact, grouped K1 {n1g} bit-exact, K2/K3 {n23} and "
           f"past 128 features {n3w} within rtol {RTOL}, "
@@ -1498,7 +1706,8 @@ def main() -> int:
           f"{RTOL} and atol 1e-6*max|z|^2 (forward) / 1e-6*F*max|g|*max|z| "
           f"(backward), the backward kernel at its plan's boundaries {nb}, "
           f"{n_fo} forward-only kernels raise under autograd, K6 {n6} "
-          f"(bit-exact, invalid plans raise) ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"(bit-exact, invalid plans raise), the routes past the former limits {n_rep} "
+          f"(same tolerances) ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # Phase 3: the main path at full width.
     cards = [min(c, ROW_CAP) for c in CRITEO_CARDS]
@@ -1673,6 +1882,9 @@ def main() -> int:
     emit({"kernel": "w8a8_dense", "shape": "the 8 layers back to back in one CUDA graph",
           "chained_ms": graph_us(chain) * len(chain) / 1e3, "card": card, "nvidia_smi": smi})
     launches["w8a8_dense"] = qlaunches["w8a8_dense"]
+    # The routes past the former limits, each at its edge shape.
+    repaired_route_timings(dev, bw, f32_flops,
+                           lambda line: emit({**line, "card": card, "nvidia_smi": smi}))
 
     # Phase 8: training at full width (slice 3's path), then the
     # gradients on one batch against the port on the CPU.

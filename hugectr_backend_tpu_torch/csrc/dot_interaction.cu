@@ -45,7 +45,9 @@
 //   with the f32 bottom copy in front) at the alignment it has in device
 //   memory, and written with 16-byte stores. The pair triangle is thus
 //   tiled in row blocks: the only limit on F is the z tile and one block's
-//   stage in shared memory (688 features at D = 128).
+//   stage in shared memory (688 features at D = 128). Past it, or past
+//   MAX_DESC descriptors, the plan takes the wide route at the end of this
+//   file, which keeps z in device memory.
 //
 // Fed features arrive as descriptors (base pointer, batch stride), so
 // general and part-major feature maps, strided views of a stacked [B, T, D]
@@ -498,6 +500,240 @@ int launch_kind(const Args& a, cudaStream_t s) {
   return launch<AT, MAX_DESC>(a, s);
 }
 
+// ------------------------------------------------------------ the wide route
+//
+// Past one warp's z tile in shared memory (F = 688 at D = 128), or past
+// MAX_DESC fed features or one-hot members, the plan takes this kernel
+// (ops/fused_interaction.py k3_plan returns a K3WidePlan). A persistent CTA
+// of 8 warps takes a sample at a time: its threads round the sample's rows
+// to bf16 into the CTA's own z tile (F and D padded to 16, rows 16 bytes
+// longer), then its warps walk the pair triangle in items of one 16-row
+// block by NG column tiles, loading both operands' fragments from that
+// tile, and stage each item's pairs so that a row's run of them is stored
+// by consecutive lanes. The tile lives in shared memory where it fits a
+// block's (F = 792 at D = 128), else in device memory (`scratch`), where
+// the fragments are re-read per item from L2 or, once the tiles of every
+// CTA pass L2, from device memory (the slower place, measured). The output is
+// stored with the streaming hint (evict first), so that it does not push
+// the tiles out of L2. The bottom copy goes out in f32. Descriptors (fed
+// rows, members) come from device buffers, so F has no limit but device
+// memory. The rounding and the products are the narrow kernel's: z rounded
+// to bf16, products summed in f32 with mma.sync.
+
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_BATCH = 8;  // fed loads a thread keeps in flight
+constexpr int WIDE_STAGE_BYTES = (WIDE_THREADS / 32) * 16 * (NG * 8 + 1) * 4;  // static
+
+struct WideParams {
+  int B, D, n_oh, n_fed, F;      // F = n_fed + n_oh; fed row 0 is the bottom
+  int D_pad, F_pad, ld;          // ld: row stride of the z tile (D_pad + 8)
+  long long out_ld;              // D + P
+  float* out;
+  const void* arena;
+  long long arena_rows;
+  const int* slots;
+  long long slots_ld;
+  const float* scales;           // null -> 1
+  long long scales_ld;
+  const long long* fed;          // [n_fed][2]: row pointer and batch stride (floats)
+  const int* members;            // [n_oh][2]: offset, size
+  __nv_bfloat16* scratch;        // [gridDim.x][F_pad][ld], or null: z in shared memory
+};
+
+// One step of a 256-thread walk over a grid of `cols` columns.
+__device__ __forceinline__ void wide_step(int& row, int& col, int drow, int dcol, int cols) {
+  row += drow;
+  col += dcol;
+  if (col >= cols) {
+    col -= cols;
+    ++row;
+  }
+}
+
+__device__ __forceinline__ long long pair_start64(long long r, long long F) {
+  return r * (2 * F - r - 1) / 2;
+}
+
+template <typename AT>
+__global__ void __launch_bounds__(WIDE_THREADS)
+    dot_interaction_wide_kernel(const __grid_constant__ WideParams p) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = WIDE_THREADS / 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  extern __shared__ __align__(16) unsigned char zsm[];
+  const int F = p.F, D = p.D, ld = p.ld;
+  __nv_bfloat16* z = p.scratch == nullptr
+                         ? reinterpret_cast<__nv_bfloat16*>(zsm)
+                         : p.scratch + static_cast<size_t>(blockIdx.x) * p.F_pad * ld;
+  // Padding rows (>= F) and columns (>= D) stay zero for every sample.
+  for (size_t i = tid; i < static_cast<size_t>(p.F_pad) * ld; i += WIDE_THREADS)
+    z[i] = __float2bfloat16_rn(0.0f);
+  const AT* arena = static_cast<const AT*>(p.arena);
+  const int nt_end = (F + 7) >> 3;
+  __shared__ float stage[WIDE_THREADS / 32][16][NG * 8 + 1];  // a warp's item of pairs:
+                                                             // WIDE_STAGE_BYTES
+  float (*st)[NG * 8 + 1] = stage[warp];
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    __syncthreads();  // the previous sample's product is done with z
+    float* orow = p.out + static_cast<long long>(b) * p.out_ld;
+    // The fed rows, then the one-hot rows: element tid + WIDE_THREADS i of
+    // each as (row, column), stepped, with WIDE_BATCH loads a thread in
+    // flight before any is used.
+    const int drow = WIDE_THREADS / D, dcol = WIDE_THREADS - drow * D;
+    int row = tid / D, col = tid - (tid / D) * D;
+    while (row < p.n_fed) {
+      float v[WIDE_BATCH];
+      int rr[WIDE_BATCH], cc[WIDE_BATCH];
+#pragma unroll
+      for (int u = 0; u < WIDE_BATCH; ++u) {
+        rr[u] = row;
+        cc[u] = col;
+        v[u] = row < p.n_fed ? __ldg(reinterpret_cast<const float*>(__ldg(p.fed + 2 * row)) +
+                                     b * __ldg(p.fed + 2 * row + 1) + col)
+                             : 0.0f;
+        wide_step(row, col, drow, dcol, D);
+      }
+#pragma unroll
+      for (int u = 0; u < WIDE_BATCH; ++u) {
+        if (rr[u] >= p.n_fed) break;
+        z[static_cast<size_t>(rr[u] == 0 ? 0 : p.n_oh + rr[u]) * ld + cc[u]] =
+            __float2bfloat16_rn(v[u]);
+        if (rr[u] == 0) __stcs(orow + cc[u], v[u]);
+      }
+    }
+    row = tid / D;
+    col = tid - row * D;
+    while (row < p.n_oh) {
+      int sl[WIDE_BATCH], rr[WIDE_BATCH], cc[WIDE_BATCH];
+      float sc[WIDE_BATCH];
+      bool in[WIDE_BATCH];
+#pragma unroll
+      for (int u = 0; u < WIDE_BATCH; ++u) {
+        rr[u] = row;
+        cc[u] = col;
+        sl[u] = 0;
+        sc[u] = 1.0f;
+        in[u] = false;
+        if (row < p.n_oh) {
+          sl[u] = __ldg(p.slots + row * p.slots_ld + b);
+          if (p.scales != nullptr) sc[u] = __ldg(p.scales + row * p.scales_ld + b);
+          const int off = __ldg(p.members + 2 * row), size = __ldg(p.members + 2 * row + 1);
+          in[u] = sl[u] >= off && sl[u] < off + size && sl[u] >= 0 && sl[u] < p.arena_rows;
+        }
+        wide_step(row, col, drow, dcol, D);
+      }
+      float v[WIDE_BATCH];
+#pragma unroll
+      for (int u = 0; u < WIDE_BATCH; ++u)
+        v[u] = in[u] ? to_f32(arena[static_cast<int64_t>(sl[u]) * D + cc[u]]) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < WIDE_BATCH; ++u) {
+        if (rr[u] >= p.n_oh) break;
+        // Outside the member: 0 * scale; outside the arena: NaN.
+        const float x = sl[u] < 0 || sl[u] >= p.arena_rows ? __int_as_float(0x7fc00000)
+                                                           : v[u] * sc[u];
+        z[static_cast<size_t>(1 + rr[u]) * ld + cc[u]] = __float2bfloat16_rn(x);
+      }
+    }
+    __syncthreads();
+    // Items (16-row block mt, NG column tiles from nt0) dealt over the warps.
+    int item = 0;
+    for (int mt = 0; mt * 16 < F - 1; ++mt) {
+      const int r0 = mt * 16;
+      for (int nt0 = 2 * mt; nt0 < nt_end; nt0 += NG, ++item) {
+        if (item % nwarps != warp) continue;
+        float c[NG][4];
+#pragma unroll
+        for (int j = 0; j < NG; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
+        const __nv_bfloat16* a_lo = z + static_cast<size_t>(r0 + g) * ld + 2 * t;
+        const __nv_bfloat16* a_hi = a_lo + 8 * ld;
+#pragma unroll 4
+        for (int kk = 0; kk < p.D_pad; kk += 16) {
+          const uint32_t a0 = ld32(a_lo + kk), a1 = ld32(a_hi + kk);
+          const uint32_t a2 = ld32(a_lo + kk + 8), a3 = ld32(a_hi + kk + 8);
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            if (nt0 + j < nt_end) {
+              const __nv_bfloat16* bq =
+                  z + static_cast<size_t>((nt0 + j) * 8 + g) * ld + 2 * t + kk;
+              mma_bf16(c[j], a0, a1, a2, a3, ld32(bq), ld32(bq + 8));
+            }
+          }
+        }
+        // Through the warp's stage: a row's pairs of the item's 32 columns
+        // are one contiguous run of the output, stored a lane a column.
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) st[g + 8 * h][j * 8 + 2 * t + e] = c[j][2 * h + e];
+        __syncwarp();
+        const int col = nt0 * 8 + lane;
+        for (int r = r0; r < r0 + 16; ++r)
+          if (r < col && col < F)
+            __stcs(orow + D + pair_start64(r, F) + (col - r - 1), st[r - r0][lane]);
+        __syncwarp();
+      }
+    }
+  }
+}
+
+struct WideArgs {
+  int B, D, n_oh, n_fed;
+  const long long* fed;
+  const void* arena;
+  long long arena_rows;
+  const int* slots;
+  long long slots_ld;
+  const float* scales;
+  long long scales_ld;
+  const int* members;
+  float* out;
+  __nv_bfloat16* scratch;
+  int grid, smem;
+};
+
+template <typename AT>
+int launch_wide(const WideArgs& a, cudaStream_t stream) {
+  WideParams p;
+  p.B = a.B;
+  p.D = a.D;
+  p.n_oh = a.n_oh;
+  p.n_fed = a.n_fed;
+  p.F = a.n_fed + a.n_oh;
+  p.D_pad = (a.D + 15) / 16 * 16;
+  p.F_pad = (p.F + 15) / 16 * 16;
+  p.ld = p.D_pad + 8;  // 16-byte row skew: conflict-free fragment loads from shared memory
+  p.out_ld = a.D + static_cast<long long>(p.F) * (p.F - 1) / 2;
+  p.out = a.out;
+  p.arena = a.arena;
+  p.arena_rows = a.arena_rows;
+  p.slots = a.slots;
+  p.slots_ld = a.slots_ld;
+  p.scales = a.scales;
+  p.scales_ld = a.scales_ld;
+  p.fed = a.fed;
+  p.members = a.members;
+  p.scratch = a.scratch;
+  // z in shared memory (no scratch): exactly its tile; in device memory: none.
+  const long long tile = 2ll * p.F_pad * p.ld;
+  if ((a.scratch == nullptr) != (a.smem > 0) || (a.smem > 0 && a.smem != tile) ||
+      a.smem > MAX_SMEM - WIDE_STAGE_BYTES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = dot_interaction_wide_kernel<AT>;
+  if (a.smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<a.grid, WIDE_THREADS, a.smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -540,6 +776,38 @@ int hps_dot_interaction(int device, void* stream, int B, int D, int n_oh, int n_
     case KIND_FP8: return launch_kind<__nv_fp8_e4m3>(a, s);
     case KIND_BF16: return launch_kind<__nv_bfloat16>(a, s);
     case KIND_F32: return launch_kind<float>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The wide route (see above). fed [n_fed][2] int64 on the device: row
+// pointer and batch stride (floats) of fed row i, row 0 the bottom;
+// members [n_oh][2] int32 on the device; the arena, slots and scales as
+// hps_dot_interaction's; out [B, D + P] f32. The plan
+// (ops/fused_interaction.py k3_plan, a K3WidePlan) gives the grid of
+// 256-thread CTAs and where z lives: `smem` bytes of dynamic shared memory
+// (2 * F_pad * (D_pad + 8), F and D rounded up to 16) and a null scratch,
+// or smem 0 and a scratch of grid * F_pad * (D_pad + 8) bf16. Returns
+// cudaGetLastError() after the launch.
+int hps_dot_interaction_wide(int device, void* stream, int B, int D, int n_oh, int n_fed,
+                             const long long* fed, int arena_kind, const void* arena,
+                             long long arena_rows, const int* slots, long long slots_ld,
+                             const float* scales, long long scales_ld, const int* members,
+                             float* out, void* scratch, int grid, int smem) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B < 0 || D < 1 || n_fed < 1 || n_oh < 0 || grid < 1 || fed == nullptr || smem < 0 ||
+      (n_oh > 0 && (members == nullptr || slots == nullptr || arena == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const WideArgs a{B, D, n_oh, n_fed, fed, arena, arena_rows, slots, slots_ld, scales,
+                   scales_ld, members, out, static_cast<__nv_bfloat16*>(scratch), grid, smem};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (arena_kind) {
+    case KIND_I8: return launch_wide<int8_t>(a, s);
+    case KIND_FP8: return launch_wide<__nv_fp8_e4m3>(a, s);
+    case KIND_BF16: return launch_wide<__nv_bfloat16>(a, s);
+    case KIND_F32: return launch_wide<float>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -47,8 +47,8 @@
 // A launch takes up to 1,024 features (their descriptors ride in the
 // parameter block, a small one up to 128). S, the pair table and two ring
 // stages must fit a block's shared memory, which holds F = 147 at most (with
-// 4-column slices); past that ops/fused_interaction.py bwd_plan refuses the
-// shape (tiling S in row blocks would lift it).
+// 4-column slices); past that ops/fused_interaction.py bwd_plan takes the
+// wide route at the end of this file, which keeps nothing in shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -324,6 +324,147 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ the wide route
+//
+// Past the shared memory of the kernel above (F = 147), past 16-bit
+// positions in S, or past MAX_FEATS features, the plan takes this kernel
+// (ops/fused_interaction.py bwd_plan returns a BwdWidePlan). It keeps
+// nothing in shared memory: a thread owns WIDE_ROWS rows f0 .. f0 + 7 of
+// dz in VEC columns of one sample and walks h over the F rows of z
+// (neighbouring threads on neighbouring columns, so each z load is
+// coalesced), reading S[f, h] from the sample's row of g (the same words
+// for every thread of a warp at D = 128: broadcasts from L1). The pair
+// positions need no multiply per step: for h < f0 the 8 rows' pairs
+// (h, f) are 8 consecutive words whose start moves by F - h - 2 a step;
+// for h >= f0 + 8 each row's pair (f, h) moves by one. f32 FMAs in the
+// order h = 0, 1, ...; the direct part of g is added to the bottom's row
+// last. Feature descriptors come from a device buffer, so F has no limit
+// but device memory.
+
+constexpr int WIDE_ROWS = 8;
+
+struct WideParams {
+  int B, D, F;                // F = 1 + n_feats
+  const float* bottom;
+  long long bottom_ld;
+  const float* grad;          // [B, D + P], row stride grad_ld
+  long long grad_ld;
+  float* g_bottom;            // null: not written
+  long long g_bottom_ld;
+  // [n_feats][4]: z row pointer, its batch stride, the gradient's row
+  // pointer (0: not written), its batch stride (floats).
+  const long long* desc;
+};
+
+template <int VEC>
+__device__ __forceinline__ void load_z(const WideParams& p, int h, long long b, int c,
+                                       float (&zv)[VEC]) {
+  const float* zr = h == 0 ? p.bottom + b * p.bottom_ld
+                           : reinterpret_cast<const float*>(__ldg(p.desc + 4 * (h - 1))) +
+                                 b * __ldg(p.desc + 4 * (h - 1) + 1);
+  if constexpr (VEC == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(zr + c));
+    zv[0] = v.x;
+    zv[1] = v.y;
+    zv[2] = v.z;
+    zv[3] = v.w;
+  } else {
+    zv[0] = __ldg(zr + c);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void fma_rows(float (&acc)[WIDE_ROWS][VEC], const float (&sv)[WIDE_ROWS],
+                                         const float (&zv)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < WIDE_ROWS; ++i)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[i][j] = fmaf(sv[i], zv[j], acc[i][j]);
+}
+
+// VEC 4: D % 4 == 0 and every z and gradient row 16-byte aligned.
+template <int VEC>
+__global__ void __launch_bounds__(THREADS)
+    dot_interaction_bwd_wide_kernel(const __grid_constant__ WideParams p) {
+  const int F = p.F, D = p.D;
+  const int cpr = D / VEC;  // column chunks of a row
+  const long long groups = (F + WIDE_ROWS - 1) / WIDE_ROWS;
+  const long long per_sample = groups * cpr;
+  const long long items = static_cast<long long>(p.B) * per_sample;
+  for (long long it = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; it < items;
+       it += static_cast<long long>(gridDim.x) * THREADS) {
+    const long long b = it / per_sample;
+    const long long rem = it - b * per_sample;
+    const int f0 = static_cast<int>(rem / cpr) * WIDE_ROWS;
+    const int c = static_cast<int>(rem % cpr) * VEC;
+    const float* pairs = p.grad + b * p.grad_ld + D;
+    float acc[WIDE_ROWS][VEC];
+#pragma unroll
+    for (int i = 0; i < WIDE_ROWS; ++i)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[i][j] = 0.0f;
+    float zv[VEC], sv[WIDE_ROWS];
+    // h < f0: S[f0 + i, h] = pairs[ps(h) + f0 - h - 1 + i], ps(h) the first
+    // pair of row h.
+    long long at = f0 - 1;  // ps(0) + f0 - 0 - 1
+#pragma unroll 2
+    for (int h = 0; h < f0; ++h) {
+      load_z<VEC>(p, h, b, c, zv);
+#pragma unroll
+      for (int i = 0; i < WIDE_ROWS; ++i) sv[i] = f0 + i < F ? __ldg(pairs + at + i) : 0.0f;
+      fma_rows<VEC>(acc, sv, zv);
+      at += F - h - 2;
+    }
+    // The diagonal block: each pair's position in full.
+    const int h1 = min(f0 + WIDE_ROWS, F);
+    for (int h = f0; h < h1; ++h) {
+      load_z<VEC>(p, h, b, c, zv);
+#pragma unroll
+      for (int i = 0; i < WIDE_ROWS; ++i) {
+        const long long f = f0 + i, lo = min(f, static_cast<long long>(h)),
+                        hi = max(f, static_cast<long long>(h));
+        sv[i] = f < F && f != h ? __ldg(pairs + lo * (2 * F - lo - 1) / 2 + (hi - lo - 1)) : 0.0f;
+      }
+      fma_rows<VEC>(acc, sv, zv);
+    }
+    // h >= f0 + 8: S[f, h] = pairs[ps(f) - f - 1 + h] for each row f.
+    const float* row[WIDE_ROWS];
+#pragma unroll
+    for (int i = 0; i < WIDE_ROWS; ++i) {
+      const long long f = f0 + i;
+      row[i] = pairs + (f * (2 * F - f - 1) / 2 - f - 1);
+    }
+#pragma unroll 2
+    for (int h = h1; h < F; ++h) {
+      load_z<VEC>(p, h, b, c, zv);
+#pragma unroll
+      for (int i = 0; i < WIDE_ROWS; ++i) sv[i] = __ldg(row[i] + h);
+      fma_rows<VEC>(acc, sv, zv);
+    }
+#pragma unroll
+    for (int i = 0; i < WIDE_ROWS; ++i) {
+      const int f = f0 + i;
+      if (f >= F) break;
+      float* dst;
+      if (f == 0) {
+        if (p.g_bottom == nullptr) continue;
+        dst = p.g_bottom + b * p.g_bottom_ld + c;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[0][j] += __ldg(p.grad + b * p.grad_ld + c + j);
+      } else {
+        dst = reinterpret_cast<float*>(__ldg(p.desc + 4 * (f - 1) + 2));
+        if (dst == nullptr) continue;
+        dst += b * __ldg(p.desc + 4 * (f - 1) + 3) + c;
+      }
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      } else {
+        dst[0] = acc[i][0];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -360,6 +501,30 @@ int hps_dot_interaction_bwd(int device, void* stream, int B, int D, int n_feats,
                g_bottom, g_bottom_ld, gfeat_ptrs, gfeat_strides, vec4, nst, dc, grid, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return n_feats <= SMALL_FEATS ? launch<SMALL_FEATS>(a, s) : launch<MAX_FEATS>(a, s);
+}
+
+// The wide route (see above). desc [n_feats][4] int64 on the device: feature
+// t's z row pointer and batch stride, its gradient's row pointer (0: not
+// written) and batch stride, in floats; vec4 and the rest as
+// hps_dot_interaction_bwd.
+// The plan (ops/fused_interaction.py bwd_plan, a BwdWidePlan) gives the
+// grid of 128-thread CTAs. Returns cudaGetLastError() after the launch.
+int hps_dot_interaction_bwd_wide(int device, void* stream, int B, int D, int n_feats,
+                                 const float* bottom, long long bottom_ld, const long long* desc,
+                                 const float* grad, long long grad_ld, float* g_bottom,
+                                 long long g_bottom_ld, int vec4, int grid) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B < 0 || D < 1 || n_feats < 0 || grid < 1 || (n_feats > 0 && desc == nullptr) ||
+      (vec4 && D % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const WideParams p{B, D, 1 + n_feats, bottom, bottom_ld, grad, grad_ld, g_bottom,
+                     g_bottom_ld, desc};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec4) dot_interaction_bwd_wide_kernel<4><<<grid, THREADS, 0, s>>>(p);
+  else dot_interaction_bwd_wide_kernel<1><<<grid, THREADS, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -23,9 +23,10 @@
 // [K, N] weight in VMEM and sweeps M. Here the caller's launch plan
 // (ops/quant_matmul.py k5_plan) picks one of four paths by layer shape:
 //
-// - GEMV (N <= 8, the logit layer), one kernel: a warp per row; the weight
-//   sits in shared memory, the row is quantized in registers (every load
-//   issued before any arithmetic) and dotted with __dp4a.
+// - GEMV (N <= 8, the logit layer, K up to 29,056), one kernel: a warp per
+//   row; the weight sits in shared memory, the row is quantized in
+//   registers (every load issued before any arithmetic) and dotted with
+//   __dp4a. Past that K the plan sends N <= 8 to the mma.sync product.
 // - narrow (K <= 512 where wgmma does not take it), one kernel: a CTA keeps
 //   a 64- or 128-column slice of the weight in shared memory, as the TPU
 //   body keeps its weight in VMEM, and walks items of 16 rows; it quantizes
@@ -73,7 +74,10 @@ constexpr int SKEW = 16;      // product: row padding (bytes), conflict-free fra
 constexpr int BS_LD = BK + SKEW;
 constexpr int KREG = 1024;    // up to this K, a row is quantized from registers
 constexpr int MAX_SMEM = 232448;  // 227 KB of dynamic shared memory per block
-constexpr int MAX_K = 29056;  // the GEMV's weight in shared memory: 8 x 29056 <= MAX_SMEM
+// The int32 sum is exact while 127 * 127 * K < 2^31, as the reference's
+// int32 dot; past that a sum could wrap.
+constexpr int MAX_K = 133144;
+constexpr int GEMV_MAX_K = 29056;  // the GEMV's weight in shared memory: 8 x 29056 <= MAX_SMEM
 constexpr int GEMV_MAX_N = 8;
 
 enum Variant { V_GEMV = 0, V_NARROW = 1, V_TILE = 2, V_WGMMA = 3 };
@@ -1127,7 +1131,8 @@ bool plan_ok(const Plan& p, int M, int N, int K, bool wvec) {
   const int qgrid = cdiv(M, WARPS);  // the quantize kernel: a warp per row
   switch (p.variant) {
     case V_GEMV:
-      return N <= GEMV_MAX_N && p.bm == WARPS && p.bn == N && p.stages == 0 && p.gx >= 1 &&
+      return N <= GEMV_MAX_N && K <= GEMV_MAX_K && p.bm == WARPS && p.bn == N &&
+             p.stages == 0 && p.gx >= 1 &&
              p.gy == 1 && p.qgrid == 0 && p.smem == N * gemv_kq(K);
     case V_NARROW: {
       const int slices = cdiv(N, p.bn > 0 ? p.bn : 1);

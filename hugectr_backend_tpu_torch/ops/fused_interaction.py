@@ -25,7 +25,12 @@ its (part, sub); unmapped subs and rows past the batch get zero.
 
 The wrappers launch the kernels for CUDA tensors and raise if they cannot;
 they take the plain versions (``*_ref``) only for CPU tensors. The launch
-plans (:func:`k3_plan`, :func:`bwd_plan`) are plain Python. The host-side
+plans (:func:`k3_plan`, :func:`bwd_plan`) are plain Python. Past what the
+kernels of the main path hold in shared memory or in their parameter block
+(F = 688 forward at D = 128, 1,024 fed features or one-hot members; F =
+147 backward), the plans pick each file's wide route: a kernel that keeps z
+(forward) or S (backward) out of shared memory and reads its descriptors
+from a device buffer, so F is bounded by device memory only. The host-side
 helpers for feature orders (``is_part_major``, ``part_major_order``,
 ``interaction_permutation``, ``permute_top_mlp_kernel``) are copies of the
 JAX package's.
@@ -33,6 +38,7 @@ JAX package's.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 from typing import NamedTuple, Optional
@@ -42,8 +48,9 @@ import torch
 
 from hugectr_backend_tpu_torch.ops import kernels
 
-#: Fed features (and one-hot members) one launch takes: MAX_DESC in
-#: csrc/dot_interaction.cu, MAX_FEATS in csrc/dot_interaction_bwd.cu.
+#: Fed features (and one-hot members) the main path's kernels take in their
+#: parameter block: MAX_DESC in csrc/dot_interaction.cu, MAX_FEATS in
+#: csrc/dot_interaction_bwd.cu. Past it the plans take the wide routes.
 MAX_FEATS = 1024
 
 #: The H100's streaming multiprocessors, the dynamic shared memory one block
@@ -56,6 +63,10 @@ _BWD_THREADS = 128  # THREADS in csrc/dot_interaction_bwd.cu
 _BWD_FT, _BWD_FG = 7, 8  # HPS_FT, HPS_FG there: rows of dz per thread, their stride in S
 _K3_MAX_WARPS = 8  # MAX_WARPS in csrc/dot_interaction.cu
 _K3_SM_WARPS = 16  # its __launch_bounds__(256, 2): at most 16 warps on an SM
+_WIDE_THREADS, _WIDE_CTAS_PER_SM = 256, 2  # the forward's wide route
+_WIDE_STAGE = 8 * 16 * 33 * 4  # WIDE_STAGE_BYTES there: its static shared memory
+_BWD_WIDE_ROWS = 8  # WIDE_ROWS in csrc/dot_interaction_bwd.cu: rows of dz a thread
+_BWD_WIDE_CTAS_PER_SM = 16  # 128-thread CTAs: 2,048 threads an SM
 
 # Arena dtype -> the `arena_kind` code of csrc/dot_interaction.cu.
 _ARENA_KIND = {
@@ -67,6 +78,9 @@ _ARENA_KIND = {
 
 _bound = False
 _bwd_bound = False
+# (device, dtype, values) -> the values as a tensor on the device: the wide
+# routes' descriptor tables, uploaded once and not inside a CUDA graph.
+_tables: "collections.OrderedDict" = collections.OrderedDict()
 
 
 class EmbParts:
@@ -274,7 +288,31 @@ def _bind(lib) -> None:
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
+    lib.hps_dot_interaction_wide.restype = ctypes.c_int
+    lib.hps_dot_interaction_wide.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ]
     _bound = True
+
+
+def _device_table(rows, dtype, dev) -> torch.Tensor:
+    """``rows`` (a list of equal-length tuples) as a ``dtype`` tensor on
+    ``dev``, kept for later calls with the same contents: a table is its
+    contents, so a hit is always right, and a CUDA graph that captures the
+    call replays no host copy."""
+    key = (str(dev), dtype, tuple(rows))
+    got = _tables.get(key)
+    if got is None:
+        got = torch.tensor(rows, dtype=dtype).to(dev)
+        _tables[key] = got
+        if len(_tables) > 32:
+            _tables.popitem(last=False)
+    else:
+        _tables.move_to_end(key)
+    return got
 
 
 class K3Plan(NamedTuple):
@@ -305,21 +343,43 @@ def k3_warp_bytes(feats: int, dim: int) -> int:
     return f_pad * (d_pad + 8) * 2 + 4 * k3_stage_len(feats, dim)
 
 
-def k3_plan(batch: int, feats: int, dim: int, sms: int = H100_SMS) -> K3Plan:
+class K3WidePlan(NamedTuple):
+    """The forward's wide route: ``grid`` persistent CTAs of ``threads``,
+    each with its own bf16 z tile of ``f_pad`` rows (F and D rounded up to
+    16, rows ``d_pad`` + 8 long): ``smem`` bytes of dynamic shared memory,
+    or, where the tile does not fit a block's, 0 and a device scratch."""
+
+    grid: int
+    threads: int
+    f_pad: int
+    d_pad: int
+    smem: int
+
+
+def k3_plan(batch: int, feats: int, dim: int, sms: int = H100_SMS,
+            descs: Optional[int] = None):
     """The forward kernel's launch plan for B = ``batch``, F = ``feats`` (the
     bottom, the one-hot and the fed features) and D = ``dim`` on a card of
     ``sms`` SMs: the warps per CTA (up to 8) and CTAs per SM (up to 16 warps
     an SM, 128 registers a thread) that keep the most warps resident, more
     warps a CTA on a tie, and a grid of no more CTAs than fit on the card
-    at once (a persistent grid), nor than the batch needs. Raises where one
-    sample's tile does not fit a block's shared memory."""
+    at once (a persistent grid), nor than the batch needs. Where one
+    sample's tile does not fit a block's shared memory, or ``descs`` (the
+    larger of the fed features and the one-hot members; by default every
+    feature but the bottom) passes MAX_FEATS: a :class:`K3WidePlan`, its
+    z tile in shared memory where it fits (up to 2 CTAs of 256 threads per
+    SM), else in device memory (2 CTAs per SM); no more CTAs than the batch
+    needs."""
     if batch < 0 or feats < 1 or dim < 1:
         raise ValueError(f"k3_plan: no plan for B {batch}, F {feats}, D {dim}")
     per_warp = k3_warp_bytes(feats, dim)
-    if per_warp > MAX_SMEM:
-        raise ValueError(
-            f"k3_plan: F = {feats} features at D = {dim} need {per_warp} bytes of shared "
-            f"memory for one sample's bf16 z tile and stage; a block has {MAX_SMEM}")
+    if per_warp > MAX_SMEM or (feats - 1 if descs is None else descs) > MAX_FEATS:
+        f_pad, d_pad = -(-feats // 16) * 16, -(-dim // 16) * 16
+        tile = 2 * f_pad * (d_pad + 8)
+        smem = tile if tile <= MAX_SMEM - _WIDE_STAGE else 0
+        per_sm = (min(_WIDE_CTAS_PER_SM, SM_SMEM // (tile + _WIDE_STAGE + 1024)) if smem
+                  else _WIDE_CTAS_PER_SM)
+        return K3WidePlan(max(1, min(batch, per_sm * sms)), _WIDE_THREADS, f_pad, d_pad, smem)
     best = None
     for warps in range(1, min(_K3_MAX_WARPS, MAX_SMEM // per_warp) + 1):
         smem = warps * per_warp
@@ -340,9 +400,6 @@ def _feature_descs(name, bottom, parts, feature_map):
     if bottom.dtype != torch.float32 or bottom.dim() != 2 or bottom.stride(1) != 1:
         raise ValueError(f"{name}: bottom must be f32 [B, D] with unit column stride")
     b, d = bottom.shape
-    if len(feature_map) > MAX_FEATS:
-        raise ValueError(f"{name}: at most {MAX_FEATS} fed features on the card, got "
-                         f"{len(feature_map)}")
     ptrs, strides = [], []
     for p, s in feature_map:
         part = parts[p]
@@ -360,8 +417,7 @@ def _feature_descs(name, bottom, parts, feature_map):
     return ptrs, strides, vec4
 
 
-def _launch(name, bottom, parts, feature_map, oh=None,
-            plan: Optional[K3Plan] = None) -> torch.Tensor:
+def _launch(name, bottom, parts, feature_map, oh=None, plan=None) -> torch.Tensor:
     """The forward kernel on CUDA operands; ``oh`` = (arena, slots, scales,
     members or None) for K3. ``plan``: :func:`k3_plan`'s, or a timing
     sweep's (the kernel checks it)."""
@@ -388,9 +444,6 @@ def _launch(name, bottom, parts, feature_map, oh=None,
                 scales.device != dev or scales.dtype != torch.float32
                 or scales.shape[0] != n_oh or scales.shape[1] < b or scales.stride(1) != 1):
             raise ValueError(f"{name}: scales must be f32 [{n_oh}, >= {b}] on {dev}")
-        if n_oh > MAX_FEATS:
-            raise ValueError(f"{name}: at most {MAX_FEATS} one-hot features on the card, "
-                             f"got {n_oh}")
         rows = arena.shape[0]
         members = [(0, rows)] * n_oh if members is None else [tuple(m) for m in members]
         if len(members) != n_oh or any(not (0 <= o <= o + sz <= rows) for o, sz in members):
@@ -407,9 +460,24 @@ def _launch(name, bottom, parts, feature_map, oh=None,
     if b == 0:
         return out
     if plan is None:
-        plan = k3_plan(b, f, d, torch.cuda.get_device_properties(dev).multi_processor_count)
+        plan = k3_plan(b, f, d, torch.cuda.get_device_properties(dev).multi_processor_count,
+                       max(len(ptrs), n_oh))
     lib = kernels.library("dot_interaction")
     _bind(lib)
+    if isinstance(plan, K3WidePlan):
+        fed = _device_table([(bottom.data_ptr(), bottom.stride(0))] + list(zip(ptrs, strides)),
+                            torch.int64, dev)
+        mem = _device_table(list(zip(offs, sizes)), torch.int32, dev) if n_oh else None
+        scratch = (None if plan.smem else torch.empty(
+            plan.grid * plan.f_pad * (plan.d_pad + 8), dtype=torch.bfloat16, device=dev))
+        rc = lib.hps_dot_interaction_wide(
+            dev.index, kernels.stream_of(bottom), b, d, n_oh, 1 + len(ptrs), fed.data_ptr(),
+            kind, arena_ptr, arena_rows, slots_ptr, slots_ld, scales_ptr, scales_ld,
+            None if mem is None else mem.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), plan.grid, plan.smem)
+        kernels.check(lib, rc, name)
+        kernels.launches[name] += 1
+        return out
     arr_t = ctypes.c_longlong * max(len(ptrs), 1)
     int_t = ctypes.c_int * max(n_oh, 1)
     rc = lib.hps_dot_interaction(
@@ -453,30 +521,40 @@ def bwd_smem(feats: int, dc: int, stages: int) -> int:
     return 4 * (_up4(feats * sld) + _up4(pairs) + stages * stage)
 
 
-def bwd_plan(batch: int, dim: int, n_feats: int, sms: int = H100_SMS) -> BwdPlan:
+class BwdWidePlan(NamedTuple):
+    """The backward's wide route: ``grid`` CTAs of ``threads``, a thread per
+    (sample, column, group of ``rows`` rows of dz), grid-stride."""
+
+    grid: int
+    threads: int
+    rows: int
+
+
+def bwd_plan(batch: int, dim: int, n_feats: int, sms: int = H100_SMS):
     """The backward kernel's launch plan for B = ``batch``, D = ``dim`` and
     ``n_feats`` fed features (F = n_feats + 1) on a card of ``sms`` SMs: the
     widest column slice (up to 128) with a 3-stage ring, else 2 stages,
     else narrower slices, that fits the shared memory of a block; as many
-    CTAs as fit on an SM, times the SMs, but no more than work items."""
-    if not 0 <= n_feats <= MAX_FEATS or dim < 1 or batch < 0:
-        raise ValueError(f"bwd_plan: no plan for B {batch}, D {dim}, {n_feats} features "
-                         f"(at most {MAX_FEATS})")
+    CTAs as fit on an SM, times the SMs, but no more than work items. Past
+    MAX_FEATS features, 16-bit positions in S or the shared memory of a
+    block (F = 147): a :class:`BwdWidePlan`, as many CTAs as the work needs
+    up to 16 per SM."""
+    if n_feats < 0 or dim < 1 or batch < 0:
+        raise ValueError(f"bwd_plan: no plan for B {batch}, D {dim}, {n_feats} features")
     feats = n_feats + 1
-    if feats * (-(-feats // _BWD_FT) * _BWD_FG) > 65536:
-        raise ValueError(f"bwd_plan: {n_feats} features: S's positions pass 16 bits")
-    first = min(dim, 128)
-    for dc in [first] + [c for c in (64, 32, 16, 8, 4) if c < first]:
-        for stages in (3, 2):
-            smem = bwd_smem(feats, dc, stages)
-            if smem <= MAX_SMEM:
-                per_sm = min(2048 // _BWD_THREADS, SM_SMEM // (smem + 1024))
-                items = batch * -(-dim // dc)
-                return BwdPlan(stages, dc, max(1, min(items, per_sm * sms)), _BWD_THREADS,
-                               smem, per_sm)
-    raise ValueError(f"bwd_plan: no plan fits for D {dim}, {n_feats} features: S, the pair "
-                     f"table and two stages of 4 columns need {bwd_smem(feats, 4, 2)} bytes "
-                     f"of shared memory, a block has {MAX_SMEM}")
+    if n_feats <= MAX_FEATS and feats * (-(-feats // _BWD_FT) * _BWD_FG) <= 65536:
+        first = min(dim, 128)
+        for dc in [first] + [c for c in (64, 32, 16, 8, 4) if c < first]:
+            for stages in (3, 2):
+                smem = bwd_smem(feats, dc, stages)
+                if smem <= MAX_SMEM:
+                    per_sm = min(2048 // _BWD_THREADS, SM_SMEM // (smem + 1024))
+                    items = batch * -(-dim // dc)
+                    return BwdPlan(stages, dc, max(1, min(items, per_sm * sms)), _BWD_THREADS,
+                                   smem, per_sm)
+    items = batch * -(-feats // _BWD_WIDE_ROWS) * dim  # at most: 4 columns a thread on vec4
+    return BwdWidePlan(max(1, min(-(-items // _BWD_THREADS), _BWD_WIDE_CTAS_PER_SM * sms)),
+                       _BWD_THREADS, _BWD_WIDE_ROWS)
 
 
 def _bind_bwd(lib) -> None:
@@ -491,6 +569,12 @@ def _bind_bwd(lib) -> None:
         ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int,
+    ]
+    lib.hps_dot_interaction_bwd_wide.restype = ctypes.c_int
+    lib.hps_dot_interaction_bwd_wide.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ]
     _bwd_bound = True
 
@@ -550,6 +634,16 @@ def dot_interaction_bwd(bottom, parts, feature_map, g, need_bottom: bool = True,
                     torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = kernels.library("dot_interaction_bwd")
     _bind_bwd(lib)
+    if isinstance(plan, BwdWidePlan):
+        desc = (_device_table(list(zip(ptrs, strides, gptrs, gstrides)), torch.int64, dev)
+                if n else None)
+        rc = lib.hps_dot_interaction_bwd_wide(
+            dev.index, kernels.stream_of(bottom), b, d, n, bottom.data_ptr(), bottom.stride(0),
+            None if desc is None else desc.data_ptr(), g.data_ptr(), g.stride(0),
+            g_bottom.data_ptr() if g_bottom is not None else None, d, vec4, plan.grid)
+        kernels.check(lib, rc, name)
+        kernels.launches[name] += 1
+        return g_bottom, g_parts
     arr_t = ctypes.c_longlong * max(n, 1)
     rc = lib.hps_dot_interaction_bwd(
         dev.index, kernels.stream_of(bottom), b, d, n, bottom.data_ptr(), bottom.stride(0),

@@ -21,11 +21,17 @@ On the TPU the step is a one-hot matrix product on the MXU, which reads a
 row tile sequentially. The port does not carry the product over: on Hopper
 a gather of the one matching row moves far fewer bytes than the product
 costs operations, so the kernel is a masked gather (see the ``.cu`` file).
+It resolves each key's run once: the number of steps that hit and whether
+one missed decide the result, since every step adds the same row or 0.
 Where the two differ is a non-finite arena: the TPU product multiplies the
 0/1 mask by the whole row tile, so one ``inf`` in a tile gives ``0 * inf =
 NaN`` in its column for every key of the tile. The port follows the gather,
 which is the contract the JAX docstrings state ("bit-identical to
 gather_dequant_xla"): only a key whose own row holds the ``inf`` sees it.
+The sign of a zero differs too: the product sums from +0, so the TPU body
+gives +0.0 for a -0.0 value; the port's walk keeps -0.0 where every step of
+the key's run hits (the first assigns the row, each later one adds it) and
+gives +0.0 where a step missed (``-0.0 + 0.0``).
 
 Plan validation (:func:`check_plan`) runs once per plan on the host and
 raises ``ValueError`` for plans whose output the TPU leaves undefined (a key
@@ -49,7 +55,11 @@ import numpy as np
 import torch
 
 from hugectr_backend_tpu_torch.ops import kernels
-from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant, gather_dequant_ref
+from hugectr_backend_tpu_torch.ops.dequant_gather import (
+    gather_dequant,
+    gather_dequant_ref,
+    k1_plan,
+)
 
 M_TILE = 512   # default keys per work-list row block
 R_TILE = 512   # default table rows per work-list column block
@@ -235,10 +245,10 @@ def _bind(lib) -> None:
         return
     lib.hps_onehot_gather.restype = ctypes.c_int
     lib.hps_onehot_gather.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
     _bound = True
 
@@ -265,14 +275,17 @@ def _launch(values, scales, slots, plan, scaled: bool, name: str) -> torch.Tenso
     if n == 0 or d == 0:
         return out
     offsets, rt, _ = _device_plan(plan, rows, dev)
-    vec = int(d * values.element_size() % 16 == 0 and values.data_ptr() % 16 == 0
-              and out.data_ptr() % 16 == 0)
+    # The piece path: rows of whole pieces of 4 elements, the arena aligned to one.
+    vec = int(d % 4 == 0 and values.data_ptr() % (4 * values.element_size()) == 0)
+    # The kernel walks keys as K1 walks rows: K1's plan for one group of n.
+    kp = k1_plan([n], torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = kernels.library("onehot_gather")
     _bind(lib)
     rc = lib.hps_onehot_gather(
-        dev.index, kernels.stream_of(values), _KIND[values.dtype], values.data_ptr(), d,
+        dev.index, kernels.stream_of(values), _KIND[values.dtype], values.data_ptr(), rows, d,
         slots.data_ptr(), n, offsets.data_ptr(), rt.data_ptr(), plan.m_tile, plan.r_tile,
         int(scaled), scales.data_ptr() if scales is not None else None, out.data_ptr(), vec,
+        kp.rows, kp.units, kp.grid,
     )
     kernels.check(lib, rc, name)
     kernels.launches[name] += 1

@@ -15,11 +15,11 @@ reads with 16-byte copies); they are ignored.
 
 :func:`w8a8_dense` launches the kernel for CUDA tensors and raises if it
 cannot; it takes the plain version, :func:`w8a8_dense_plain`, only for CPU
-tensors. The kernel takes any M, N and K up to :data:`MAX_K`: there are no
-alignment gates. :func:`k5_plan` chooses, per layer shape, which of the
-kernel's paths runs (a GEMV; a narrow kernel that quantizes its own rows;
-or a quantize kernel and a product on mma.sync or wgmma) and how it is
-launched; the kernel refuses a plan it does not take. The layer has no
+tensors. The kernel takes any M, N and K up to :data:`MAX_K` (its int32
+sums' exact range): there are no alignment gates. :func:`k5_plan`
+chooses, per layer shape, which of the kernel's paths runs (a GEMV; a
+narrow kernel that quantizes its own rows; or a quantize kernel and a
+product on mma.sync or wgmma) and how it is launched; the kernel refuses a plan it does not take. The layer has no
 backward: under autograd it raises rather than return a result cut from the
 graph.
 """
@@ -49,10 +49,15 @@ _ACTS = {
 # Activation name -> the `act` code of csrc/w8a8_dense.cu.
 _ACT_CODE = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "gelu": 4}
 
-#: The largest K the kernel takes: the GEMV keeps up to 8 weight rows of K
-#: bytes (rounded up to 128) in a block's shared memory, 232,448 bytes; the
-#: quantize kernel and the products stream K in chunks and take any K.
-MAX_K = 29056
+#: The largest K the kernel takes: its int32 sums, like the reference's int32
+#: dot, are exact while 127 * 127 * K < 2^31 (past it a sum could wrap). The
+#: quantize kernel and the products stream K in chunks; device memory bounds
+#: nothing below this K that x [M, K] itself does not.
+MAX_K = 133144
+#: The largest K of the GEMV (N <= 8): it keeps up to 8 weight rows of K
+#: bytes (rounded up to 128) in a block's shared memory, 232,448 bytes. Past
+#: it N <= 8 goes to the mma.sync product after the quantize kernel.
+GEMV_MAX_K = 29056
 
 #: The H100's streaming multiprocessors and the dynamic shared memory one
 #: block may use (bytes): what :func:`k5_plan` sizes its grids and tiles for.
@@ -149,20 +154,24 @@ def k5_plan(m: int, n: int, k: int, sms: int = H100_SMS, wvec: bool = True) -> K
     SMs. Each choice is the fastest measured at the DLRM's layer shapes at
     M = 4096 on an H100 (PERF.md):
 
-    - N <= 8: "gemv", a warp per row, 8 rows per CTA.
+    - N <= 8 and K <= GEMV_MAX_K: "gemv", a warp per row, 8 rows per CTA.
     - K <= 64: "tile", 64 x 128 tiles quantizing their own rows.
     - ``wvec``, K > 256 and N >= 256: "wgmma", 128 x 128 tiles on a 3-stage
       ring where there are at least ``sms`` of them, else 64 x 128 (4
       stages for K <= 512, else 3).
     - K <= 512: "narrow", up to four CTAs per SM, items of 16 rows,
       128-column slices where that still gives every CTA an item, else 64.
+    - N <= 8 past GEMV_MAX_K: "tile" after the quantize kernel, 32 x 64
+      tiles (twice the CTAs of 64 x 128, which measured slower there).
     - else "tile" after the quantize kernel: 64 x 128 tiles where the grid
       holds at least ``sms`` / 3 CTAs, else 32 x 64."""
     if m < 1 or n < 1 or not 1 <= k <= MAX_K:
         raise ValueError(f"k5_plan: no plan for M {m}, N {n}, K {k} (1 <= K <= {MAX_K})")
     if n <= _GEMV_MAX_N:
-        return K5Plan("gemv", _WARPS, n, 0, (min(_cdiv(m, _WARPS), 1 << 20), 1), 0, _THREADS,
-                      n * _gemv_kq(k))
+        if k <= GEMV_MAX_K:
+            return K5Plan("gemv", _WARPS, n, 0, (min(_cdiv(m, _WARPS), 1 << 20), 1), 0,
+                          _THREADS, n * _gemv_kq(k))
+        return _tile_plan(m, n, k, *TILES[-1], sms=sms)
     if k <= _BK:
         return _tile_plan(m, n, k, 64, 128, 4)
     if wvec and k > 256 and n >= 256:

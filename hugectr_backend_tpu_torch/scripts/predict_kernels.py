@@ -16,9 +16,15 @@ prints one JSON line per measurement:
   yardstick);
 - ``interaction``: K3 and K2 at their recorded inputs and K4 on the same
   features stacked (CUDA-graph replay);
+- ``w8a8_dense``: K5 at the 8 layer shapes of one w8a8 predict (their
+  recorded inputs), each layer's plan and the 8 chained in one CUDA graph;
+- ``backward``: the interaction's backward kernel at the training shape
+  (B 4096, 26 features, D 128, random inputs from a seed), its plan;
 - ``predict``: the device kernel time of a predict (``torch.profiler``) and
   its wall time, f32 and w8a8, fold and K2 path;
-- with ``--microbench``: the tree's ``microbench_true`` lines (configs A-J).
+- with ``--microbench``: the tree's ``microbench_onehot`` lines (K6 v2 at
+  every m_tile, v1, K1 on the same slots) and ``microbench_true`` lines
+  (configs A-J).
 
 Every line carries the tree, the card's name and its power limit. It needs
 a CUDA card.
@@ -39,7 +45,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), help="the source tree to time (its root)")
-    ap.add_argument("--microbench", action="store_true", help="also run microbench_true")
+    ap.add_argument("--microbench", action="store_true",
+                    help="also run microbench_onehot and microbench_true")
     ap.add_argument("--out", default=None, help="also append the lines to this file")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
@@ -54,6 +61,13 @@ def main(argv=None) -> int:
     import hugectr_backend_tpu_torch.models.dlrm as dl
     from hugectr_backend_tpu_torch import HierParameterServer
     from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.ops import quant_matmul as qm
+    from hugectr_backend_tpu_torch.ops.fused_interaction import (
+        bwd_plan,
+        fused_dot_interaction,
+        fused_dot_interaction_bwd,
+        k3_plan,
+    )
     from hugectr_backend_tpu_torch.scripts.common import graph_us
     from hugectr_backend_tpu_torch.serving.program import make_dlrm_multi_server
 
@@ -122,16 +136,37 @@ def main(argv=None) -> int:
               "index_select_chained_us": graph_us(
                   [lambda: [torch.index_select(v, 0, i) for v, i in idx]] * 20)})
         (n, fn, a), = [c for c in calls if c[0].startswith("dot_interaction")]
-        emit({"interaction": n, "us": graph_us([lambda: fn(*a)] * 20)})
+        feats = 1 + len(a[2]) if n == "dot_interaction_parts" else 1 + a[2].shape[0] + len(a[5])
+        emit({"interaction": n, "plan": k3_plan(cs.BATCH, feats, cs.DIM)._asdict(),
+              "us": graph_us([lambda: fn(*a)] * 20)})
         if path == "fold":
             continue
         bottom, parts, fmap = a
         emb = torch.stack([parts[p][s][:bottom.shape[0]] for p, s in fmap], dim=1)
-        from hugectr_backend_tpu_torch.ops.fused_interaction import fused_dot_interaction
-
         with torch.no_grad():
             emit({"interaction": "fused_dot_interaction",
                   "us": graph_us([lambda: fused_dot_interaction(bottom, emb)] * 20)})
+
+    # K5 at the w8a8 predict's 8 layer shapes; the backward at the training
+    # shape.
+    with cs.Recorder() as rec:
+        cs.predict_sync(servers["w8a8"], *batches[0])
+    layers = rec.calls["w8a8_dense"]
+    for a in layers:
+        emit({"w8a8_dense": [tuple(a[0].shape), tuple(a[1].shape)],
+              "plan": qm.launch_plan(a[0], a[1])._asdict(),
+              "us": graph_us([lambda a=a: qm.w8a8_dense(*a)] * 20)})
+    chain = [lambda a=a: qm.w8a8_dense(*a) for a in layers]
+    emit({"w8a8_dense": "the layers back to back", "layers": len(layers),
+          "chained_us": graph_us(chain) * len(chain)})
+    gen = torch.Generator().manual_seed(cs.SEED)
+    bottom = torch.randn(cs.BATCH, cs.DIM, generator=gen).to("cuda")
+    emb = torch.randn(cs.BATCH, len(cards), cs.DIM, generator=gen).to("cuda")
+    f = len(cards) + 1
+    g_out = torch.randn(cs.BATCH, cs.DIM + f * (f - 1) // 2, generator=gen).to("cuda")
+    emit({"backward": [cs.BATCH, f, cs.DIM],
+          "plan": bwd_plan(cs.BATCH, cs.DIM, len(cards))._asdict(),
+          "us": graph_us([lambda: fused_dot_interaction_bwd(bottom, emb, g_out)] * 20)})
 
     for fmt, srv in servers.items():
         for path in ("fold", "k2"):
@@ -154,10 +189,10 @@ def main(argv=None) -> int:
     if args.microbench:
         del servers, cache, ps
         torch.cuda.empty_cache()
-        from hugectr_backend_tpu_torch.scripts import microbench_true
+        from hugectr_backend_tpu_torch.scripts import microbench_onehot, microbench_true
 
-        microbench_true.run("cuda",
-                            emit=lambda line: emit(line) if "us_per_batch" in line else None)
+        for mb in (microbench_onehot, microbench_true):
+            mb.run("cuda", emit=lambda line: emit(line) if "us_per_batch" in line else None)
     return 0
 
 

@@ -233,9 +233,11 @@ def test_k3_plan_fits_and_covers_every_sample_once(batch, feats, dim, sms):
 
 
 def test_k3_plan_names_the_shared_memory_limit():
+    """F = 688 at D = 128 is the last shape whose z tile and stage fit one
+    warp's shared memory; one feature more takes the wide route."""
     assert tfi.k3_plan(4096, 688, 128).warps == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        tfi.k3_plan(4096, 689, 128)
+    assert tfi.k3_warp_bytes(688, 128) <= tfi.MAX_SMEM < tfi.k3_warp_bytes(689, 128)
+    assert isinstance(tfi.k3_plan(4096, 689, 128), tfi.K3WidePlan)
 
 
 def test_card_launchers_refuse_cpu_operands():

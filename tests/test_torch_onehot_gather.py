@@ -269,3 +269,86 @@ def test_nonfinite_arena_follows_the_gather():
     hit = tog.onehot_gather_rows(torch.from_numpy(vals), torch.full((M,), 300, dtype=torch.int32),
                                  tplan)
     assert torch.isinf(hit[:, 5]).all()
+
+
+# ------------------------------------------------------------ sign of zero
+#
+# The interpreted Pallas bodies sum a one-hot product from +0, so they give
+# +0.0 for a -0.0 value. The port's walk (the first step assigns the row,
+# each later step adds the row or 0) keeps -0.0 where every step of the
+# key's run hits and gives +0.0 where one missed (-0.0 + 0.0). Every other
+# bit pattern is the same on both sides.
+
+
+def _bits(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32)).view(torch.int32)
+
+
+def _neg_zero_arena(rng, member_rows, quant):
+    """As ``_arena``, with about a quarter of the values -0.0."""
+    tiles, rows = tile_layout(member_rows, R)
+    vals = rng.integers(-127, 128, (rows, 16)).astype(np.float32)
+    vals *= rng.random(vals.shape).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.25] = -0.0
+    tv = torch.from_numpy(vals).to(TORCH_DT[quant])
+    raw_t, raw_np = RAW[tv.element_size()]
+    jv = jnp.asarray(tv.view(raw_t).numpy().view(raw_np)).view(JAX_DT[quant])
+    scales = (rng.random(rows) * 0.1 + 0.01).astype(np.float32)
+    return tv, jv, scales, tiles
+
+
+def _check_zero_signs(got, want, keep_neg):
+    """``got`` (the port) and ``want`` (the interpreted body) equal bit for
+    bit off the zeros; the body's zeros all +0.0; the port's -0.0 exactly
+    at ``keep_neg``."""
+    gb, wb = _bits(got), _bits(want)
+    nonzero = torch.from_numpy(want != 0)
+    assert torch.equal(gb[nonzero], wb[nonzero])
+    zero = ~nonzero
+    assert torch.equal(torch.from_numpy(got == 0), zero)
+    assert not np.signbit(want[zero.numpy()]).any()
+    assert np.array_equal(np.signbit(got) & zero.numpy(), keep_neg & zero.numpy())
+
+
+@pytest.mark.parametrize("quant", ["fp8", "bf16", "fp32"])
+def test_negative_zero_follows_the_walk(quant):
+    """Member 0 spans one row tile (every step of its keys' runs hits: -0.0
+    kept, as the gather keeps it); member 1 spans two (each key misses one:
+    +0.0)."""
+    rng = np.random.default_rng(70)
+    member_rows = [3, 700]
+    tv, jv, scales, tiles = _neg_zero_arena(rng, member_rows, quant)
+    keys = [M, M]
+    slots = _slots(rng, tiles, member_rows, keys)
+    tplan = tog.plan_onehot_worklist(tiles, keys)
+    jplan = jog.plan_onehot_worklist(tiles, keys)
+    gathered = tv.float().numpy()[slots]
+    keep_neg = np.signbit(gathered) & (gathered == 0) & (np.arange(2 * M) < M)[:, None]
+    assert keep_neg.sum() > 100 and (np.signbit(gathered) & (gathered == 0))[M:].sum() > 100
+    got, want = _v2(tv, jv, slots, tplan, jplan)
+    _check_zero_signs(got, want, keep_neg)
+    # Where every step hits, the walk is the gather, -0.0 included.
+    assert torch.equal(_bits(got[:M]), _bits(gathered[:M]))
+    got, want = _v1(tv, jv, scales, slots, tplan, jplan)
+    _check_zero_signs(got, want, keep_neg)
+
+
+@pytest.mark.parametrize("quant", ["fp8", "bf16", "fp32"])
+@pytest.mark.parametrize("rt", [(0, 0), (0, 1, 0)], ids=["twice", "twice_with_a_miss"])
+def test_duplicate_visits_keep_their_bits(quant, rt):
+    """A run that visits row tile 0 twice: 2 x row bit for bit, and -0.0
+    kept only where no step of the run misses."""
+    rng = np.random.default_rng(80 + len(rt))
+    tv, jv, scales, _ = _neg_zero_arena(rng, [700], quant)
+    slots = rng.integers(0, R, M).astype(np.int32)
+    arrays = dict(kt=np.zeros(len(rt), np.int32), rt=np.asarray(rt, np.int32),
+                  first=np.asarray([1] + [0] * (len(rt) - 1), np.int32), num_key_tiles=1)
+    tplan, jplan = tog.OnehotPlan(**arrays), jog.OnehotPlan(**arrays)
+    gathered = tv.float().numpy()[slots]
+    keep_neg = np.signbit(gathered) & (gathered == 0) & (len(rt) == 2)
+    got, want = _v2(tv, jv, slots, tplan, jplan)
+    _check_zero_signs(got, want, keep_neg)
+    off = gathered != 0
+    assert torch.equal(_bits(got[off]), _bits(2 * gathered[off]))
+    got, want = _v1(tv, jv, scales, slots, tplan, jplan)
+    _check_zero_signs(got, want, keep_neg)

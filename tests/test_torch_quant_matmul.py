@@ -36,6 +36,7 @@ from hugectr_backend_tpu.ops.quant_matmul import xla_w8a8
 from hugectr_backend_tpu_torch.ops import kernels
 from hugectr_backend_tpu_torch.ops import quant_matmul as qm
 from hugectr_backend_tpu_torch.ops.quant_matmul import (
+    GEMV_MAX_K,
     H100_SMS,
     MAX_K,
     MAX_SMEM,
@@ -232,7 +233,7 @@ def test_wgmma_grid_is_one_cta_per_tile(m, n, bm, stages):
 
 
 @pytest.mark.parametrize("n", [1, 2, 8])
-@pytest.mark.parametrize("k", [13, 256, 1024, MAX_K])
+@pytest.mark.parametrize("k", [13, 256, 1024, GEMV_MAX_K])
 def test_n_up_to_8_takes_the_gemv_body(n, k):
     plan = k5_plan(4096, n, k)
     assert plan.variant == "gemv" and plan.grid == (512, 1) and plan.qgrid == 0
@@ -301,11 +302,11 @@ def test_plain_matches_xla_formulation_past_the_old_k_limit(k, act):
     _check(_port(x, wq, ws, b, act), _jax(xla_w8a8, x, wq, ws, b, act), act)
 
 
-@pytest.mark.parametrize("k", [2945, 4096, MAX_K])
+@pytest.mark.parametrize("k", [2945, 4096, GEMV_MAX_K])
 @pytest.mark.parametrize("n", [1, 8, 300, 1024])
 def test_plan_takes_k_past_the_old_limit(k, n):
     """Every path past K = 2,944: the GEMV's weight rows still fit a block's
-    shared memory up to MAX_K, the products stream K after the quantize
+    shared memory up to GEMV_MAX_K, the products stream K after the quantize
     kernel."""
     plan = k5_plan(4096, n, k)
     assert plan.smem <= MAX_SMEM
@@ -313,4 +314,4 @@ def test_plan_takes_k_past_the_old_limit(k, n):
         assert plan.variant == "gemv" and plan.smem == n * -(-k // 128) * 128
     else:
         assert plan.variant in ("tile", "wgmma") and plan.qgrid == 4096 // 8
-    assert 8 * -(-MAX_K // 128) * 128 <= MAX_SMEM < 8 * (MAX_K + 128)
+    assert 8 * -(-GEMV_MAX_K // 128) * 128 <= MAX_SMEM < 8 * (GEMV_MAX_K + 128)

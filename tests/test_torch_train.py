@@ -337,8 +337,14 @@ def test_backward_plan_at_the_training_shape():
 
 
 def test_backward_plan_refuses_too_many_features():
-    with pytest.raises(ValueError):
-        tfi.bwd_plan(8, 128, tfi.MAX_FEATS + 1)
-    # F = 148: S, the pair table and two stages pass a block's shared memory.
-    with pytest.raises(ValueError, match="shared memory"):
-        tfi.bwd_plan(8, 128, 147)
+    """The shared-memory kernel refuses what it cannot hold: past MAX_FEATS
+    features and at F = 148 (S, the pair table and two stages pass a
+    block's shared memory) the plan is the wide route's; a shape with no
+    work to plan still raises."""
+    assert isinstance(tfi.bwd_plan(8, 128, tfi.MAX_FEATS + 1), tfi.BwdWidePlan)
+    assert isinstance(tfi.bwd_plan(8, 128, 146), tfi.BwdPlan)
+    assert tfi.bwd_smem(148, 4, 2) > tfi.MAX_SMEM
+    assert isinstance(tfi.bwd_plan(8, 128, 147), tfi.BwdWidePlan)
+    for bad in ((8, 128, -1), (8, 0, 26), (-1, 128, 26)):
+        with pytest.raises(ValueError):
+            tfi.bwd_plan(*bad)
