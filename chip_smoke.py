@@ -7,7 +7,8 @@ against their plain PyTorch versions.
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. The card (name, power limit) and the kernel build (``nvcc``, one process
-   per ``csrc/*.cu``, all at once).
+   per ``csrc/*.cu``, all at once), with the native host library
+   (``native/*.cpp``, ``g++``) built beside them.
 2. Kernels vs plain versions on edge cases: K1 (gather + dequant) bit-exact on
    int8 / fp8 / bf16 / f32 / int4 tables with device, per-key and no scales,
    N = 0 and the miss row; K2 / K3 (dot interaction) on general and
@@ -41,7 +42,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    one-hot group folded into the interaction (K1 + K3) and with
    ``HPS_OH_IN_KERNEL=0`` (K1 + K2). The launch counts of the run must show
    every kernel, and K1 exactly once per lookup and per predict on both
-   paths.
+   paths. Key translation A/B on the same batches: the native StaticMap's
+   slots bit-identical to the searchsorted lookup on all 26 tables and 3
+   batches, and the host time of each (one batch call over the tables, per
+   table, searchsorted) and of the argument assembly.
 4. K5 (the w8a8 dense layer) against its plain version at every boundary
    of its launch plan (``k5_plan``: the GEMV, the narrow kernel, and the
    quantize kernel with the mma.sync or the wgmma product): N in {1, 8, 9,
@@ -63,6 +67,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    1e-2 * max|logit| (the interaction's f32 sums run in another order on the
    CPU, and an element one ulp apart can move the top layer-0 quantization
    by one step).
+5b. The front end (the "frontend" phase): ``serve(cfg, port=0,
+   block=False, grpc_port=None)`` on the card with max_batch_size 256 over
+   the same sparse files (gRPC is tested on the CPU only), and the JAX
+   package's end-to-end traffic (``bench.py``): 64-sample binary-tensor
+   requests, one key a table, Zipf(1.05) over each table's keys plus ~1 %
+   keys absent from every table, 8 clients for 10 s after the pow2 buckets
+   64, 128 and 256 are warm. Printed: qps, samples/s, p50 / p99, the mean
+   merged batch, K1 launches per merged batch (exactly one), the card's
+   idle share over a 2 s profiled slice (the clients are threads of a
+   separate process), the batcher's mean queue / dispatch / software time,
+   and where one merged batch's dispatch goes (``dispatch_breakdown``). Checked (any failure fails the run): 64 responses of
+   the loaded window bit for bit against the host dequant of their keys
+   (with requests co-batched: mean merged batch > 64), a JSON request
+   against the binary one, a malformed request answered 400 while the
+   clients keep being served, health / metadata / repository index 200,
+   ``/metrics`` holding the batcher's counters, and unload + load serving
+   the same bytes again.
 6. Each kernel timed at the shapes the main path gave it, beside its plain
    version, one PyTorch call for the same product where there is one, and
    its bound: the larger of bytes over the memory rate and operations over
@@ -130,6 +151,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -174,6 +196,14 @@ AUC_MIN, AUC_INT8, AUC_W8A8 = 0.55, 1e-3, 5e-3  # tests/test_auc_parity.py
 K5_TOL = 1e-6  # K5 vs plain, sigmoid / tanh / gelu: rtol and atol (libm ulps)
 W8A8_LOGITS = 1e-2  # w8a8 logits vs the CPU port: |delta| / max|logit|
 K5_ACTS = (None, "relu", "sigmoid", "tanh", "gelu")
+# The front end's traffic: the JAX package's end-to-end leg (bench.py:80-275).
+FRONTEND_SAMPLES = 64  # samples (one key a table each) per request
+FRONTEND_MAX_BATCH = 256  # max_batch_size of the served model
+FRONTEND_CLIENTS = 8
+FRONTEND_SECONDS = 10.0
+FRONTEND_ZIPF = 1.05
+FRONTEND_CHECKED = 32  # responses held bit for bit against the host dequant, at least
+FRONTEND_PROFILE_S = 2.0  # the profiled slice of the window
 
 # Dense peaks (NVIDIA data sheets, without sparsity): memory bytes/s, bf16
 # tensor FLOP/s, int8 tensor OP/s, f32 FLOP/s outside the tensor cores.
@@ -1113,14 +1143,25 @@ def make_batches(tables, batch: int, n: int, seed: int):
     return out
 
 
-def host_dequant(cache, keys):
-    """Per-table f32 rows from the cache's stored bytes, in numpy."""
+def host_snapshot(cache):
+    """Per table (values, scales, offset, index), each arena copied to the
+    host once."""
+    arenas, out = {}, []
+    for view in cache.tables:
+        a = view.arena
+        if id(a) not in arenas:
+            arenas[id(a)] = (a.values.cpu().numpy(), a.scales.cpu().numpy())
+        out.append((*arenas[id(a)], view.offset, view.index))
+    return out
+
+
+def host_dequant(cache, keys, snap=None):
+    """Per-table f32 rows from the cache's stored bytes, in numpy, with the
+    keys translated by the searchsorted lookup (the native index's plain
+    version)."""
     outs = []
-    for t, k in enumerate(keys):
-        view = cache.tables[t]
-        vals = view.arena.values.cpu().numpy()
-        scales = view.arena.scales.cpu().numpy()
-        gs = view.offset + view.index.lookup(np.asarray(k).reshape(-1)).astype(np.int64)
+    for (vals, scales, offset, index), k in zip(snap or host_snapshot(cache), keys):
+        gs = offset + index.search(np.asarray(k).reshape(-1)).astype(np.int64)
         outs.append(vals[gs].astype(np.float32) * scales[gs][:, None])
     return outs
 
@@ -1483,6 +1524,334 @@ def predict_timing(srv, cache, batches, mode: str) -> dict:
             "top_device_kernels_ms": top}
 
 
+def translate_ab(cache, batches) -> dict:
+    """Key translation, the native StaticMap against the searchsorted lookup
+    on every table and batch: slots bit-identical (else raise), and host
+    times, median of 10 after 2 warm-ups: the one native call over all
+    tables (the lookup path), native per table, searchsorted per table, and
+    the argument assembly after it (``prepare_lookup``, under the lock)."""
+    from hugectr_backend_tpu_torch.tiers.hbm import translate_indexes_batch
+
+    idx = [t.index for t in cache.tables]
+    for b, (keys, _) in enumerate(batches):
+        flat = [k.reshape(-1) for k in keys]
+        for t, (got, i, k) in enumerate(zip(translate_indexes_batch(idx, flat), idx, flat)):
+            want = i.search(k)
+            if not (np.array_equal(got, want) and np.array_equal(i.lookup(k), want)):
+                raise AssertionError(f"batch {b} table {t}: StaticMap slots != searchsorted")
+    runs = {"native_batch": [], "native_per_table": [], "searchsorted": [], "prepare": []}
+    for r in range(12):
+        flat = [k.reshape(-1) for k in batches[r % len(batches)][0]]
+        t0 = time.perf_counter()
+        local = translate_indexes_batch(idx, flat)
+        t1 = time.perf_counter()
+        for i, k in zip(idx, flat):
+            i.lookup(k)
+        t2 = time.perf_counter()
+        for i, k in zip(idx, flat):
+            i.search(k)
+        t3 = time.perf_counter()
+        with cache._lock:
+            cache.prepare_lookup([k.shape[0] for k in flat], local)
+        t4 = time.perf_counter()
+        for name, dt in zip(runs, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            runs[name].append(dt * 1e3)
+    med = {name: sorted(v[2:])[len(v[2:]) // 2] for name, v in runs.items()}
+    return {"tables": len(idx), "native_tables": sum(i._native is not None for i in idx),
+            "keys_per_table": BATCH, "batches_checked": len(batches),
+            "host_translate_median": {k: med[k] for k in
+                                      ("native_batch", "native_per_table", "searchsorted")},
+            "host_prepare_median": med["prepare"], "unit": "ms"}
+
+
+def _http(port, method, path, body=None, headers=None, timeout=60.0):
+    """-> (status, headers, body); HTTP errors are returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method=method, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _binary_infer(keys, numkeys):
+    """A KServe-v2 binary-tensor request (in and out). -> (body, headers)."""
+    kraw = np.ascontiguousarray(keys, "<i8").tobytes()
+    nraw = np.asarray(numkeys, "<i4").tobytes()
+    hdr = json.dumps({"inputs": [
+        {"name": "KEYS", "datatype": "INT64", "shape": [len(keys)],
+         "parameters": {"binary_data_size": len(kraw)}},
+        {"name": "NUMKEYS", "datatype": "INT32", "shape": [len(numkeys)],
+         "parameters": {"binary_data_size": len(nraw)}}],
+        "outputs": [{"name": "OUTPUT0", "parameters": {"binary_data": True}}],
+    }).encode()
+    return hdr + kraw + nraw, {"Inference-Header-Content-Length": str(len(hdr)),
+                               "Content-Type": "application/octet-stream"}
+
+
+def _binary_output(resp) -> np.ndarray:
+    status, headers, body = resp
+    if status != 200:
+        raise AssertionError(f"infer answered {status}: {body[:200]!r}")
+    return np.frombuffer(body[int(headers["Inference-Header-Content-Length"]):], "<f4")
+
+
+def frontend_requests(tables, n: int, samples: int, seed: int):
+    """n requests of ``samples`` samples, one key a table each: Zipf over
+    each table's real keys, ~1 % keys absent from every table (negative).
+    -> list of (flat table-major KEYS, NUMKEYS)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        keys = []
+        for tbl in tables:
+            k = tbl.keys[rng.zipf(FRONTEND_ZIPF, samples) % tbl.num_rows]
+            miss = rng.random(samples) < 0.01
+            k[miss] = -1 - rng.integers(0, 1 << 40, int(miss.sum()))
+            keys.append(k)
+        out.append((np.concatenate(keys), [samples] * len(tables)))
+    return out
+
+
+def dispatch_breakdown(session, tables, samples: int) -> dict:
+    """Where a merged batch's dispatch goes, one batch at a time (median of
+    10 after 2 warm-ups, ms): ``lookup_flat`` and its device-to-host copy
+    on a ``samples``-sample batch with the traffic's ~1 % absent keys, the
+    same with those keys replaced by present ones (no miss merge), the
+    miss merge's DRAM-tier queries alone, and the output's copy, pageable
+    as the batcher does it and into a pinned buffer."""
+    (keys, _), = frontend_requests(tables, 1, samples, SEED + 7)
+    merged = np.split(keys, len(tables))
+    hits = [np.where(m < 0, tbl.keys[0], m) for m, tbl in zip(merged, tables)]
+    pads = [FRONTEND_MAX_BATCH] * len(tables)
+    cache = session.cache
+    misses = [m[m < 0] for m in merged]
+    flat = session.lookup_flat(merged)
+    pinned = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    steps = {
+        "lookup_flat_and_copy": lambda: session.lookup_flat(merged, pad_counts=pads).cpu(),
+        "lookup_flat_and_copy_all_hits": lambda: session.lookup_flat(
+            hits, pad_counts=pads).cpu(),
+        "dram_tier_queries": lambda: [cache.tier_query(t, k) for t, k in enumerate(misses)
+                                      if k.size],
+        "copy_pageable": lambda: flat.cpu(),
+        "copy_pinned": lambda: pinned.copy_(flat),
+    }
+    runs = {k: [] for k in steps}
+    for _ in range(12):
+        for name, fn in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs[name].append((time.perf_counter() - t0) * 1e3)
+    return {"samples": samples, "output_bytes": flat.numel() * 4,
+            "tables_with_misses": sum(k.size > 0 for k in misses),
+            **{k: sorted(v[2:])[len(v[2:]) // 2] for k, v in runs.items()}, "unit": "ms"}
+
+
+def frontend_clients(port: int, req_path: str, out_path: str, seconds: float,
+                     clients: int, keep: int) -> None:
+    """The load generator of the front-end phase, run in a process of its
+    own so that its threads do not share the server's interpreter lock:
+    ``clients`` threads send the requests of ``req_path`` (round robin, a
+    new one as soon as the last is answered) for ``seconds``. Prints
+    "start" when the window opens; writes the latencies, each thread's
+    first ``keep`` outputs and any error to ``out_path`` (npz)."""
+    data = np.load(req_path)
+    reqs = [_binary_infer(data[f"k{i}"], data[f"n{i}"].tolist()) for i in range(int(data["n"]))]
+    lat, kept, errors = [], [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def client(c):
+        i = c
+        while not stop.is_set():
+            t = time.perf_counter()
+            try:
+                out = _binary_output(_http(port, "POST", "/v2/models/dlrm/infer", *reqs[i % len(reqs)]))
+            except Exception as e:  # written out; the phase fails on it
+                with lock:
+                    errors.append(repr(e))
+                return
+            dt = time.perf_counter() - t
+            with lock:
+                lat.append(dt)
+                if (i - c) // clients < keep:
+                    kept.append((i % len(reqs), out))
+            i += clients
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(clients)]
+    print("start", flush=True)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    time.sleep(seconds)
+    stop.set()
+    for th in threads:
+        th.join(timeout=120)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        errors.append("a client thread did not finish")
+    np.savez(out_path, lat=np.asarray(lat), wall=wall, errors=np.asarray(errors, dtype=str),
+             kept_idx=np.asarray([ri for ri, _ in kept], np.int64),
+             **{f"out{j}": out for j, (_, out) in enumerate(kept)})
+
+
+def frontend_phase(cfg, tables, device=None) -> dict:
+    """The KServe-v2 HTTP front end on the card: ``serve`` in-process, 8
+    clients (threads of a separate process, ``frontend_clients``) for 10 s
+    after the pow2 buckets are warm, then the checks. Raises on any failed
+    check. -> the numbers printed. (``device="cpu"`` rehearses it on the
+    CPU, with ``torch.cuda.synchronize`` and ``dispatch_breakdown`` stubbed
+    out.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.serving import metrics
+    from hugectr_backend_tpu_torch.serving.server import serve
+
+    cfg = json.loads(json.dumps(cfg))
+    cfg["models"][0]["max_batch_size"] = FRONTEND_MAX_BATCH
+    hists = {"queue": metrics.QUEUE_LATENCY, "batcher_request": metrics.REQUEST_LATENCY,
+             "dispatch": metrics.BATCH_DISPATCH_SECONDS, "software": metrics.BATCH_SW_SECONDS,
+             "batch": metrics.BATCH_SIZE}
+    t0 = time.perf_counter()
+    server = serve(cfg, port=0, block=False, grpc_port=None, device=device)
+    deploy_s = time.perf_counter() - t0
+    port = server.port
+    infer_path = "/v2/models/dlrm/infer"
+    work = tempfile.TemporaryDirectory(prefix="hps_chip_smoke_fe_")
+    try:
+        reqs = frontend_requests(tables, 64, FRONTEND_SAMPLES, SEED + 3)
+        req_path = os.path.join(work.name, "requests.npz")
+        out_path = os.path.join(work.name, "clients.npz")
+        np.savez(req_path, n=len(reqs), **{f"k{i}": k for i, (k, _) in enumerate(reqs)},
+                 **{f"n{i}": np.asarray(n) for i, (_, n) in enumerate(reqs)})
+        for samples in (64, 128, 256):  # warm the pow2 buckets
+            (keys, num), = frontend_requests(tables, 1, samples, SEED + samples)
+            _binary_output(_http(port, "POST", infer_path, *_binary_infer(keys, num)))
+        keep = -(-2 * FRONTEND_CHECKED // FRONTEND_CLIENTS)
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.frontend_clients({port}, {req_path!r}, "
+             f"{out_path!r}, {FRONTEND_SECONDS}, {FRONTEND_CLIENTS}, {keep})"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, text=True)
+        try:
+            if proc.stdout.readline().strip() != "start":
+                raise AssertionError("the client process did not start")
+            before = {k: (h.count(model="dlrm"), h.sum(model="dlrm")) for k, h in hists.items()}
+            kernels.launches.clear()
+            t_start = time.perf_counter()
+            time.sleep(FRONTEND_SECONDS / 2 - FRONTEND_PROFILE_S)
+            # A profiled slice of the window: the card's busy time in it.
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t_prof = time.perf_counter()
+                time.sleep(FRONTEND_PROFILE_S)
+                prof_wall = time.perf_counter() - t_prof
+            busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False)) / 1e3
+            # A malformed request (NUMKEYS does not sum to the keys) while the
+            # clients keep being served.
+            keys, num = reqs[0]
+            bad = _http(port, "POST", infer_path,
+                        *_binary_infer(keys, [num[0] + 1] + num[1:]))
+            proc.wait(timeout=FRONTEND_SECONDS + 180)
+            if proc.returncode != 0:
+                raise AssertionError(f"the client process exited {proc.returncode}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        after = {k: (h.count(model="dlrm"), h.sum(model="dlrm")) for k, h in hists.items()}
+        k1 = kernels.launches.get("gather_dequant", 0)
+        res = np.load(out_path)
+        if res["errors"].size:
+            raise AssertionError(f"front-end clients failed: {res['errors'][:3]}")
+        lat, wall = res["lat"], float(res["wall"])
+        n_batches = after["batch"][0] - before["batch"][0]
+        mean = {k: (after[k][1] - before[k][1]) / max(after[k][0] - before[k][0], 1)
+                for k in hists}
+        if bad[0] != 400:
+            raise AssertionError(f"a malformed request got {bad[0]}, not 400")
+        # One K1 launch per merged batch (none on the CPU: the plain version).
+        if n_batches == 0 or k1 != (0 if device == "cpu" else n_batches):
+            raise AssertionError(f"K1 launched {k1} times for {n_batches} merged batches")
+        if mean["batch"] <= FRONTEND_SAMPLES:
+            raise AssertionError(f"no request was co-batched (mean batch {mean['batch']})")
+        # Every kept response, bit for bit against the host dequant.
+        cache = server.manager.ps.get_embedding_cache("dlrm", 0)
+        snap = host_snapshot(cache)
+        kept_idx = res["kept_idx"]
+        for j, ri in enumerate(kept_idx):
+            keys, num = reqs[ri]
+            want = np.concatenate([r.reshape(-1) for r in host_dequant(
+                cache, np.split(keys, len(tables)), snap)])
+            if not np.array_equal(res[f"out{j}"].view(np.uint32), want.view(np.uint32)):
+                raise AssertionError(f"request {ri}: response != host dequant")
+        if kept_idx.size < FRONTEND_CHECKED:
+            raise AssertionError(f"only {kept_idx.size} responses kept for the check")
+        # The JSON protocol gives the binary protocol's floats.
+        keys, num = reqs[0]
+        binary = _binary_output(_http(port, "POST", infer_path, *_binary_infer(keys, num)))
+        body = json.dumps({"inputs": [
+            {"name": "KEYS", "datatype": "INT64", "shape": [len(keys)],
+             "data": keys.tolist()},
+            {"name": "NUMKEYS", "datatype": "INT32", "shape": [len(num)], "data": num},
+        ]}).encode()
+        status, _, jbody = _http(port, "POST", infer_path, body)
+        jout = np.asarray(json.loads(jbody)["outputs"][0]["data"], np.float32) \
+            if status == 200 else None
+        if jout is None or not np.array_equal(jout.view(np.uint32), binary.view(np.uint32)):
+            raise AssertionError(f"JSON response ({status}) != binary response")
+        for method, path in (("GET", "/v2/health/ready"), ("GET", "/v2/models/dlrm"),
+                             ("POST", "/v2/repository/index")):
+            status = _http(port, method, path, b"" if method == "POST" else None)[0]
+            if status != 200:
+                raise AssertionError(f"{method} {path} answered {status}")
+        text = _http(port, "GET", "/metrics")[2].decode()
+        for name in ("hps_inference_request_success", "hps_inference_request_duration_seconds"):
+            if not any(line.startswith(name) and 'model="dlrm"' in line
+                       for line in text.splitlines()):
+                raise AssertionError(f"/metrics lacks {name} for dlrm")
+        # Unload, load: the same bytes again.
+        t0 = time.perf_counter()
+        for action in ("unload", "load"):
+            status = _http(port, "POST", f"/v2/repository/models/dlrm/{action}", b"")[0]
+            if status != 200:
+                raise AssertionError(f"{action} answered {status}")
+        reload_s = time.perf_counter() - t0
+        again = _binary_output(_http(port, "POST", infer_path, *_binary_infer(keys, num)))
+        if not np.array_equal(again.view(np.uint32), binary.view(np.uint32)):
+            raise AssertionError("after unload + load the response changed")
+        breakdown = dispatch_breakdown(server.manager._models["dlrm"].sessions[0], tables,
+                                       int(mean["batch"]))
+    finally:
+        server.stop()
+        work.cleanup()
+    ls = np.sort(lat)
+    n = ls.size
+    return {
+        "requests": int(n), "wall_s": wall, "qps": n / wall,
+        "samples_per_s": n * FRONTEND_SAMPLES / wall,
+        "p50_ms": float(ls[n // 2]) * 1e3, "p99_ms": float(ls[min(int(n * 0.99), n - 1)]) * 1e3,
+        "merged_batches": int(n_batches), "mean_merged_batch": mean["batch"],
+        "batcher_mean_ms": {k: mean[k] * 1e3 for k in
+                            ("queue", "batcher_request", "dispatch", "software")},
+        "k1_launches": k1, "k1_launches_per_merged_batch": k1 / n_batches,
+        "profiled_s": prof_wall, "device_busy_ms": busy_ms,
+        "device_idle_share": (1 - busy_ms / (prof_wall * 1e3)) if busy_ms else None,
+        "checked_responses": int(kept_idx.size), "deploy_s": deploy_s,
+        "unload_load_s": reload_s, "dispatch_breakdown": breakdown, "clients": FRONTEND_CLIENTS,
+        "client_process": "separate", "samples_per_request": FRONTEND_SAMPLES,
+        "max_batch_size": FRONTEND_MAX_BATCH,
+    }
+
+
 def run_counted(srv, batches):
     """The counted run of one model: N_BATCHES predicts with the fold, then
     N_BATCHES without, launch counts set to 0 just before and read just
@@ -1673,9 +2042,21 @@ def main() -> int:
     print(f"card: {card} | nvidia-smi: {smi}", flush=True)
     bw, flops, int8_ops, f32_flops = peaks(card)
 
-    # Phase 1: build.
+    # Phase 1: build, the native host library beside the kernels.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hugectr_backend_tpu_torch.native import kvstore as native_kv
+
+    def build_native():
+        t = time.perf_counter()
+        native_kv.load_lib()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    took = kernels.build_all()
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        native_s = ex.submit(build_native)
+        took = kernels.build_all()
+        took["native (g++)"] = native_s.result()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()), flush=True)
     for name in kernels.SOURCES:
@@ -1711,12 +2092,15 @@ def main() -> int:
 
     # Phase 3: the main path at full width.
     cards = [min(c, ROW_CAP) for c in CRITEO_CARDS]
-    with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_") as root:
-        t0 = time.perf_counter()
-        tables, cfg = build_deployment(root, cards, DIM, SEED)
-        ps = HierParameterServer.create(cfg)
-        print(f"deploy: {sum(cards)} rows in {len(cards)} tables, "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # The sparse files stay until the front-end phase has served them.
+    sparse_dir = tempfile.TemporaryDirectory(prefix="hps_chip_smoke_")
+    t0 = time.perf_counter()
+    tables, cfg = build_deployment(sparse_dir.name, cards, DIM, SEED)
+    t1 = time.perf_counter()
+    ps = HierParameterServer.create(cfg)
+    print(f"deploy: {sum(cards)} rows in {len(cards)} tables, "
+          f"{time.perf_counter() - t0:.1f} s (writing the sparse files {t1 - t0:.1f} s, "
+          f"HierParameterServer.create {time.perf_counter() - t1:.1f} s)", flush=True)
     cache = ps.get_embedding_cache("dlrm", 0)
     kinds = [g[1] for g in cache._groups]
     print(f"lookup groups: {kinds} ({cache.nbytes() / 1e9:.3f} GB on the card)", flush=True)
@@ -1777,6 +2161,10 @@ def main() -> int:
     print(f"predict: {N_BATCHES} x {BATCH} finite; fold vs K2 rel {worst:.3g}; "
           f"vs CPU reference rel {rel_ref:.3g}", flush=True)
 
+    # The front end's key translation, A/B: the native StaticMap against the
+    # searchsorted lookup, slots bit-identical.
+    emit({"translate_ab": translate_ab(cache, batches), "card": card, "nvidia_smi": smi})
+
     for mode in ("fold", "k2"):
         emit({"predict_ms": predict_timing(srv, cache, batches, mode),
               "card": card, "nvidia_smi": smi})
@@ -1813,6 +2201,22 @@ def main() -> int:
     for mode in ("w8a8_fold", "w8a8_k2"):
         emit({"predict_ms": predict_timing(qsrv, cache, batches, mode),
               "card": card, "nvidia_smi": smi})
+
+    # The front end: KServe-v2 HTTP on the card. gRPC is held against the
+    # JAX package on the CPU (tests/test_torch_grpc.py): the card-side run
+    # needs neither grpcio nor protoc.
+    print("frontend: gRPC is tested on the CPU only (tests/test_torch_grpc.py); "
+          "serving HTTP with grpc_port=None", flush=True)
+    fe = frontend_phase(cfg, tables)
+    sparse_dir.cleanup()
+    emit({"frontend_http": fe, "card": card, "nvidia_smi": smi})
+    print(f"frontend: {fe['requests']} requests in {fe['wall_s']:.1f} s from "
+          f"{FRONTEND_CLIENTS} clients, {fe['qps']:.1f} qps, {fe['samples_per_s']:.0f} "
+          f"samples/s, p50 {fe['p50_ms']:.2f} ms, p99 {fe['p99_ms']:.2f} ms, mean merged "
+          f"batch {fe['mean_merged_batch']:.1f}, K1 {fe['k1_launches_per_merged_batch']:.2f} "
+          f"launches per merged batch, idle share {fe['device_idle_share']}; "
+          f"{fe['checked_responses']} responses bit-exact vs host dequant ({card} | {smi})",
+          flush=True)
 
     # Phase 6: each kernel at its main-path shapes.
     results = {}

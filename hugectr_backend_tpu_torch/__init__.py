@@ -18,6 +18,12 @@ format both packages write. ``eval`` trains a DLRM with its embedding table
 backward are kernels) and gates quantized serving on AUC
 (``run_parity``, ``run_path_parity``).
 
+``serving.server`` serves a ps.json over KServe-v2 HTTP (and gRPC with
+``grpcio``) through ``ModelManager`` and ``ContinuousBatcher``:
+``python -m hugectr_backend_tpu_torch.serving.server ps.json --grpc-port -1``.
+Key translation, the DRAM stores, the quantizer and the batcher's merge run
+on a native host library (``native/``, built with ``g++`` at first use).
+
 Entry points run on the card unless the caller passes ``device="cpu"``. The
 Pallas kernels of the JAX package are hand-written CUDA kernels here
 (``csrc/``), built with ``nvcc`` at first use; each has a plain PyTorch

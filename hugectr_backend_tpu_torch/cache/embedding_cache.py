@@ -12,8 +12,9 @@ Invariants kept from the JAX package:
   reader holds;
 - padding maps to the default row (slot == capacity): misses need no masking.
 
-The dynamic, stochastic and UVM caches, and ``refresh``, are ROADMAP queue A
-item 3.
+``refresh`` re-pulls the resident rows from the DRAM tier (``ModelManager``
+calls it on a version bump and every ``refresh_interval``). The dynamic,
+stochastic and UVM caches are ROADMAP queue A item 3.
 """
 
 from __future__ import annotations
@@ -26,7 +27,11 @@ import torch
 
 from hugectr_backend_tpu_torch.cache import lookup_program
 from hugectr_backend_tpu_torch.config.params import InferenceParams
-from hugectr_backend_tpu_torch.tiers.hbm import DeviceTable, scatter_rows
+from hugectr_backend_tpu_torch.tiers.hbm import (
+    DeviceTable,
+    scatter_rows,
+    translate_indexes_batch,
+)
 
 
 class _HitRateMeter:
@@ -128,13 +133,18 @@ class EmbeddingCache:
                         arena.scales_host[gslots])
             return arena.values, arena.scales, gslots.astype(np.int32), None
 
+    def _translate_many(self, keys_c):
+        """Translate every table's (int64, flat) key run in ONE native batch
+        call: all tables' chunks run in parallel on the native pool. Caller
+        holds the cache lock."""
+        return translate_indexes_batch([t.index for t in self.tables], keys_c)
+
     def _translate_all(self, keys_per_table):
         """Translate every table's keys under the caller-held lock; updates
         the hit meter. -> (local_slots, counts, miss_info)."""
+        keys_c = [np.asarray(k, dtype=np.int64).reshape(-1) for k in keys_per_table]
         local_slots, counts, miss_info = [], [], []
-        for t, keys in enumerate(keys_per_table):
-            keys = np.asarray(keys, dtype=np.int64).reshape(-1)
-            slots = self.translate(t, keys)
+        for t, (keys, slots) in enumerate(zip(keys_c, self._translate_many(keys_c))):
             n = keys.shape[0]
             miss_mask = slots == self.tables[t].index.miss_slot
             self.hit_meter.update(t, int(n - miss_mask.sum()), n)
@@ -287,3 +297,108 @@ class EmbeddingCache:
             gouts[table_pos[t][0]][table_pos[t][1] : table_pos[t][1] + counts[t]]
             for t in range(len(self.tables))
         ]
+
+    # -- refresh ---------------------------------------------------------------
+
+    def shutdown(self):
+        """Stop the refresh pool (model unload: load/unload cycles must not
+        accumulate threads)."""
+        pool = getattr(self, "_refresh_pool_", None)
+        if pool is not None:
+            pool.shutdown(wait=False)
+            self._refresh_pool_ = None
+
+    @property
+    def _refresh_pool(self):
+        """Refresher pool, sized by ``num_of_refresher_buffer_in_pool``
+        (reference docs/hierarchical_parameter_server.md:217-238): per-table
+        refresh windows run concurrently, and tier queries never hold the
+        cache lock."""
+        pool = getattr(self, "_refresh_pool_", None)
+        if pool is None:
+            # Double-checked under the cache lock: a refresh timer racing a
+            # manual refresh must not create two pools.
+            with self._lock:
+                pool = getattr(self, "_refresh_pool_", None)
+                if pool is None:
+                    from concurrent.futures import ThreadPoolExecutor
+
+                    pool = ThreadPoolExecutor(
+                        max_workers=max(self.params.num_of_refresher_buffer_in_pool, 1),
+                        thread_name_prefix=f"hps-refresh-{self.params.model_name}")
+                    self._refresh_pool_ = pool
+        return pool
+
+    def refresh(self, fraction: Optional[float] = None) -> int:
+        """Re-pull the resident rows' values from the DRAM tier:
+        ``cache_refresh_percentage_per_iteration`` of each table per call
+        unless ``fraction`` overrides it (reference model_state.cpp:145-178).
+        -> rows refreshed. Tier reads and quantization run off the cache
+        lock; only the window choice and the scatter hold it."""
+        if self.tier_query is None:
+            return 0
+        frac = (self.params.cache_refresh_percentage_per_iteration
+                if fraction is None else fraction)
+        futs = [self._refresh_pool.submit(self._refresh_table, t, frac)
+                for t in range(len(self.tables))]
+        return sum(f.result() for f in futs)
+
+    def _refresh_table(self, t: int, frac: float) -> int:
+        table = self.tables[t]
+        cap = table.capacity
+        if cap == 0:
+            return 0
+        with self._lock:
+            n = max(int(cap * frac), 1) if frac < 1.0 else cap
+            # Round-robin window over the sorted key space.
+            start = getattr(table, "_refresh_cursor", 0)
+            idx = (np.arange(n) + start) % cap
+            table._refresh_cursor = int((start + n) % cap)
+            keys = table.index.sorted_keys[idx]
+        vecs, found = self.tier_query(t, keys)  # off-lock tier read
+        if not found.any():
+            return 0
+        prepared = self._prepare_rows(t, vecs[found])
+        with self._lock:
+            # Static cache: slot i is the i-th sorted key for good, so the
+            # window needs no revalidation after the off-lock read.
+            self._apply_prepared(t, idx[found], prepared)
+        return int(found.sum())
+
+    def _prepare_rows(self, table_idx: int, vectors: np.ndarray):
+        """Quantize rows for :meth:`_apply_prepared` (host work, off the
+        cache lock). -> (rows, scales or None)."""
+        from hugectr_backend_tpu_torch.ops.quantize import (
+            quantize_rows_fp8,
+            quantize_rows_int4,
+            quantize_rows_int8,
+        )
+
+        quant = self.tables[table_idx].quant
+        vectors = np.asarray(vectors, np.float32)
+        if quant in ("int8", "fp8", "int4"):
+            return {"int8": quantize_rows_int8, "fp8": quantize_rows_fp8,
+                    "int4": quantize_rows_int4}[quant](vectors)
+        return vectors, None
+
+    def _apply_prepared(self, table_idx: int, slots: np.ndarray, prepared):
+        """Scatter pre-quantized rows into the table's tensors. Caller holds
+        ``self._lock``; the tensors are replaced, never written in place, so
+        a lookup that snapshotted them reads the old rows whole."""
+        table = self.tables[table_idx]
+        arena = getattr(table, "arena", None)
+        slots_np = np.asarray(slots, dtype=np.int64)
+        if arena is not None:
+            slots_np = slots_np + table.offset
+        holder = arena if arena is not None else table
+        dev = holder.values.device
+        slots_d = torch.from_numpy(slots_np).to(dev)
+        q, s = prepared
+        rows = q if isinstance(q, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(q))
+        holder.values = scatter_rows(holder.values, slots_d, rows.to(dev))
+        if s is not None:
+            holder.scales = scatter_rows(holder.scales, slots_d, torch.from_numpy(s).to(dev))
+            # The host copy of the scales (solo/onehot translation-time
+            # fetch) follows.
+            if getattr(holder, "scales_host", None) is not None:
+                holder.scales_host[slots_np] = s

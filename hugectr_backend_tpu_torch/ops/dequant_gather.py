@@ -202,7 +202,7 @@ def _launch(slots: torch.Tensor, out: torch.Tensor, specs: "list[_Spec]") -> Non
     rc = lib.hps_gather_dequant_groups(dev.index, kernels.stream_of(slots), slots.data_ptr(),
                                        out.data_ptr(), descs, len(specs), plan.units, plan.grid)
     kernels.check(lib, rc, "gather_dequant")
-    kernels.launches["gather_dequant"] += 1
+    kernels.count_launch("gather_dequant")
 
 
 def gather_dequant(values: torch.Tensor, scales: Optional[torch.Tensor],

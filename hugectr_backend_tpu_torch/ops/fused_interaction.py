@@ -476,7 +476,7 @@ def _launch(name, bottom, parts, feature_map, oh=None, plan=None) -> torch.Tenso
             None if mem is None else mem.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), plan.grid, plan.smem)
         kernels.check(lib, rc, name)
-        kernels.launches[name] += 1
+        kernels.count_launch(name)
         return out
     arr_t = ctypes.c_longlong * max(len(ptrs), 1)
     int_t = ctypes.c_int * max(n_oh, 1)
@@ -488,7 +488,7 @@ def _launch(name, bottom, parts, feature_map, oh=None, plan=None) -> torch.Tenso
         plan.warps, plan.grid, plan.smem,
     )
     kernels.check(lib, rc, name)
-    kernels.launches[name] += 1
+    kernels.count_launch(name)
     return out
 
 
@@ -642,7 +642,7 @@ def dot_interaction_bwd(bottom, parts, feature_map, g, need_bottom: bool = True,
             None if desc is None else desc.data_ptr(), g.data_ptr(), g.stride(0),
             g_bottom.data_ptr() if g_bottom is not None else None, d, vec4, plan.grid)
         kernels.check(lib, rc, name)
-        kernels.launches[name] += 1
+        kernels.count_launch(name)
         return g_bottom, g_parts
     arr_t = ctypes.c_longlong * max(n, 1)
     rc = lib.hps_dot_interaction_bwd(
@@ -652,7 +652,7 @@ def dot_interaction_bwd(bottom, parts, feature_map, g, need_bottom: bool = True,
         arr_t(*gptrs), arr_t(*gstrides), vec4, plan.stages, plan.dc, plan.grid, plan.smem,
     )
     kernels.check(lib, rc, name)
-    kernels.launches[name] += 1
+    kernels.count_launch(name)
     return g_bottom, g_parts
 
 

@@ -11,7 +11,8 @@ and a stale library is never loaded. All sources compile in parallel (one
 ``nvcc`` each). A failed build raises; nothing falls back to PyTorch.
 
 ``launches[name]`` counts the launches of each kernel: a wrapper adds one
-where it launches its kernel, and nowhere else.
+(``count_launch``, under a lock: the front end's batcher threads launch K1
+concurrently) where it launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -39,6 +40,13 @@ launches: "collections.Counter[str]" = collections.Counter()
 
 _libs: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` (thread-safe)."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def _nvcc() -> str:

@@ -288,7 +288,7 @@ def _launch(values, scales, slots, plan, scaled: bool, name: str) -> torch.Tenso
         kp.rows, kp.units, kp.grid,
     )
     kernels.check(lib, rc, name)
-    kernels.launches[name] += 1
+    kernels.count_launch(name)
     return out
 
 

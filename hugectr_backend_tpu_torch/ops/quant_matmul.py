@@ -340,5 +340,5 @@ def _launch(x, wq, wscale, bias, act, plan: Optional[K5Plan]) -> torch.Tensor:
         None if scratch is None else scratch.data_ptr(),
     )
     kernels.check(lib, rc, "w8a8_dense")
-    kernels.launches["w8a8_dense"] += 1
+    kernels.count_launch("w8a8_dense")
     return out

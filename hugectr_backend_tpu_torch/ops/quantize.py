@@ -6,13 +6,18 @@ Symmetric per-row absmax, as in the JAX package (its ops/quantize.py):
     q[r, :]   = round(row_r / scale[r])
     row_r     ~= q[r, :] * scale[r]
 
-These are the numpy paths, which the JAX package declares bit-identical to
-its native quantizer. The fp8 cast goes through ``torch.float8_e4m3fn``
-(round to nearest even, like ``ml_dtypes``), so fp8 rows come back as a CPU
-``torch.Tensor``: numpy has no 8-bit float type.
+int8 and int4 run on the native single-pass quantizer
+(``native/kvstore.cpp hps_quantize_rows``, parallel over row chunks), as in
+the JAX package; the numpy chains beside them (``quantize_rows_int8_ref``,
+``quantize_rows_int4_ref``) are their plain versions, bit-identical. The fp8
+cast goes through ``torch.float8_e4m3fn`` (round to nearest even, like
+``ml_dtypes``), so fp8 rows come back as a CPU ``torch.Tensor``: numpy has no
+8-bit float type.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -29,10 +34,42 @@ def _row_scales(vectors: np.ndarray, qmax: float) -> np.ndarray:
     return (absmax / qmax).astype(np.float32)
 
 
+def _native_quantize(vectors: np.ndarray, order, mode: int):
+    """``hps_quantize_rows`` (mode 8: int8, 4: packed int4). -> (q, scales);
+    output row i quantizes ``vectors[order[i]]`` (``vectors[i]`` without
+    ``order``)."""
+    from hugectr_backend_tpu_torch.native.kvstore import load_lib
+
+    vectors = np.ascontiguousarray(vectors, np.float32)
+    n, dim = vectors.shape
+    if order is None:
+        rows_out, op = n, None
+    else:
+        order = np.ascontiguousarray(order, np.int64).reshape(-1)
+        if order.size and (int(order.min()) < 0 or int(order.max()) >= n):
+            raise IndexError(f"order holds rows outside [0, {n})")
+        rows_out = int(order.shape[0])
+        op = order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    q = np.empty((rows_out, dim if mode == 8 else dim // 2),
+                 np.int8 if mode == 8 else np.uint8)
+    scales = np.empty(rows_out, np.float32)
+    load_lib().hps_quantize_rows(
+        rows_out, dim, vectors.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        op, q.ctypes.data_as(ctypes.c_void_p),
+        scales.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), mode)
+    return q, scales
+
+
 def quantize_rows_int8(vectors: np.ndarray, order: np.ndarray | None = None):
-    """-> (q int8 [rows, dim], scales float32 [rows]).
+    """-> (q int8 [rows, dim], scales float32 [rows]), on the native
+    quantizer.
 
     ``order`` (optional): output row i quantizes source row ``order[i]``."""
+    return _native_quantize(np.asarray(vectors, dtype=np.float32), order, mode=8)
+
+
+def quantize_rows_int8_ref(vectors: np.ndarray, order: np.ndarray | None = None):
+    """The plain version of :func:`quantize_rows_int8` (the numpy chain)."""
     vectors = np.asarray(vectors, dtype=np.float32)
     if order is not None:
         vectors = vectors[order]
@@ -51,11 +88,20 @@ def quantize_rows_fp8(vectors: np.ndarray):
 
 
 def quantize_rows_int4(vectors: np.ndarray, order: np.ndarray | None = None):
-    """Symmetric INT4 row quantization, nibble-packed.
+    """Symmetric INT4 row quantization, nibble-packed, on the native
+    quantizer.
 
     -> (packed uint8 [rows, dim//2], scales float32 [rows]); even columns in
     the LOW nibble, odd in the HIGH. Requires an even dim.
     """
+    vectors = np.asarray(vectors, dtype=np.float32)
+    if vectors.shape[1] % 2:
+        raise ValueError("int4 quantization requires an even embedding dim")
+    return _native_quantize(vectors, order, mode=4)
+
+
+def quantize_rows_int4_ref(vectors: np.ndarray, order: np.ndarray | None = None):
+    """The plain version of :func:`quantize_rows_int4` (the numpy chain)."""
     vectors = np.asarray(vectors, dtype=np.float32)
     if vectors.shape[1] % 2:
         raise ValueError("int4 quantization requires an even embedding dim")

@@ -8,6 +8,8 @@ Port of the JAX package's ps/parameter_server.py (the reference engine's
     update_database_per_model(params)      -> (re)load a model's tables
     create_embedding_cache_per_model(name) -> allocate + warm device caches
     get_embedding_cache(model, device)     -> EmbeddingCache
+    destroy_embedding_cache_per_model(name), refresh_embedding_cache(name, dev),
+    get_model_version / update_model_version, shutdown
 
 Caches live on ``cuda:<deployed_device_list[i]>`` unless ``create`` is given
 ``device="cpu"``. A ps.json option that this port does not cover yet raises
@@ -93,6 +95,7 @@ class HierParameterServer:
         self.dram: KVTier = make_dram_tier(config.volatile_db)
         # caches[model_name][device_id] -> EmbeddingCache
         self._caches: dict[str, dict[int, EmbeddingCache]] = {}
+        self._model_versions: dict[str, int] = {}
         self._lock = threading.Lock()
 
     # ------------------------------------------------------------------ create
@@ -122,6 +125,9 @@ class HierParameterServer:
         return ps
 
     # ---------------------------------------------------- reference contract
+
+    def get_hps_model_configuration_map(self) -> dict[str, InferenceParams]:
+        return dict(self.config.models)
 
     def get_model_params(self, model_name: str) -> InferenceParams:
         return self.config.model_params(model_name)
@@ -164,6 +170,7 @@ class HierParameterServer:
                     device = torch.device("cuda", dev_id)
                 per_device[dev_id] = self._build_cache(params, device, host_tables)
             self._caches[model_name] = per_device
+            self._model_versions.setdefault(model_name, 1)
 
     def _quant_mode(self, params: InferenceParams) -> str:
         if not params.use_gpu_embedding_cache:
@@ -251,3 +258,37 @@ class HierParameterServer:
                 f"no embedding cache for model {model_name!r} on device {device_id}; "
                 "call create_embedding_cache_per_model first"
             ) from None
+
+    def destroy_embedding_cache_per_model(self, model_name: str) -> None:
+        """Drop a model's caches and stop their worker threads (reference
+        model_state.cpp:111, there spelled ``destory_...``)."""
+        with self._lock:
+            per_device = self._caches.pop(model_name, None)
+        for cache in (per_device or {}).values():
+            cache.shutdown()
+
+    # The reference API's spelling, kept as an alias.
+    destory_embedding_cache_per_model = destroy_embedding_cache_per_model
+
+    def refresh_embedding_cache(self, model_name: str, device_id: int) -> int:
+        """Re-pull one device cache's resident rows from the DRAM tier
+        (reference model_state.cpp:135,160). -> rows refreshed."""
+        return self.get_embedding_cache(model_name, device_id).refresh()
+
+    # ------------------------------------------------------------- versioning
+
+    def get_model_version(self, model_name: str) -> int:
+        """Reference backend.cpp:83-90; 0 for a model never deployed."""
+        return self._model_versions.get(model_name, 0)
+
+    def update_model_version(self, model_name: str, version: int) -> None:
+        """Reference backend.cpp:94-99."""
+        with self._lock:
+            self._model_versions[model_name] = version
+
+    def shutdown(self) -> None:
+        """Stop every cache's worker threads (the caches stay usable)."""
+        with self._lock:
+            caches = [c for per in self._caches.values() for c in per.values()]
+        for cache in caches:
+            cache.shutdown()

@@ -20,6 +20,12 @@ prints one JSON line per measurement:
   recorded inputs), each layer's plan and the 8 chained in one CUDA graph;
 - ``backward``: the interaction's backward kernel at the training shape
   (B 4096, 26 features, D 128, random inputs from a seed), its plan;
+- ``deploy``: the time of ``HierParameterServer.create`` on the written
+  sparse files (a tree's native host library, where it has one, is built
+  before the clock starts);
+- ``host``: key translation and argument assembly of one batch-4096 lookup
+  under the cache lock (``_translate_all`` + ``prepare_lookup``), median of
+  10 after 2 warm-ups;
 - ``predict``: the device kernel time of a predict (``torch.profiler``) and
   its wall time, f32 and w8a8, fold and K2 path;
 - with ``--microbench``: the tree's ``microbench_onehot`` lines (K6 v2 at
@@ -86,11 +92,29 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels.build_all()
     cards = [min(c, cs.ROW_CAP) for c in cs.CRITEO_CARDS]
+    if os.path.exists(os.path.join(tree, "hugectr_backend_tpu_torch", "native", "kvstore.py")):
+        from hugectr_backend_tpu_torch.native.kvstore import load_lib
+
+        load_lib()
     with tempfile.TemporaryDirectory(prefix="hps_predict_kernels_") as root:
         tables, cfg = cs.build_deployment(root, cards, cs.DIM, cs.SEED)
+        t0 = time.perf_counter()
         ps = HierParameterServer.create(cfg)
+        emit({"deploy": "HierParameterServer.create", "rows": sum(cards),
+              "s": time.perf_counter() - t0})
     cache = ps.get_embedding_cache("dlrm", 0)
     batches = cs.make_batches(tables, cs.BATCH, 3, cs.SEED + 1)
+    host = []
+    for i in range(12):
+        keys = [k.reshape(-1) for k in batches[i % len(batches)][0]]
+        t0 = time.perf_counter()
+        with cache._lock:
+            local, counts, _ = cache._translate_all(keys)
+            cache.prepare_lookup(counts, local)
+        host.append((time.perf_counter() - t0) * 1e3)
+    host = sorted(host[2:])
+    emit({"host": "translate + prepare", "keys": sum(k.size for k in batches[0][0]),
+          "median_ms": host[len(host) // 2], "min_ms": host[0], "max_ms": host[-1]})
     servers = {"f32": make_dlrm_multi_server(ps.get_model_params("dlrm"), cache,
                                              cs.make_model(len(cards), cs.SEED)),
                "w8a8": make_dlrm_multi_server(ps.get_model_params("dlrm"), cache,

@@ -6,9 +6,11 @@ bits mirrors the reference's Redis partitioning; overflow handling
 evicts a partition that exceeds margin/num_partitions rows down to the
 resolution target with the configured policy (random / least-used / oldest).
 
-The native C++ store, the shared-memory store and the cluster tier are not
-ported yet (ROADMAP queue A, items 1 and 3): :func:`make_dram_tier` raises
-for the volatile-db types that need them.
+:func:`make_dram_tier` returns the native C++ store
+(``native/kvstore.py NativeDramKVTier``, the same semantics) or the
+shared-memory store, as the JAX package does; this numpy store is their plain
+version, which the tests hold them against. The cluster tier is not ported
+yet (ROADMAP queue A item 3): ``redis_cluster`` raises.
 """
 
 from __future__ import annotations
@@ -242,17 +244,22 @@ def make_dram_tier(params: Optional[VolatileDatabaseParams] = None) -> KVTier:
     """The volatile-db tier for ``params.type``.
 
     ``hash_map`` / ``parallel_hash_map`` (and ``disabled``, which the JAX
-    package also serves from the local store) get the numpy
-    :class:`DramKVTier`. The shared-memory and cluster stores are queued."""
+    package also serves from the local store) get the native
+    :class:`~hugectr_backend_tpu_torch.native.kvstore.NativeDramKVTier`;
+    ``multi_process_hash_map`` the /dev/shm store shared by every serving
+    process on the host (reference docs/hierarchical_parameter_server.md:
+    417-421). The cluster store is queued."""
+    from hugectr_backend_tpu_torch.native.kvstore import (
+        NativeDramKVTier,
+        SharedMemoryDramKVTier,
+    )
+
     if params is not None and params.type == DatabaseType.MULTI_PROCESS_HASH_MAP:
-        raise NotImplementedError(
-            "volatile_db type multi_process_hash_map needs the native "
-            "shared-memory store (ROADMAP queue A item 1, native library)"
-        )
+        return SharedMemoryDramKVTier(params)
     if params is not None and params.type == DatabaseType.REDIS_CLUSTER:
         raise NotImplementedError(
             "volatile_db type redis_cluster needs the cluster tier "
             "(ROADMAP queue A item 3, dynamic/UVM caches and the SSD, "
             "cluster and shm tiers)"
         )
-    return DramKVTier(params)
+    return NativeDramKVTier(params)

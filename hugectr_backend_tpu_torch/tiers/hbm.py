@@ -15,6 +15,7 @@ CPU ``torch.Tensor`` until they move to the device: numpy has no bf16 or fp8.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional, Sequence
 
@@ -51,13 +52,100 @@ def default_device(device=None) -> torch.device:
     return dev if dev.index is not None else torch.device("cuda", 0)
 
 
+#: Past this many rows a table's index searches its sorted keys instead of
+#: building the native hash (~16 B of host RAM per bucket at load <= 0.75,
+#: pow2-rounded): the JAX package's cap (its HPS_TPU_NATIVE_INDEX_MAX_ROWS
+#: default).
+NATIVE_INDEX_MAX_ROWS = 64_000_000
+
+
+class _NativeStaticIndex:
+    """ctypes view over ``native/kvstore.cpp``'s StaticMap (an immutable
+    key -> slot hash). Bit-identical to the searchsorted lookup (slot i ==
+    position in the sorted key array); bulk ``translate`` is read-only,
+    lock-free, and runs on the native persistent pool for large key runs."""
+
+    def __init__(self, lib, handle, miss_slot: int):
+        self.lib = lib
+        self.handle = handle
+        self.miss_slot = int(miss_slot)
+
+    def translate(self, keys: np.ndarray) -> np.ndarray:
+        keys = np.ascontiguousarray(keys, np.int64).reshape(-1)
+        out = np.empty(keys.shape[0], np.int32)
+        self.lib.hps_statmap_translate(
+            self.handle, keys.shape[0],
+            keys.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            self.miss_slot,
+        )
+        return out
+
+    def __del__(self):
+        self.lib.hps_statmap_destroy(self.handle)
+
+
+def _make_native_statmap(sorted_keys: np.ndarray) -> _NativeStaticIndex:
+    """Build the native static index over ``sorted_keys`` (slot i is key i).
+    Raises when the native library does not build."""
+    from hugectr_backend_tpu_torch.native.kvstore import load_lib
+
+    lib = load_lib()
+    keys = np.ascontiguousarray(sorted_keys, np.int64)
+    handle = lib.hps_statmap_create(
+        keys.shape[0], keys.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    if not handle:
+        raise MemoryError(f"hps_statmap_create failed for {keys.shape[0]} keys")
+    return _NativeStaticIndex(lib, handle, miss_slot=keys.shape[0])
+
+
+def translate_indexes_batch(indexes, keys_list) -> list:
+    """Translate many ``(KeyIndex, keys)`` pairs; ONE native call covers all
+    native-backed indexes, so every table's chunks run in parallel on the
+    native pool (a request's host translation is then bounded by its largest
+    chunk, not the sum over tables). Direct, searched and empty entries take
+    ``KeyIndex.lookup``. -> list of int32 slot arrays, bit-identical to
+    per-table ``lookup`` calls."""
+    out: list = [None] * len(indexes)
+    nat, keys_c = [], []
+    for i, idx in enumerate(indexes):
+        k = np.ascontiguousarray(keys_list[i], np.int64).reshape(-1)
+        keys_c.append(k)
+        if idx._native is not None and k.shape[0] > 0:
+            nat.append(i)
+        else:
+            out[i] = idx.lookup(k)
+    if len(nat) == 1:
+        out[nat[0]] = indexes[nat[0]]._native.translate(keys_c[nat[0]])
+    elif nat:
+        from hugectr_backend_tpu_torch.native.kvstore import batch_translate_args
+
+        outs, args, keepalive = batch_translate_args(
+            [indexes[i]._native.handle for i in nat],
+            [keys_c[i] for i in nat],
+            [indexes[i]._native.miss_slot for i in nat],
+        )
+        indexes[nat[0]]._native.lib.hps_statmap_translate_batch(*args)
+        del keepalive
+        for j, i in enumerate(nat):
+            out[i] = outs[j]
+    return out
+
+
 class KeyIndex:
     """Host-side key -> slot map over a sorted key array.
 
-    Misses return ``miss_slot`` (== capacity, the default row). "direct" mode:
-    keys are already dense ``0..N-1`` and lookup is a bounds check; otherwise
-    ``np.searchsorted``. (The JAX package's native hash index gives the same
-    slots; the native library is queued, ROADMAP queue A item 1.)
+    Misses return ``miss_slot`` (== capacity, the default row). Three access
+    paths, all bit-identical, as in the JAX package:
+
+    - "direct": keys are already dense ``0..N-1``; lookup is a bounds check.
+    - the native StaticMap (``native/kvstore.cpp``): an immutable
+      open-addressing hash probed lock-free and in parallel, ~1.3 cache
+      misses per key against ~log2(N) for a binary search. Every other table
+      of 1 to ``NATIVE_INDEX_MAX_ROWS`` rows takes it.
+    - ``np.searchsorted`` over the sorted keys past ``NATIVE_INDEX_MAX_ROWS``
+      rows (and for an empty table). ``search`` is this path for any table:
+      the plain version that tests hold the native index against.
     """
 
     def __init__(self, sorted_keys: np.ndarray, direct: bool):
@@ -65,6 +153,9 @@ class KeyIndex:
         self.direct = direct
         self.capacity = int(sorted_keys.shape[0])
         self.miss_slot = self.capacity
+        self._native = None
+        if not direct and 1 <= self.capacity <= NATIVE_INDEX_MAX_ROWS:
+            self._native = _make_native_statmap(sorted_keys)
 
     @classmethod
     def build(cls, keys: np.ndarray):
@@ -84,6 +175,14 @@ class KeyIndex:
         if self.direct:
             miss = (q < 0) | (q >= self.capacity)
             return np.where(miss, self.miss_slot, q).astype(np.int32)
+        if self._native is not None:
+            return self._native.translate(q).reshape(q.shape)
+        return self.search(q)
+
+    def search(self, query_keys: np.ndarray) -> np.ndarray:
+        """The searchsorted lookup (any non-direct table): the native
+        index's plain version. -> int32 slots; misses -> self.miss_slot."""
+        q = np.asarray(query_keys, dtype=np.int64)
         if self.capacity == 0:
             return np.full(q.shape, self.miss_slot, dtype=np.int32)
         pos = np.searchsorted(self.sorted_keys, q)
@@ -108,12 +207,14 @@ def quantize_host_rows(vectors_sorted: np.ndarray, quant: Quant,
     -> (vals CPU tensor [n+1, W], scales numpy [n+1] or None); W = dim, or
     dim // 2 for int4.
 
-    ``order`` (optional): output row i comes from source row ``order[i]``."""
+    ``order`` (optional): output row i comes from source row ``order[i]``;
+    the int8/int4 native quantizer folds this gather into its single pass."""
     dim = int(vectors_sorted.shape[1])
-    if order is not None:
+    if quant not in ("int8", "int4") and order is not None:
         vectors_sorted = np.asarray(vectors_sorted, np.float32)[order]
+        order = None
     if quant == "int8":
-        q, s = quantize_rows_int8(vectors_sorted)
+        q, s = quantize_rows_int8(vectors_sorted, order=order)
         dq, ds = _default_row_quant(dim, default_value, INT8_QMAX)
         vals = np.concatenate([q, np.clip(dq, -127, 127)[None].astype(np.int8)])
         return torch.from_numpy(vals), np.concatenate([s, ds[None]])
@@ -125,7 +226,7 @@ def quantize_host_rows(vectors_sorted: np.ndarray, quant: Quant,
     if quant == "int4":
         if dim % 2:
             raise ValueError("int4 tables require an even embedding dim")
-        q, s = quantize_rows_int4(vectors_sorted)
+        q, s = quantize_rows_int4(vectors_sorted, order=order)
         dq, ds = _default_row_quant(dim, default_value, INT4_QMAX)
         dpack = pack_int4(np.clip(dq, -7, 7).astype(np.int8)[None])
         return torch.from_numpy(np.concatenate([q, dpack])), np.concatenate([s, ds[None]])

@@ -47,6 +47,16 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.scripts.microbench_true",
     "hugectr_backend_tpu_torch.scripts.predict_kernels",
     "hugectr_backend_tpu_torch.scripts.k3_phase_split",
+    "hugectr_backend_tpu_torch.native.kvstore",
+    "hugectr_backend_tpu_torch.utils.timer",
+    "hugectr_backend_tpu_torch.utils.tracing",
+    "hugectr_backend_tpu_torch.serving.batchpack",
+    "hugectr_backend_tpu_torch.serving.scheduler",
+    "hugectr_backend_tpu_torch.serving.model_manager",
+    "hugectr_backend_tpu_torch.serving.pb_wire",
+    "hugectr_backend_tpu_torch.serving.kserve_pb",
+    "hugectr_backend_tpu_torch.serving.grpc_server",
+    "hugectr_backend_tpu_torch.serving.server",
     "chip_smoke",
 ]
 
@@ -78,6 +88,22 @@ _FORBIDDEN = re.compile(
     r"|^\s*(?:from|import)\s+hugectr_backend_tpu(?:\.|\s|$)",
     re.MULTILINE,
 )
+
+
+def test_http_front_end_imports_without_grpc():
+    """``grpc`` is imported only when a gRPC server is built (the card's
+    machine has no grpcio), and importing the front end builds nothing."""
+    code = (
+        "import sys\n"
+        "import hugectr_backend_tpu_torch.serving.server\n"
+        "import hugectr_backend_tpu_torch.serving.grpc_server\n"
+        "bad = sorted(m for m in sys.modules if m == 'grpc' or m.startswith('grpc.')\n"
+        "             or m == 'kserve_v2_pb2')\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_sources_import_no_jax_and_no_jax_package():
