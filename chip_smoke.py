@@ -84,6 +84,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    clients keep being served, health / metadata / repository index 200,
    ``/metrics`` holding the batcher's counters, and unload + load serving
    the same bytes again.
+5c. The hierarchy behind the cache (the "dynamic_tiers" phase,
+   ``dynamic_tiers``) at full width on the same sparse files: a ps.json that
+   leaves ``embedding_cache_type`` out (dynamic), gpucacheper 0.5, a hash-map
+   DRAM tier loaded at 0.5, the SSD tier (``rocks_db``, 0.95 GB of f32
+   records) and a ``kafka_message_queue`` update source on an in-process
+   ``MiniKafkaBroker``; Zipf(1.05) batches of 4096 keys a table with ~1 %
+   keys absent. (1) 12 batches with synchronous inserts: answers and the
+   resident key -> slot maps bit-identical to a CPU instance of the port
+   after every batch, K1 exactly once per lookup; per batch the hit rate,
+   inserts, evictions, lookup wall, the inserts' quantize and scatter
+   times, the DRAM and SSD query times. (2) 40 batches at the default
+   threshold (the drainer inserts): every answer its key's f32 tier row or
+   that row's host dequant, never NaN; dropped inserts, queue depth, hit
+   rate. (3) stochastic and UVM caches, 6 batches each, held to their CPU
+   instances; a UVM ``refresh`` must admit missed keys. (4) the fold predict
+   (K1 + K3) on the dynamic cache with a resident batch: logits bit-identical
+   to a static deployment's of the same lookup groups. (5) new rows for
+   4096 keys of 4 tables posted through the producer: once the consumer has
+   applied them and after ``refresh(1.0)``, each updated key serves its new
+   row (its dequant where resident, the f32 row from the tiers where not),
+   every other key its old row, and the CPU instance agrees bit for bit.
 6. Each kernel timed at the shapes the main path gave it, beside its plain
    version, one PyTorch call for the same product where there is one, and
    its bound: the larger of bytes over the memory rate and operations over
@@ -146,6 +167,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -204,6 +226,15 @@ FRONTEND_SECONDS = 10.0
 FRONTEND_ZIPF = 1.05
 FRONTEND_CHECKED = 32  # responses held bit for bit against the host dequant, at least
 FRONTEND_PROFILE_S = 2.0  # the profiled slice of the window
+# The hierarchy behind the cache (the dynamic_tiers phase), on the same tables.
+DYN_CACHE_PER = 0.5  # gpucacheper: half of each table's rows on the card
+DYN_DRAM_RATE = 0.5  # initial_cache_rate: half in the DRAM tier, all on the SSD
+DYN_SYNC_BATCHES = 12  # step 1, synchronous inserts, held to the CPU instance
+DYN_ASYNC_BATCHES = 40  # step 2, the default hit_rate_threshold (0.9)
+DYN_FLAVOUR_BATCHES = 6  # step 3, stochastic and UVM each
+DYN_UPDATE_TABLES = 4  # step 5: tables that get new rows
+DYN_UPDATE_KEYS = 4096  # step 5: keys a table
+DYN_DEADLINE_S = 60.0  # the wait for the drainer and for the update consumer
 
 # Dense peaks (NVIDIA data sheets, without sparsity): memory bytes/s, bf16
 # tensor FLOP/s, int8 tensor OP/s, f32 FLOP/s outside the tensor cores.
@@ -1852,6 +1883,486 @@ def frontend_phase(cfg, tables, device=None) -> dict:
     }
 
 
+# ----------------------------------------------------- the dynamic tiers phase
+
+
+class TierClock:
+    """Per-batch counters of a dynamic cache and its server's tiers: the
+    hits of each translation, the rows an insert writes (a key that repeats
+    in a batch is written once per occurrence, as in the JAX package), the
+    keys evicted (every new key, once the cache is full), and the time
+    spent quantizing inserted rows, writing them (the scatter and its
+    tensor copy; on the card timed with a synchronize on each side), and
+    querying the DRAM and SSD tiers. It wraps instance attributes only."""
+
+    def __init__(self, ps, cache):
+        self.cache = cache
+        self.sync = (cache.device.type == "cuda")
+        self.reset()
+        self._wrap(ps.dram, "query", "dram_query")
+        if ps.ssd is not None:
+            self._wrap(ps.ssd, "query", "ssd_query")
+        self._wrap(cache, "_prepare_rows", "quantize")
+        self._wrap(cache, "_apply_prepared", "scatter", sync=self.sync,
+                   count=lambda args, out: ("rows_written", len(args[1])))
+        self._wrap(cache, "_translate_all", None,
+                   count=lambda args, out: ("hits", sum(int((~m).sum()) for _, m in out[2])))
+        self._wrap(cache, "_translate_all", None,
+                   count=lambda args, out: ("keys", sum(out[1])))
+        for sm in cache.slotmaps:
+            self._wrap(sm, "acquire", None, count=lambda args, out: (
+                "evicted", int((out[1] != np.iinfo(np.int64).min).sum())))
+
+    def reset(self):
+        self.ms = {k: 0.0 for k in ("dram_query", "ssd_query", "quantize", "scatter")}
+        self.n = {k: 0 for k in ("hits", "keys", "rows_written", "evicted")}
+
+    def _wrap(self, obj, attr, clock, sync=False, count=None):
+        orig = getattr(obj, attr)
+
+        def timed(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            if clock:
+                self.ms[clock] += (time.perf_counter() - t0) * 1e3
+            if count:
+                k, v = count(args, out)
+                self.n[k] += v
+            return out
+
+        setattr(obj, attr, timed)
+
+
+def dyn_cfg(root, n_tables: int, name: str, broker_port: int, cache_type=None,
+            threshold=None, dim: int = DIM) -> dict:
+    """chip_smoke's Criteo deployment as a dynamic hierarchy: ``gpucacheper``
+    0.5, a hash-map DRAM tier loaded at 0.5, the SSD tier (its directory
+    ``root/ssd_<name>``) and a Kafka update stream. ``cache_type`` None
+    leaves ``embedding_cache_type`` out (the default, dynamic)."""
+    model = {"model": "dlrm",
+             "sparse_files": [os.path.join(root, f"t{t}") for t in range(n_tables)],
+             "embedding_vecsize_per_table": [dim] * n_tables,
+             "maxnum_catfeature_query_per_table_per_sample": [1] * n_tables,
+             "gpucacheper": DYN_CACHE_PER, "quant_bits": 8, "deployed_device_list": [0]}
+    if cache_type is not None:
+        model["embedding_cache_type"] = cache_type
+    if threshold is not None:
+        model["hit_rate_threshold"] = threshold
+    return {"volatile_db": {"type": "hash_map", "initial_cache_rate": DYN_DRAM_RATE},
+            "persistent_db": {"type": "rocks_db", "path": os.path.join(root, f"ssd_{name}")},
+            "update_source": {"type": "kafka_message_queue",
+                              "brokers": f"127.0.0.1:{broker_port}",
+                              "poll_timeout_ms": 20, "max_commit_interval": 1},
+            "models": [model]}
+
+
+def dyn_batches(tables, batch: int, n: int, seed: int):
+    """n batches of keys per table: Zipf(1.05) over each table's keys, ~1 %
+    keys absent from every table (negative)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        keys = []
+        for tbl in tables:
+            k = tbl.keys[rng.zipf(FRONTEND_ZIPF, batch) % tbl.num_rows]
+            miss = rng.random(batch) < 0.01
+            k[miss] = -1 - rng.integers(0, 1 << 40, int(miss.sum()))
+            keys.append(k)
+        out.append(keys)
+    return out
+
+
+class TruthRows:
+    """Each table's f32 rows (the tiers' vectors, updates included) and their
+    host dequant (int8 row quantization, as the cache stores them); a key
+    absent from the table reads the default row (0.0)."""
+
+    def __init__(self, tables):
+        self.order = [np.argsort(t.keys, kind="stable") for t in tables]
+        self.sorted = [t.keys[o] for t, o in zip(tables, self.order)]
+        self.vectors = [t.vectors for t in tables]
+
+    def set(self, t: int, keys, vectors):
+        pos = np.searchsorted(self.sorted[t], keys)
+        self.vectors[t] = self.vectors[t].copy()
+        self.vectors[t][self.order[t][pos]] = vectors
+
+    def rows(self, t: int, keys):
+        """-> (f32 rows, their host dequant)."""
+        from hugectr_backend_tpu_torch.ops.quantize import quantize_rows_int8
+
+        sk = self.sorted[t]
+        pos = np.clip(np.searchsorted(sk, keys), 0, sk.size - 1)
+        present = sk[pos] == keys
+        f32 = np.zeros((keys.size, self.vectors[t].shape[1]), np.float32)
+        f32[present] = self.vectors[t][self.order[t][pos[present]]]
+        q, s = quantize_rows_int8(f32)
+        return f32, q.astype(np.float32) * s[:, None]
+
+
+def same_bits_np(a, b) -> bool:
+    """numpy arrays equal bit for bit (as f32)."""
+    a, b = np.ascontiguousarray(a, np.float32), np.ascontiguousarray(b, np.float32)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+def check_twin(cache, twin, outs, twin_outs, what: str) -> None:
+    """The card's answers and resident key -> slot maps bit-identical to the
+    CPU instance's."""
+    for t, (a, b) in enumerate(zip(outs, twin_outs)):
+        if not same_bits_np(a.cpu().numpy(), b.numpy()):
+            raise AssertionError(f"{what}: table {t}: answers differ from the CPU instance")
+    for t, (sa, sb) in enumerate(zip(cache.slotmaps, twin.slotmaps)):
+        (ka, xa), (kb, xb) = sa.resident(), sb.resident()
+        oa, ob = np.argsort(ka), np.argsort(kb)
+        if not (np.array_equal(ka[oa], kb[ob]) and np.array_equal(xa[oa], xb[ob])):
+            raise AssertionError(f"{what}: table {t}: resident map differs from the CPU instance")
+
+
+def check_truth(truth, keys, outs, what: str, resident=None) -> None:
+    """Every answer is its key's f32 tier row or that row's host dequant
+    (never another key's row, never NaN); with ``resident`` given (per
+    table, whether the key was resident when translated), exactly the one
+    that residency implies."""
+    for t, (k, o) in enumerate(zip(keys, outs)):
+        o = o.cpu().numpy()
+        if np.isnan(o).any():
+            raise AssertionError(f"{what}: table {t}: NaN in the answer")
+        f32, deq = truth.rows(t, k)
+        is_f32 = (o.view(np.uint32) == f32.view(np.uint32)).all(1)
+        is_deq = (o.view(np.uint32) == deq.view(np.uint32)).all(1)
+        if resident is not None:
+            ok = np.where(resident[t], is_deq, is_f32)
+        else:
+            ok = is_f32 | is_deq
+        if not ok.all():
+            i = int(np.flatnonzero(~ok)[0])
+            raise AssertionError(f"{what}: table {t}: key {int(k[i])} served a row that is "
+                                 "neither its tier row nor its dequant")
+
+
+def resident_mask(cache, keys):
+    return [sm.translate(k, touch=False) != sm.miss_slot
+            for sm, k in zip(cache.slotmaps, keys)]
+
+
+def clone_ms(cache, dev) -> dict:
+    """What the functional row write costs beside the rows: one copy of each
+    distinct tensor an insert replaces (an arena or a solo table), timed
+    with CUDA events (median of 10)."""
+    seen, total_bytes, total_ms, worst = set(), 0, 0.0, (0.0, 0)
+    for table in cache.tables:
+        holder = getattr(table, "arena", None) or table
+        if id(holder) in seen:
+            continue
+        seen.add(id(holder))
+        v = holder.values
+        runs = []
+        for _ in range(12):
+            if dev.type == "cuda":
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                v.clone()
+                b.record()
+                b.synchronize()
+                runs.append(a.elapsed_time(b))
+            else:
+                t0 = time.perf_counter()
+                v.clone()
+                runs.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(runs[2:])[len(runs[2:]) // 2]
+        nbytes = v.numel() * v.element_size()
+        total_bytes += nbytes
+        total_ms += ms
+        worst = max(worst, (ms, nbytes))
+    return {"tensors": len(seen), "bytes": total_bytes, "sum_ms": total_ms,
+            "largest_ms": worst[0], "largest_bytes": worst[1]}
+
+
+def pick_update_tables(cache, n: int):
+    """One table of each lookup kind (the largest), then the largest left."""
+    by_rows = sorted(range(cache.num_tables), key=lambda t: -cache.tables[t].capacity)
+    kinds, picked = {}, []
+    for t in by_rows:
+        arena = getattr(cache.tables[t], "arena", None)
+        kind = arena.lookup_kind if arena is not None else "solo"
+        if kind not in kinds:
+            kinds[kind] = t
+    picked = sorted(kinds.values(), key=lambda t: -cache.tables[t].capacity)[:n]
+    picked += [t for t in by_rows if t not in picked][: n - len(picked)]
+    return picked
+
+
+def dynamic_tiers(dev, root, tables, batch: int = BATCH, emit_line=emit) -> dict:
+    """The hierarchy behind the cache on the card: the deployment of
+    ``dyn_cfg`` (the default dynamic cache, DRAM and SSD tiers, a Kafka
+    update stream from an in-process ``MiniKafkaBroker``) over the sparse
+    files in ``root``, served through ``LookupSession`` and the fused fold
+    predict. Every step raises on a mismatch:
+
+    1. synchronous inserts (``hit_rate_threshold`` 1.0), DYN_SYNC_BATCHES
+       Zipf batches: answers and resident maps bit-identical to a CPU
+       instance of the port after every batch, K1 once per lookup;
+    2. the default threshold (asynchronous inserts), DYN_ASYNC_BATCHES
+       batches: each answer the key's tier row or its dequant;
+    3. stochastic and UVM caches, DYN_FLAVOUR_BATCHES batches each, held to
+       their CPU instances (UVM: a ``refresh`` admits the missed keys);
+    4. fold predict on the dynamic cache with a batch resident: logits
+       bit-identical to a static deployment's (gpucacheper 0.5: the same
+       lookup groups; rows at other slots);
+    5. online update: new rows for DYN_UPDATE_KEYS keys of DYN_UPDATE_TABLES
+       tables through the producer and the broker; once applied and after
+       ``refresh(1.0)``, updated keys serve their new row, others the old.
+
+    ``dev`` cpu rehearses it (the "card" instance then runs on the CPU too,
+    and K1 is not launched). -> the numbers printed."""
+    from hugectr_backend_tpu_torch import HierParameterServer, LookupSession
+    from hugectr_backend_tpu_torch.cache.embedding_cache import UvmEmbeddingCache
+    from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.serving.program import make_dlrm_multi_server
+    from hugectr_backend_tpu_torch.tiers.base import table_tag
+    from hugectr_backend_tpu_torch.update.kafka_lite import KafkaQueueSource
+    from hugectr_backend_tpu_torch.update.mini_broker import MiniKafkaBroker
+
+    on_card = dev.type == "cuda"
+    device = None if on_card else "cpu"
+    k1_per_lookup = 1 if on_card else 0
+    n = len(tables)
+    truth = TruthRows(tables)
+    summary = {}
+    phase_launches = collections.Counter()
+    broker = MiniKafkaBroker().start()
+    servers = []
+
+    def create(name, cache_type=None, threshold=None, where=device):
+        t0 = time.perf_counter()
+        ps = HierParameterServer.create(
+            dyn_cfg(root, n, name, broker.port, cache_type, threshold, tables[0].vectors.shape[1]),
+            device=where)
+        servers.append(ps)
+        cache = ps.get_embedding_cache("dlrm", 0)
+        return ps, cache, LookupSession.create(ps.get_model_params("dlrm"), cache), \
+            time.perf_counter() - t0
+
+    def close(ps):
+        ps.shutdown()
+        servers.remove(ps)
+
+    def lookup(session, keys):
+        """One counted lookup of the card instance: counts set to 0 just
+        before, read just after, and added to the phase's."""
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        out = session.lookup(keys)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        phase_launches.update(kernels.launches)
+        return out, wall, kernels.launches.get("gather_dequant", 0)
+
+    try:
+        # Step 1: synchronous inserts, held to the CPU instance.
+        ps, cache, session, create_s = create("dyn", threshold=1.0)
+        twin_ps, twin, twin_session, twin_s = create("dyn_cpu", threshold=1.0, where="cpu")
+        emit_line({"dynamic_tiers": "deploy", "create_s": create_s, "cpu_instance_create_s":
+                   twin_s, "groups": [g[1] for g in cache._groups],
+                   "device_bytes": cache.nbytes(), "capacity_rows": sum(
+                       t.capacity for t in cache.tables), "ssd_records": sum(
+                       ps.ssd.size(tg) for tg in ps.ssd.tables()),
+                   "clone": clone_ms(cache, dev)})
+        clock = TierClock(ps, cache)
+        rows = []
+        for i, keys in enumerate(dyn_batches(tables, batch, DYN_SYNC_BATCHES, SEED + 11)):
+            clock.reset()
+            out, wall, k1 = lookup(session, keys)
+            twin_out = twin_session.lookup(keys)
+            check_twin(cache, twin, out, twin_out, f"sync batch {i}")
+            if k1 != k1_per_lookup:
+                raise AssertionError(f"sync batch {i}: K1 launched {k1} times")
+            row = {"batch": i, "hit_rate": clock.n["hits"] / clock.n["keys"],
+                   "rows_written": clock.n["rows_written"], "evicted": clock.n["evicted"],
+                   "k1_launches": k1, "lookup_ms": wall, **{f"{k}_ms": v for k, v in
+                                                             clock.ms.items()}}
+            rows.append(row)
+            emit_line({"dynamic_tiers": "sync", **row})
+        summary["sync"] = rows
+
+        # Step 2: the default threshold: inserts on the drainer.
+        ps2, cache2, session2, create2_s = create("dyn_async")
+        clock2 = TierClock(ps2, cache2)
+        k1_total, walls = 0, []
+        for i, keys in enumerate(dyn_batches(tables, batch, DYN_ASYNC_BATCHES, SEED + 12)):
+            out, wall, k1 = lookup(session2, keys)
+            check_truth(truth, keys, out, f"async batch {i}")
+            k1_total += k1
+            walls.append(wall)
+        if k1_total != k1_per_lookup * DYN_ASYNC_BATCHES:
+            raise AssertionError(f"async: K1 launched {k1_total} times in "
+                                 f"{DYN_ASYNC_BATCHES} lookups")
+        pending = cache2.pending_inserts()
+        drained = cache2.drain_pending(DYN_DEADLINE_S)
+        summary["async"] = {
+            "batches": DYN_ASYNC_BATCHES, "create_s": create2_s,
+            "dropped_inserts": cache2.dropped_inserts, "pending_at_end": pending,
+            "drained": drained, "hit_rate": clock2.n["hits"] / max(clock2.n["keys"], 1),
+            "hit_rate_meter_mean": float(cache2.hit_meter.rates.mean()),
+            "rows_written": clock2.n["rows_written"], "evicted": clock2.n["evicted"],
+            "lookup_ms_median": sorted(walls)[len(walls) // 2],
+            "lookup_ms_first": walls[0], "lookup_ms_last": walls[-1]}
+        # One more batch once the queue is drained.
+        clock2.reset()
+        keys = dyn_batches(tables, batch, 1, SEED + 13)[0]
+        out, _, _ = lookup(session2, keys)
+        check_truth(truth, keys, out, "async, drained")
+        summary["async"]["hit_rate_drained"] = clock2.n["hits"] / clock2.n["keys"]
+        if not drained:
+            raise AssertionError("async: the drainer did not finish in time")
+        emit_line({"dynamic_tiers": "async", **summary["async"]})
+        close(ps2)
+
+        # Step 3: stochastic and UVM, each held to its CPU instance.
+        for ctype in ("stochastic", "uvm"):
+            ps3, cache3, s3, c3_s = create(ctype, ctype, 1.0)
+            tps3, twin3, ts3, _ = create(f"{ctype}_cpu", ctype, 1.0, where="cpu")
+            clock3 = TierClock(ps3, cache3)
+            for i, keys in enumerate(dyn_batches(tables, batch, DYN_FLAVOUR_BATCHES,
+                                                 SEED + 14)):
+                out, wall, k1 = lookup(s3, keys)
+                check_twin(cache3, twin3, out, ts3.lookup(keys), f"{ctype} batch {i}")
+                if k1 != k1_per_lookup:
+                    raise AssertionError(f"{ctype} batch {i}: K1 launched {k1} times")
+            line = {"batches": DYN_FLAVOUR_BATCHES, "create_s": c3_s,
+                    "hit_rate": clock3.n["hits"] / clock3.n["keys"],
+                    "rows_written": clock3.n["rows_written"], "evicted": clock3.n["evicted"]}
+            if isinstance(cache3, UvmEmbeddingCache):
+                line["pending_admissions"] = sum(cache3.pending_admissions(t) for t in range(n))
+                before = [set(sm.resident()[0].tolist()) for sm in cache3.slotmaps]
+                t0 = time.perf_counter()
+                line["refreshed_rows"] = cache3.refresh()
+                line["refresh_ms"] = (time.perf_counter() - t0) * 1e3
+                twin3.refresh()
+                line["admitted"] = sum(len(set(sm.resident()[0].tolist()) - b)
+                                       for sm, b in zip(cache3.slotmaps, before))
+                if line["admitted"] == 0:
+                    raise AssertionError("uvm: refresh admitted no missed key")
+                keys = dyn_batches(tables, batch, 1, SEED + 15)[0]
+                out, _, _ = lookup(s3, keys)
+                check_twin(cache3, twin3, out, ts3.lookup(keys), "uvm after refresh")
+            summary[ctype] = line
+            emit_line({"dynamic_tiers": ctype, **line})
+            close(ps3)
+            close(tps3)
+
+        # Step 4: fold predict with a batch resident, against a static
+        # deployment of the same lookup groups.
+        rng = np.random.default_rng(SEED + 16)
+        fkeys = []
+        for t, tbl in enumerate(tables):
+            cap = cache.tables[t].capacity
+            first = np.sort(tbl.keys)[:cap]  # the static 0.5 deployment's rows
+            fkeys.append(first[rng.zipf(FRONTEND_ZIPF, batch) % cap])
+        dense = rng.standard_normal((batch, NUM_DENSE)).astype(np.float32)
+        lookup(session, fkeys)
+        twin_session.lookup(fkeys)
+        if not all(m.all() for m in resident_mask(cache, fkeys)):
+            raise AssertionError("fold: the batch is not resident after its lookup")
+        scfg = dyn_cfg(root, n, "static", broker.port, "static", None,
+                       tables[0].vectors.shape[1])
+        scfg = {"models": scfg["models"]}
+        static_ps = HierParameterServer.create(scfg, device=device)
+        servers.append(static_ps)
+        static_cache = static_ps.get_embedding_cache("dlrm", 0)
+        if [g[1] for g in static_cache._groups] != [g[1] for g in cache._groups]:
+            raise AssertionError("fold: the static deployment's groups differ")
+        dyn_srv = make_dlrm_multi_server(ps.get_model_params("dlrm"), cache, make_model(n, SEED))
+        st_srv = make_dlrm_multi_server(static_ps.get_model_params("dlrm"), static_cache,
+                                        make_model(n, SEED))
+        kernels.launches.clear()
+        with torch.inference_mode():
+            got = dyn_srv.predict([k.reshape(batch, 1) for k in fkeys], dense)
+            torch.cuda.synchronize()
+        fold_launches = dict(kernels.launches)
+        phase_launches.update(fold_launches)
+        # The predict translated each table once, touching the keys' LRU
+        # ticks: the CPU instance's maps take the same calls.
+        for t, k in enumerate(fkeys):
+            twin.translate(t, k)
+        with torch.inference_mode():
+            want = st_srv.predict([k.reshape(batch, 1) for k in fkeys], dense)
+        if on_card and fold_launches.get("dot_interaction_oh_parts", 0) != 1:
+            raise AssertionError(f"fold: launches {fold_launches}")
+        moved = sum(int((sm.translate(k, touch=False) != np.searchsorted(np.sort(tbl.keys), k))
+                        .sum()) for sm, k, tbl in zip(cache.slotmaps, fkeys, tables))
+        if not (torch.isfinite(got).all() and same_bits(got.cpu(), want.cpu())):
+            raise AssertionError("fold: logits on the dynamic cache differ from the static "
+                                 "deployment's")
+        summary["fold"] = {"batch": batch, "launches": fold_launches,
+                           "keys_at_other_slots": moved, "bit_identical": True}
+        emit_line({"dynamic_tiers": "fold", **summary["fold"]})
+        static_ps.shutdown()
+        servers.remove(static_ps)
+        del dyn_srv, st_srv
+
+        # Step 5: the online update through the producer and the broker.
+        params = ps.get_model_params("dlrm")
+        upd = pick_update_tables(cache, DYN_UPDATE_TABLES)
+        producer = KafkaQueueSource(f"127.0.0.1:{broker.port}")
+        posted = {}
+        for t in upd:
+            k = rng.choice(tables[t].keys, min(DYN_UPDATE_KEYS, tables[t].num_rows),
+                           replace=False)
+            v = rng.standard_normal((k.size, tables[t].vectors.shape[1])).astype(np.float32)
+            posted[t] = (k, v)
+        t_post = time.perf_counter()
+        for t, (k, v) in posted.items():
+            producer.post(table_tag("dlrm", params.table_name(t)), k, v)
+        producer.close()
+        deadline = time.perf_counter() + DYN_DEADLINE_S
+        while True:
+            done = all(same_bits_np(p.dram.query(table_tag("dlrm", params.table_name(t)), k)[0], v)
+                       for p in (ps, twin_ps) for t, (k, v) in posted.items())
+            if done:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError("update: the consumer did not apply the posted rows "
+                                     f"within {DYN_DEADLINE_S} s")
+            time.sleep(0.005)
+        applied_ms = (time.perf_counter() - t_post) * 1e3
+        refreshed = cache.refresh(1.0)
+        torch.cuda.synchronize()
+        visible_ms = (time.perf_counter() - t_post) * 1e3
+        twin.refresh(1.0)
+        for t, (k, v) in posted.items():
+            truth.set(t, k, v)
+        # Updated keys, then as many other keys, in each updated table.
+        keys = dyn_batches(tables, batch, 1, SEED + 17)[0]
+        for t, (k, _) in posted.items():
+            others = np.setdiff1d(tables[t].keys, k)
+            keys[t] = np.concatenate([k, rng.choice(others, min(k.size, others.size),
+                                                    replace=False)])
+        resident = resident_mask(cache, keys)
+        out, _, _ = lookup(session, keys)
+        check_truth(truth, keys, out, "update", resident)
+        check_twin(cache, twin, out, twin_session.lookup(keys), "update")
+        summary["update"] = {
+            "tables": upd, "keys_per_table": [int(posted[t][0].size) for t in upd],
+            "post_to_applied_ms": applied_ms, "post_to_visible_ms": visible_ms,
+            "refreshed_rows": refreshed,
+            "updated_resident": int(sum(r[: posted[t][0].size].sum()
+                                        for t, r in ((t, resident[t]) for t in upd))),
+            "applied_batches": ps.update_consumer.applied_batches}
+        emit_line({"dynamic_tiers": "update", **summary["update"]})
+        summary["launches"] = dict(phase_launches)
+    finally:
+        for p in list(servers):
+            p.shutdown()
+        broker.stop()
+    return summary
+
+
 def run_counted(srv, batches):
     """The counted run of one model: N_BATCHES predicts with the fold, then
     N_BATCHES without, launch counts set to 0 just before and read just
@@ -2208,7 +2719,6 @@ def main() -> int:
     print("frontend: gRPC is tested on the CPU only (tests/test_torch_grpc.py); "
           "serving HTTP with grpc_port=None", flush=True)
     fe = frontend_phase(cfg, tables)
-    sparse_dir.cleanup()
     emit({"frontend_http": fe, "card": card, "nvidia_smi": smi})
     print(f"frontend: {fe['requests']} requests in {fe['wall_s']:.1f} s from "
           f"{FRONTEND_CLIENTS} clients, {fe['qps']:.1f} qps, {fe['samples_per_s']:.0f} "
@@ -2217,6 +2727,25 @@ def main() -> int:
           f"launches per merged batch, idle share {fe['device_idle_share']}; "
           f"{fe['checked_responses']} responses bit-exact vs host dequant ({card} | {smi})",
           flush=True)
+
+    # Phase 5c: the hierarchy behind the cache (dynamic, stochastic and UVM
+    # caches, the SSD tier, the online update) on the same sparse files.
+    t0 = time.perf_counter()
+    dyn = dynamic_tiers(dev, sparse_dir.name, tables,
+                        emit_line=lambda line: emit({**line, "card": card, "nvidia_smi": smi}))
+    sparse_dir.cleanup()
+    for name, n in dyn["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    sync = dyn["sync"]
+    print(f"dynamic_tiers: {len(sync)} synchronous batches bit-identical to the CPU instance "
+          f"(hit rate {sync[0]['hit_rate']:.4f} -> {sync[-1]['hit_rate']:.4f}, K1 once per "
+          f"lookup); {dyn['async']['batches']} asynchronous batches, every row its tier row "
+          f"or its dequant ({dyn['async']['dropped_inserts']} dropped insert batches); "
+          f"stochastic and UVM held to their CPU instances (UVM refresh admitted "
+          f"{dyn['uvm']['admitted']} keys); fold logits bit-identical to the static "
+          f"deployment's; {sum(dyn['update']['keys_per_table'])} updated keys visible "
+          f"{dyn['update']['post_to_visible_ms']:.1f} ms after the post; launches "
+          f"{dyn['launches']} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # Phase 6: each kernel at its main-path shapes.
     results = {}

@@ -1,37 +1,54 @@
 """Device embedding cache: per-model, per-device hot-row store.
 
-Port of the JAX package's STATIC ``EmbeddingCache`` (its
-cache/embedding_cache.py:98-470): the resident set is fixed at creation and
-there is no online insert. Lookups are translate (host) -> gather + dequant
-(device, K1) -> miss merge (rows that the device tier does not hold come
-from the DRAM tier and are scattered into the result).
+Port of the JAX package's cache/embedding_cache.py. Lookups are translate
+(host) -> gather + dequant (device, K1) -> miss merge (rows that the device
+tier does not hold come from the DRAM / SSD tiers and are scattered into the
+result). The flavours differ in their online-insert policy:
+
+- STATIC (``EmbeddingCache``): the resident set is fixed at creation.
+- DYNAMIC (``DynamicEmbeddingCache``): misses fetched from the tiers are
+  inserted, synchronously while the table's hit rate is below
+  ``hit_rate_threshold`` and by a bounded background drainer above it; the
+  least-recently-used resident is evicted (a host ``SlotMap`` owns the key
+  -> slot index; device rows stay at their slots).
+- STOCHASTIC: as DYNAMIC, but each missed key is inserted with probability
+  1/2 (the same ``np.random.default_rng(0)`` stream as the JAX package).
+- UVM (``UvmEmbeddingCache``): misses are counted, not inserted;
+  ``refresh`` admits the hottest missed keys, then refreshes the resident
+  window.
 
 Invariants kept from the JAX package:
 - translation and the operand snapshot happen under ONE hold of ``_lock``;
-- tables are functional: writers replace a tensor, never write into one a
-  reader holds;
-- padding maps to the default row (slot == capacity): misses need no masking.
+- tables are functional: writers replace a tensor (``scatter_rows`` copies),
+  never write into one a reader holds, so a lookup reads the rows of the
+  moment it translated even if an insert evicts its slots right after;
+- padding and misses map to the default row (slot == capacity).
 
-``refresh`` re-pulls the resident rows from the DRAM tier (``ModelManager``
-calls it on a version bump and every ``refresh_interval``). The dynamic,
-stochastic and UVM caches are ROADMAP queue A item 3.
+Every thread that writes rows (the drainer, the refresher pool) runs on the
+device's default stream, as the lookups do: writes and reads stay ordered.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from collections import deque
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from hugectr_backend_tpu_torch.cache import lookup_program
-from hugectr_backend_tpu_torch.config.params import InferenceParams
+from hugectr_backend_tpu_torch.cache.slotmap import make_slotmap, translate_slotmaps_batch
+from hugectr_backend_tpu_torch.config.params import EmbeddingCacheType, InferenceParams
 from hugectr_backend_tpu_torch.tiers.hbm import (
     DeviceTable,
     scatter_rows,
     translate_indexes_batch,
 )
+from hugectr_backend_tpu_torch.utils.logging import get_logger
+
+log = get_logger("hps_tpu.cache")
 
 
 class _HitRateMeter:
@@ -68,7 +85,7 @@ def _bucket(n: int, minimum: int = 8) -> int:
 
 
 class EmbeddingCache:
-    """One model's static embedding cache on one device."""
+    """One model's embedding cache on one device (the static flavour)."""
 
     def __init__(
         self,
@@ -81,7 +98,7 @@ class EmbeddingCache:
         self.tables = list(tables)
         self.device = torch.device(device)
         # tier_query(table_idx, keys) -> (vectors, found): the path to the
-        # DRAM tier, injected by the parameter server.
+        # DRAM / SSD tiers, injected by the parameter server.
         self.tier_query = tier_query
         self.hit_meter = _HitRateMeter(len(self.tables))
         self._lock = threading.RLock()
@@ -278,8 +295,8 @@ class EmbeddingCache:
             vals_l, slots_l, scin_l, self.device)
         gouts = lookup_program.lookup_groups(
             vals_l, dscales_l, slots_cat, scin_cat, metas, sb, cb)
-        # Miss merge: rows the device tier does not hold come from the DRAM
-        # tier, scattered into the group outputs.
+        # Miss merge: rows the device tier does not hold come from the DRAM /
+        # SSD tiers, scattered into the group outputs.
         if self.tier_query is not None:
             for t, (keys, miss_mask) in enumerate(miss_info):
                 miss_pos = np.flatnonzero(miss_mask)
@@ -293,16 +310,22 @@ class EmbeddingCache:
                     rows = torch.from_numpy(
                         np.ascontiguousarray(vecs[found], np.float32)).to(self.device)
                     gouts[g] = scatter_rows(gouts[g], pos, rows)
+                    self._on_miss_fetched(t, keys[miss_pos][found], vecs[found])
         return [
             gouts[table_pos[t][0]][table_pos[t][1] : table_pos[t][1] + counts[t]]
             for t in range(len(self.tables))
         ]
 
+    def _on_miss_fetched(self, table_idx: int, keys: np.ndarray, vectors: np.ndarray):
+        """Insert policy for rows the miss merge fetched; static: none."""
+        return
+
     # -- refresh ---------------------------------------------------------------
 
     def shutdown(self):
-        """Stop the refresh pool (model unload: load/unload cycles must not
-        accumulate threads)."""
+        """Stop the worker threads this cache owns (the refresh pool;
+        subclasses add theirs). Model unload calls it, so load/unload cycles
+        do not accumulate threads."""
         pool = getattr(self, "_refresh_pool_", None)
         if pool is not None:
             pool.shutdown(wait=False)
@@ -330,7 +353,7 @@ class EmbeddingCache:
         return pool
 
     def refresh(self, fraction: Optional[float] = None) -> int:
-        """Re-pull the resident rows' values from the DRAM tier:
+        """Re-pull the resident rows' values from the DRAM / SSD tiers:
         ``cache_refresh_percentage_per_iteration`` of each table per call
         unless ``fraction`` overrides it (reference model_state.cpp:145-178).
         -> rows refreshed. Tier reads and quantization run off the cache
@@ -402,3 +425,222 @@ class EmbeddingCache:
             # fetch) follows.
             if getattr(holder, "scales_host", None) is not None:
                 holder.scales_host[slots_np] = s
+
+
+class DynamicEmbeddingCache(EmbeddingCache):
+    """DYNAMIC / STOCHASTIC flavours (and UVM's base): online insert on miss.
+
+    Capacity is fixed (``gpucacheper`` x table rows); each table's SlotMap
+    owns the key -> slot index and evicts the least-recently-used resident.
+    Inserts run synchronously while the table's hit rate is below
+    ``hit_rate_threshold`` (a cold cache fills fast) and through a bounded
+    queue drained by one worker above it (a hot cache never blocks the
+    lookup stream). Queue overflow drops the newest batch and counts it in
+    ``dropped_inserts``: the tiers stay authoritative."""
+
+    def __init__(self, params, tables, device, tier_query=None):
+        super().__init__(params, tables, device=device, tier_query=tier_query)
+        self.slotmaps = []
+        for t in self.tables:
+            sm = make_slotmap(t.capacity)
+            if t.capacity:
+                # Resident rows were written sorted: slot i is the i-th
+                # sorted key (acquire hands free slots out from 0 up).
+                sm.acquire(t.index.sorted_keys)
+            self.slotmaps.append(sm)
+        self._rng = np.random.default_rng(0)
+        # Pending batches coalesce per table; quantization runs off the
+        # cache lock, and only slot acquisition + the scatter hold it. The
+        # depth is bounded by the worker buffer pool (reference
+        # docs/hierarchical_parameter_server.md:217-225).
+        self._pending = deque()
+        self._pending_cv = threading.Condition()
+        self._max_pending = max(4 * params.num_of_worker_buffer_in_pool, 8)
+        self.dropped_inserts = 0
+        self._stop_drainer = False
+        self._drain_busy = False
+        self._drainer = threading.Thread(
+            target=self._drain_loop, daemon=True,
+            name=f"hps-insert-{params.model_name}")
+        self._drainer_started = False
+
+    def translate(self, table_idx: int, keys: np.ndarray) -> np.ndarray:
+        # Under the cache lock: a key never becomes visible between slot
+        # acquisition and its row write in _insert.
+        with self._lock:
+            return self.slotmaps[table_idx].translate(keys)
+
+    def _translate_many(self, keys_c):
+        # One native call, tables in parallel (each SlotMap has its own C++
+        # mutex); the same cache-lock pairing as translate().
+        with self._lock:
+            return translate_slotmaps_batch(self.slotmaps, keys_c)
+
+    def _on_miss_fetched(self, table_idx, keys, vectors):
+        if keys.shape[0] == 0:
+            return
+        if self.params.embedding_cache_type == EmbeddingCacheType.STOCHASTIC:
+            pick = self._rng.random(keys.shape[0]) < 0.5
+            keys, vectors = keys[pick], vectors[pick]
+            if keys.shape[0] == 0:
+                return
+        if self.hit_meter.rate(table_idx) < self.params.hit_rate_threshold:
+            self._insert(table_idx, keys, vectors)
+            return
+        with self._pending_cv:
+            if not self._drainer_started:
+                self._drainer.start()
+                self._drainer_started = True
+            if len(self._pending) >= self._max_pending:
+                self.dropped_inserts += 1
+                return
+            self._pending.append((table_idx, keys.copy(), vectors.copy()))
+            self._pending_cv.notify()
+
+    def _insert(self, table_idx, keys, vectors):
+        # Quantize off the lock; acquisition and the scatter pair under it (a
+        # key must never translate to its slot before its row is there).
+        prepared = self._prepare_rows(table_idx, vectors)
+        with self._lock:
+            slots, _evicted = self.slotmaps[table_idx].acquire(keys)
+            live = slots >= 0  # -1: not insertable (a zero-capacity map)
+            if not live.all():
+                if not live.any():
+                    return
+                prepared = _select_rows(prepared, live)
+                slots = slots[live]
+            self._apply_prepared(table_idx, slots, prepared)
+
+    def _drain_loop(self):
+        while True:
+            with self._pending_cv:
+                while not self._pending and not self._stop_drainer:
+                    self._pending_cv.wait()
+                if self._stop_drainer and not self._pending:
+                    return
+                batch = list(self._pending)
+                self._pending.clear()
+                self._drain_busy = True
+            # Coalesce per table; for a duplicate key the LAST enqueued row
+            # wins (np.unique keeps the first occurrence, so reverse first).
+            # A failing insert must not kill the drainer: log it, count it as
+            # dropped, keep draining.
+            try:
+                per_table: dict[int, list] = {}
+                for t, k, v in batch:
+                    per_table.setdefault(t, []).append((k, v))
+                for t, parts in per_table.items():
+                    keys = np.concatenate([k for k, _ in parts])[::-1]
+                    vecs = np.concatenate([v for _, v in parts])[::-1]
+                    _, first = np.unique(keys, return_index=True)
+                    try:
+                        self._insert(t, keys[first], vecs[first])
+                    except Exception:
+                        log.exception(
+                            "async insert failed for table %d (%d keys dropped; "
+                            "the tiers remain authoritative)", t, int(first.size))
+                        self.dropped_inserts += 1
+            finally:
+                with self._pending_cv:
+                    self._drain_busy = False
+                    self._pending_cv.notify_all()
+
+    def pending_inserts(self) -> int:
+        with self._pending_cv:
+            return len(self._pending)
+
+    def _refresh_table(self, t: int, frac: float) -> int:
+        """Refresh a window of the resident keys: the tier query and the
+        quantization run off the lock, the write is revalidated under it."""
+        keys, slots = self.slotmaps[t].resident()
+        n_res = keys.shape[0]
+        if n_res == 0:
+            return 0
+        n = max(int(n_res * frac), 1) if frac < 1.0 else n_res
+        start = getattr(self.tables[t], "_refresh_cursor", 0) % n_res
+        idx = (np.arange(n) + start) % n_res
+        self.tables[t]._refresh_cursor = int((start + n) % n_res)
+        vecs, found = self.tier_query(t, keys[idx])
+        if not found.any():
+            return 0
+        prepared_all = self._prepare_rows(t, vecs[found])
+        with self._lock:
+            # Inserts may have moved keys while the tier query ran: write
+            # only rows whose key still owns the same slot.
+            cur = self.slotmaps[t].translate(keys[idx], touch=False)
+            ok = found & (cur == slots[idx])
+            if not ok.any():
+                return 0
+            self._apply_prepared(t, slots[idx][ok], _select_rows(prepared_all, ok[found]))
+            return int(ok.sum())
+
+    def drain_pending(self, timeout: float = 5.0) -> bool:
+        """Wait until the async-insert queue is empty. -> False on timeout."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._pending_cv:
+                if not self._pending and not self._drain_busy:
+                    return True
+            time.sleep(0.002)
+        return False
+
+    def shutdown(self):
+        with self._pending_cv:
+            self._stop_drainer = True
+            self._pending_cv.notify_all()
+        if self._drainer_started:
+            self._drainer.join(timeout=10)
+        super().shutdown()
+
+
+class UvmEmbeddingCache(DynamicEmbeddingCache):
+    """UVM flavour: the full table is pinned in the DRAM tier (the parameter
+    server loads it at ``initial_cache_rate`` 1.0), misses are served from
+    there and counted, not inserted; the next ``refresh()`` admits the
+    hottest missed keys (evicting LRU residents), then refreshes the resident
+    window."""
+
+    def __init__(self, params, tables, device, tier_query=None):
+        super().__init__(params, tables, device=device, tier_query=tier_query)
+        # Missed keys as raw fragments, appended O(1) per request and reduced
+        # in bulk at refresh time.
+        self._miss_frags: list[list[np.ndarray]] = [[] for _ in self.tables]
+        self._miss_lock = threading.Lock()
+
+    def _on_miss_fetched(self, table_idx, keys, vectors):
+        if keys.shape[0] == 0:
+            return
+        with self._miss_lock:
+            self._miss_frags[table_idx].append(keys.copy())
+
+    def _refresh_table(self, t: int, frac: float) -> int:
+        with self._miss_lock:
+            frags = self._miss_frags[t]
+            self._miss_frags[t] = []
+        if frags and self.tier_query is not None:
+            uniq, counts = np.unique(np.concatenate(frags), return_counts=True)
+            hot = uniq[np.argsort(-counts, kind="stable")]
+            cap = self.tables[t].capacity
+            n_admit = max(int(cap * frac), 1) if frac < 1.0 else cap
+            admit_keys = hot[:n_admit]
+            vecs, found = self.tier_query(t, admit_keys)
+            if found.any():
+                self._insert(t, admit_keys[found], vecs[found])
+        return super()._refresh_table(t, frac)
+
+    def pending_admissions(self, table_idx: int) -> int:
+        with self._miss_lock:
+            frags = self._miss_frags[table_idx]
+            if not frags:
+                return 0
+            return int(np.unique(np.concatenate(frags)).size)
+
+
+def _select_rows(prepared, mask: np.ndarray):
+    """The rows of a ``_prepare_rows`` result where ``mask`` is set."""
+    q, s = prepared
+    if isinstance(q, torch.Tensor):  # fp8 rows
+        q = q[torch.from_numpy(np.ascontiguousarray(mask))]
+    else:
+        q = q[mask]
+    return q, None if s is None else s[mask]

@@ -55,6 +55,10 @@ class LookupSession:
         vecsize_t] on the cache's device."""
         return self.cache.lookup(self._live_keys(keys_per_table, num_keys_per_table))
 
+    def lookup_numpy(self, keys_per_table, num_keys_per_table=None) -> list[np.ndarray]:
+        """:meth:`lookup`, copied to host numpy arrays."""
+        return [o.cpu().numpy() for o in self.lookup(keys_per_table, num_keys_per_table)]
+
     def lookup_flat(self, keys_per_table, num_keys_per_table=None,
                     pad_counts=None) -> torch.Tensor:
         """Single flat f32 OUTPUT0 vector (table-major). ``pad_counts[t]``

@@ -22,6 +22,7 @@
 //   - bulk ops parallelized across partitions with std::thread (bounded by
 //     hardware_concurrency, mirroring reference thread_pool.cpp:28-35).
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cstring>
@@ -176,13 +177,19 @@ struct Store {
   }
 };
 
-// simple bounded parallel-for over partitions
+// A call on fewer keys than this runs its partitions on the calling thread:
+// starting the threads costs more than the work (tens of microseconds each,
+// up to 16 of them, against about 0.1 us a key). The embedding cache's miss
+// merge, its write-backs and the update consumer make many such small calls.
+constexpr int64_t kSerialBelowKeys = 16384;
+
+// Bounded parallel-for over partitions; `keys` is the call's key count.
 template <typename F>
-void parallel_parts(int n, F&& fn) {
+void parallel_parts(int n, int64_t keys, F&& fn) {
   unsigned hw = std::thread::hardware_concurrency();
   int workers = static_cast<int>(hw ? (hw < 16u ? hw : 16u) : 4u);
   if (workers > n) workers = n;
-  if (workers <= 1) {
+  if (workers <= 1 || keys < kSerialBelowKeys) {
     for (int p = 0; p < n; ++p) fn(p);
     return;
   }
@@ -224,7 +231,7 @@ void hps_kv_insert(void* h, int64_t n, const int64_t* keys,
   // bucket indices by partition first (single pass)
   std::vector<std::vector<int64_t>> idx(s->num_partitions);
   for (int64_t i = 0; i < n; ++i) idx[s->part_of(keys[i])].push_back(i);
-  parallel_parts(s->num_partitions, [&](int pi) {
+  parallel_parts(s->num_partitions, n, [&](int pi) {
     Partition& p = *s->parts[pi];
     if (idx[pi].empty()) return;
     std::unique_lock lock(p.mu);
@@ -259,7 +266,7 @@ void hps_kv_query(void* h, int64_t n, const int64_t* keys, float* out,
   auto* s = static_cast<Store*>(h);
   std::vector<std::vector<int64_t>> idx(s->num_partitions);
   for (int64_t i = 0; i < n; ++i) idx[s->part_of(keys[i])].push_back(i);
-  parallel_parts(s->num_partitions, [&](int pi) {
+  parallel_parts(s->num_partitions, n, [&](int pi) {
     Partition& p = *s->parts[pi];
     if (idx[pi].empty()) return;
     std::shared_lock lock(p.mu);
@@ -285,7 +292,7 @@ int64_t hps_kv_evict(void* h, int64_t n, const int64_t* keys) {
   std::vector<std::vector<int64_t>> idx(s->num_partitions);
   for (int64_t i = 0; i < n; ++i) idx[s->part_of(keys[i])].push_back(i);
   std::atomic<int64_t> evicted{0};
-  parallel_parts(s->num_partitions, [&](int pi) {
+  parallel_parts(s->num_partitions, n, [&](int pi) {
     Partition& p = *s->parts[pi];
     if (idx[pi].empty()) return;
     std::unique_lock lock(p.mu);
@@ -347,6 +354,12 @@ struct SlotMap {
   std::vector<int64_t> cache_key;  // cache slot id -> key (kEmpty if free)
   std::vector<uint64_t> last_used; // cache slot id -> tick
   std::vector<uint32_t> free_list;
+  // Min-heap of (tick, slot), one entry per occupied slot. An entry's tick
+  // may be older than the slot's last_used (touches do not push): evict_lru
+  // brings such an entry up to date when it surfaces, so the victim is the
+  // one a scan would pick (the least last_used, the lowest slot on a tie) in
+  // O(log capacity) amortized instead of a scan of every slot.
+  std::vector<std::pair<uint64_t, uint32_t>> lru;
   uint64_t tick = 0;
   std::mutex mu;
 
@@ -395,16 +408,28 @@ struct SlotMap {
     }
   }
 
+  // Occupied slots only: acquire evicts once the free list is empty.
   uint32_t evict_lru() {
-    uint64_t best = UINT64_MAX;
-    uint32_t victim = 0;
-    for (int64_t s = 0; s < capacity; ++s) {
-      if (cache_key[s] != kEmpty && last_used[s] < best) {
-        best = last_used[s];
-        victim = static_cast<uint32_t>(s);
+    const auto later = std::greater<std::pair<uint64_t, uint32_t>>();
+    while (true) {
+      std::pop_heap(lru.begin(), lru.end(), later);
+      auto& top = lru.back();
+      if (last_used[top.second] == top.first) {
+        const uint32_t victim = top.second;
+        lru.pop_back();
+        return victim;
       }
+      top.first = last_used[top.second];
+      std::push_heap(lru.begin(), lru.end(), later);
     }
-    return victim;
+  }
+
+  // Slot s took a key at the current tick.
+  void occupy(uint32_t s) {
+    last_used[s] = tick;
+    lru.emplace_back(tick, s);
+    std::push_heap(lru.begin(), lru.end(),
+                   std::greater<std::pair<uint64_t, uint32_t>>());
   }
 };
 
@@ -475,7 +500,7 @@ int64_t hps_slotmap_acquire(void* h, int64_t n, const int64_t* keys,
       if (vp != SIZE_MAX) m->erase_probe(vp);
     }
     m->cache_key[s] = keys[i];
-    m->last_used[s] = m->tick;
+    m->occupy(s);
     m->place(keys[i], s);
     out_slots[i] = static_cast<int32_t>(s);
     ++inserted;

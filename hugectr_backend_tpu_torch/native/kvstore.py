@@ -21,9 +21,10 @@ back to numpy.
                             table, shared by every process on the host
     batch_translate_args    argument layout of the ``*_translate_batch`` calls
 
-The ``hps_slotmap_*`` (dynamic caches) and ``hps_snappy_raw`` (compressed
-updates) symbols are built but not bound: their callers are not ported yet
-(ROADMAP queue A item 3).
+The library also serves the dynamic caches' key -> slot maps
+(``hps_slotmap_*``, cache/slotmap.py) and the update path's CRC32C and
+snappy / lz4 block decoders (``hps_crc32c``, ``hps_snappy_raw``,
+``hps_lz4_block``; update/record_batch.py, update/compression.py).
 """
 
 from __future__ import annotations
@@ -153,6 +154,19 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # kvstore.cpp: the batcher's merge and regroup (serving/batchpack.py).
     _fn(lib, "hps_merge_requests", None, i32, i32, c.POINTER(vp), vp, vp, vp)
     _fn(lib, "hps_regroup_responses", None, i32, i32, vp, vp, vp, vp, vp)
+    # kvstore.cpp: the dynamic caches' LRU key -> slot map (cache/slotmap.py).
+    _fn(lib, "hps_slotmap_create", vp, i64)
+    _fn(lib, "hps_slotmap_destroy", None, vp)
+    _fn(lib, "hps_slotmap_translate", None, vp, i64, pi64, pi32, i32, c.c_int)
+    _fn(lib, "hps_slotmap_acquire", i64, vp, i64, pi64, pi32, pi64)
+    _fn(lib, "hps_slotmap_size", i64, vp)
+    _fn(lib, "hps_slotmap_keys", i64, vp, pi64, pi32, i64)
+    _fn(lib, "hps_slotmap_translate_batch", None, i32, c.POINTER(vp), pi64,
+        c.POINTER(pi64), c.POINTER(pi32), pi32, c.c_int)
+    # kvstore.cpp: the update path (update/record_batch.py, compression.py).
+    _fn(lib, "hps_crc32c", c.c_uint32, c.c_char_p, i64, c.c_uint32)
+    _fn(lib, "hps_snappy_raw", i64, c.c_char_p, i64, vp, i64)
+    _fn(lib, "hps_lz4_block", i64, c.c_char_p, i64, vp, i64, i64)
     return lib
 
 

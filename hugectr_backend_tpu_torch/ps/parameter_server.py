@@ -1,4 +1,4 @@
-"""Hierarchical parameter server: table manager over the device and DRAM tiers.
+"""Hierarchical parameter server: table manager over the device, DRAM and SSD tiers.
 
 Port of the JAX package's ps/parameter_server.py (the reference engine's
 ``HierParameterServerBase`` contract):
@@ -10,6 +10,13 @@ Port of the JAX package's ps/parameter_server.py (the reference engine's
     get_embedding_cache(model, device)     -> EmbeddingCache
     destroy_embedding_cache_per_model(name), refresh_embedding_cache(name, dev),
     get_model_version / update_model_version, shutdown
+    apply_updates(model, table, keys, vectors), prefetch(model, table, keys)
+
+The volatile DB (hash maps) is the host-DRAM tier, the persistent DB
+(``rocks_db``) the local-SSD tier (tiers/ssd.py), the GPU cache the device
+``EmbeddingCache`` of the configured flavour. An ``update_source`` (file
+queue or Kafka) streams trainer updates into the DRAM and SSD tiers; the
+device caches pick them up on refresh.
 
 Caches live on ``cuda:<deployed_device_list[i]>`` unless ``create`` is given
 ``device="cpu"``. A ps.json option that this port does not cover yet raises
@@ -19,13 +26,19 @@ Caches live on ``cuda:<deployed_device_list[i]>`` unless ``create`` is given
 from __future__ import annotations
 
 import os
+import re
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
 
-from hugectr_backend_tpu_torch.cache.embedding_cache import EmbeddingCache
+from hugectr_backend_tpu_torch.cache.embedding_cache import (
+    DynamicEmbeddingCache,
+    EmbeddingCache,
+    UvmEmbeddingCache,
+)
 from hugectr_backend_tpu_torch.config.params import (
     ConfigError,
     DatabaseType,
@@ -39,6 +52,8 @@ from hugectr_backend_tpu_torch.serving import metrics
 from hugectr_backend_tpu_torch.tiers.base import KVTier, table_tag
 from hugectr_backend_tpu_torch.tiers.dram import make_dram_tier
 from hugectr_backend_tpu_torch.tiers.hbm import build_arena_views, default_device
+from hugectr_backend_tpu_torch.tiers.ssd import SsdKVTier
+from hugectr_backend_tpu_torch.update.source import UpdateConsumer, make_update_source
 from hugectr_backend_tpu_torch.utils.logging import get_logger
 
 
@@ -60,19 +75,9 @@ log = get_logger("hps_tpu.ps")
 
 
 def _check_supported(config: ParameterServerConfig) -> None:
-    """Refuse the ps.json options that this port does not cover yet."""
-    if config.persistent_db.type != DatabaseType.DISABLED:
-        raise NotImplementedError(
-            "persistent_db (the SSD tier) is ROADMAP queue A item 3")
-    if config.update_source.type != UpdateSourceType.NONE:
-        raise NotImplementedError(
-            "update_source (the online update path) is ROADMAP queue A item 3")
+    """Refuse the ps.json options that this port does not cover yet (the
+    volatile_db ``redis_cluster`` store raises in ``make_dram_tier``)."""
     for p in config.models.values():
-        if p.embedding_cache_type != EmbeddingCacheType.STATIC:
-            raise NotImplementedError(
-                f"model {p.model_name!r}: embedding_cache_type "
-                f"{p.embedding_cache_type.value!r}: the dynamic, stochastic and "
-                "UVM caches are ROADMAP queue A item 3 (use \"static\")")
         if p.shard_tables:
             raise NotImplementedError(
                 f"model {p.model_name!r}: shard_tables is ROADMAP queue A "
@@ -93,10 +98,28 @@ class HierParameterServer:
         # cache (default_device raises here when there is no card).
         self.on_cpu = default_device(device).type == "cpu"
         self.dram: KVTier = make_dram_tier(config.volatile_db)
+        self.ssd: Optional[KVTier] = None
+        if config.persistent_db.type == DatabaseType.ROCKS_DB:
+            self.ssd = SsdKVTier(config.persistent_db)
+        # Async tier promotion: SSD-hit write-backs into DRAM and explicit
+        # prefetches run off the request thread.
+        self._prefetch_pool = ThreadPoolExecutor(
+            max_workers=2, thread_name_prefix="hps-prefetch")
         # caches[model_name][device_id] -> EmbeddingCache
         self._caches: dict[str, dict[int, EmbeddingCache]] = {}
+        # Authoritative row count per table (from the last sparse-file
+        # load): a dynamic cache's capacity is gpucacheper x THIS, not x the
+        # rows tier-resident at build time.
+        self._table_rows: dict[str, int] = {}
         self._model_versions: dict[str, int] = {}
         self._lock = threading.Lock()
+        # Streaming update ingestion (reference Kafka consumer,
+        # README.md:213-218); started last, once the tiers exist.
+        self.update_consumer: Optional[UpdateConsumer] = None
+        if config.update_source.type != UpdateSourceType.NONE:
+            self.update_consumer = UpdateConsumer(
+                make_update_source(config.update_source),
+                self._apply_update_by_tag, config.update_source).start()
 
     # ------------------------------------------------------------------ create
 
@@ -114,12 +137,16 @@ class HierParameterServer:
                 if params.init_ec:
                     ps.create_embedding_cache_per_model(params.model_name)
         else:
-            # Resume path: skip the sparse-file load; caches warm from the
-            # (empty) tiers.
+            # Resume path: skip the sparse-file load and reconnect to the
+            # persistent tier (the SSD store is durable across restarts);
+            # caches warm from the tiers.
             for params in config.models.values():
                 for t in range(params.num_tables):
                     tag = table_tag(params.model_name, params.table_name(t))
-                    ps.dram.create_table(tag, params.embedding_vecsize_per_table[t])
+                    dim = params.embedding_vecsize_per_table[t]
+                    ps.dram.create_table(tag, dim)
+                    if ps.ssd is not None:
+                        ps.ssd.create_table(tag, dim)
                 if params.init_ec:
                     ps.create_embedding_cache_per_model(params.model_name)
         return ps
@@ -133,24 +160,49 @@ class HierParameterServer:
         return self.config.model_params(model_name)
 
     def update_database_per_model(self, params: InferenceParams) -> None:
-        """Load (or re-load) a model's sparse files into the DRAM tier."""
+        """Load (or re-load) a model's sparse files into the DRAM and SSD
+        tiers (reference model_state.cpp:132,389)."""
         self.config.models[params.model_name] = params
         init_rate = self.config.volatile_db.initial_cache_rate
+        # UVM: the FULL table is pinned in host DRAM whatever
+        # initial_cache_rate says (misses never fall to the SSD).
+        if params.embedding_cache_type == EmbeddingCacheType.UVM:
+            init_rate = 1.0
         for t, path in enumerate(params.sparse_files):
             tag = table_tag(params.model_name, params.table_name(t))
             dim = params.embedding_vecsize_per_table[t]
             tbl = read_sparse_model(path, embedding_dim=dim)
+            self._table_rows[tag] = int(tbl.num_rows)
             self.dram.create_table(tag, dim)
             # Version re-load: evict tier keys the NEW version dropped.
             stale = np.setdiff1d(self._tier_keys(tag), tbl.keys, assume_unique=False)
             if stale.size:
                 self.dram.evict(tag, stale)
+                if self.ssd is not None:
+                    self.ssd.evict(tag, stale)
                 log.info("evicted %d stale rows from %s on re-load", stale.size, tag)
             n_dram = int(tbl.num_rows * min(max(init_rate, 0.0), 1.0))
+            # Version re-load: DRAM rows promoted while the OLD version
+            # served (cache_missed_embeddings write-backs) may lie outside
+            # the insert window below; overwrite them with the NEW version.
+            resident = self.dram.keys(tag)
+            if resident.size:
+                retained = np.intersect1d(resident, tbl.keys)
+                extra = np.setdiff1d(retained, tbl.keys[:n_dram])
+                if extra.size:
+                    order = np.argsort(tbl.keys, kind="stable")
+                    idx = order[np.searchsorted(tbl.keys[order], extra)]
+                    self.dram.insert(tag, extra, tbl.vectors[idx])
+                    log.info("refreshed %d promoted DRAM rows of %s to the new "
+                             "version", extra.size, tag)
             if n_dram > 0:
                 self.dram.insert(tag, tbl.keys[:n_dram], tbl.vectors[:n_dram])
-            log.info("loaded table %s: %d rows x %d dim (%d rows -> DRAM)",
-                     tag, tbl.num_rows, dim, n_dram)
+            if self.ssd is not None:
+                self.ssd.create_table(tag, dim)
+                self.ssd.insert(tag, tbl.keys, tbl.vectors)
+            log.info("loaded table %s: %d rows x %d dim (%d rows -> DRAM%s)",
+                     tag, tbl.num_rows, dim, n_dram,
+                     ", all -> SSD" if self.ssd is not None else "")
 
     def create_embedding_cache_per_model(self, model_name: str) -> None:
         """Allocate the per-device caches and warm ``gpucacheper`` of each
@@ -180,18 +232,24 @@ class HierParameterServer:
             return "fp8"
         return {4: "int4", 8: "int8", 16: "bf16", 32: "fp32"}.get(params.quant_bits, "int8")
 
+    #: Key base of a dynamic cache's capacity-reserve sentinels: far outside
+    #: any trainer's id space (the SlotMap's empty key is INT64_MIN).
+    _RESERVE_KEY_BASE = np.iinfo(np.int64).min + 16
+
     def _prep_model_tables(self, params: InferenceParams):
         """Device-independent host prep for one model's tables: the tier
-        fetch of the resident rows (static cache: the first ``gpucacheper``
-        of the sorted keys)."""
+        fetch of the resident rows (the first ``gpucacheper`` of the sorted
+        keys) and a dynamic cache's capacity reserve."""
 
         def prep_table(t: int):
             tag = table_tag(params.model_name, params.table_name(t))
             all_keys = self._tier_keys(tag)
             frac = params.cache_size_percentage if params.use_gpu_embedding_cache else 1.0
             frac = min(max(frac, 0.0), 1.0)
-            n_resident = (all_keys.shape[0] if frac >= 1.0
-                          else int(np.ceil(all_keys.shape[0] * frac)))
+            if params.embedding_cache_type == EmbeddingCacheType.STATIC and frac >= 1.0:
+                n_resident = all_keys.shape[0]
+            else:
+                n_resident = int(np.ceil(all_keys.shape[0] * frac))
             resident_keys = all_keys[:n_resident]
             dim = params.embedding_vecsize_per_table[t]
             if n_resident > 0:
@@ -201,6 +259,21 @@ class HierParameterServer:
                     vecs = vecs[found]
             else:
                 vecs = np.zeros((0, dim), np.float32)
+            if (params.embedding_cache_type != EmbeddingCacheType.STATIC
+                    and params.use_gpu_embedding_cache):
+                # Dynamic / stochastic / UVM capacity: gpucacheper x TABLE
+                # rows. Capacity the tiers cannot fill yet is reserved with
+                # sentinel-keyed default rows: sorted first, they sit at the
+                # slot map's LRU cold end and are evicted before any real key.
+                total_rows = max(self._table_rows.get(tag, 0), all_keys.shape[0])
+                cap = max(int(np.ceil(total_rows * frac)), resident_keys.shape[0], 1)
+                pad = cap - resident_keys.shape[0]
+                if pad > 0:
+                    sentinels = self._RESERVE_KEY_BASE + np.arange(pad, dtype=np.int64)
+                    resident_keys = np.concatenate([resident_keys, sentinels])
+                    vecs = np.concatenate([
+                        vecs, np.full((pad, dim), params.default_value_for_table(t),
+                                      np.float32)])
             return resident_keys, vecs
 
         with ThreadPoolExecutor(
@@ -237,18 +310,59 @@ class HierParameterServer:
                 tables[t] = v
         tier_query = lambda ti, keys, m=params.model_name, p=params: self._query_tiers(  # noqa: E731
             table_tag(m, p.table_name(ti)), keys)
-        return EmbeddingCache(params, tables, device=device, tier_query=tier_query)
+        cls = {EmbeddingCacheType.STATIC: EmbeddingCache,
+               EmbeddingCacheType.UVM: UvmEmbeddingCache}.get(
+                   params.embedding_cache_type, DynamicEmbeddingCache)
+        return cls(params, tables, device=device, tier_query=tier_query)
 
     def _tier_keys(self, tag: str) -> np.ndarray:
         keys = self.dram.keys(tag) if tag in self.dram.tables() else np.empty(0, np.int64)
+        if self.ssd is not None and tag in self.ssd.tables():
+            keys = np.union1d(keys, self.ssd.keys(tag))
         return np.sort(keys)
 
     def _query_tiers(self, tag: str, keys: np.ndarray):
+        """Cascade DRAM -> SSD (reference VDB -> PDB fallback,
+        docs/hierarchical_parameter_server.md:40-43)."""
         vecs, found = self.dram.query(tag, keys)
         n_hit = int(found.sum())
         metrics.TIER_HIT.inc(n_hit, tier="dram")
         metrics.TIER_MISS.inc(keys.shape[0] - n_hit, tier="dram")
+        if self.ssd is not None and not found.all():
+            missing = np.flatnonzero(~found)
+            v2, f2 = self.ssd.query(tag, keys[missing])
+            n_ssd_hit = int(f2.sum())
+            metrics.TIER_HIT.inc(n_ssd_hit, tier="ssd")
+            metrics.TIER_MISS.inc(missing.size - n_ssd_hit, tier="ssd")
+            hit2 = missing[f2]
+            vecs[hit2] = v2[f2]
+            found[hit2] = True
+            if self.config.volatile_db.cache_missed_embeddings and hit2.size:
+                # Write SSD hits back into DRAM (doc:488-512), off the
+                # request thread: the requester already has its rows.
+                self._prefetch_pool.submit(
+                    self.dram.insert, tag, keys[hit2].copy(), vecs[hit2].copy())
         return vecs, found
+
+    def prefetch(self, model_name: str, table_idx: int, keys: np.ndarray) -> None:
+        """Asynchronously promote ``keys`` from the SSD tier into DRAM (warm
+        the DRAM tier ahead of expected traffic, off the request path)."""
+        if self.ssd is None:
+            return
+        params = self.get_model_params(model_name)
+        tag = table_tag(model_name, params.table_name(table_idx))
+        keys = np.asarray(keys, np.int64).copy()
+
+        def _promote():
+            _, have = self.dram.query(tag, keys)
+            want = keys[~have]
+            if want.size == 0:
+                return
+            vecs, found = self.ssd.query(tag, want)
+            if found.any():
+                self.dram.insert(tag, want[found], vecs[found])
+
+        self._prefetch_pool.submit(_promote)
 
     def get_embedding_cache(self, model_name: str, device_id: int) -> EmbeddingCache:
         try:
@@ -286,8 +400,39 @@ class HierParameterServer:
         with self._lock:
             self._model_versions[model_name] = version
 
+    # ------------------------------------------------------------- update path
+
+    def _apply_update_by_tag(self, tag: str, keys: np.ndarray, vectors: np.ndarray):
+        """Route one streamed update batch into the tiers whose
+        ``update_filters`` regexes match the table tag."""
+        if any(re.match(f, tag) for f in self.config.volatile_db.update_filters):
+            if tag not in self.dram.tables():
+                self.dram.create_table(tag, int(np.asarray(vectors).shape[-1]))
+            self.dram.insert(tag, keys, vectors)
+        if self.ssd is not None and any(
+                re.match(f, tag) for f in self.config.persistent_db.update_filters):
+            self.ssd.insert(tag, keys, vectors)
+
+    def apply_updates(self, model_name: str, table_idx: int,
+                      keys: np.ndarray, vectors: np.ndarray) -> None:
+        """Write parameter updates into the DRAM and SSD tiers (the
+        reference's Kafka-consumer write path, README.md:213-218). The device
+        caches pick the new values up on their next refresh."""
+        params = self.get_model_params(model_name)
+        tag = table_tag(model_name, params.table_name(table_idx))
+        self.dram.insert(tag, keys, vectors)
+        if self.ssd is not None:
+            self.ssd.insert(tag, keys, vectors)
+
     def shutdown(self) -> None:
-        """Stop every cache's worker threads (the caches stay usable)."""
+        """Stop the update consumer, the prefetch pool, the SSD tier's
+        compactor and every cache's worker threads (the tiers and caches stay
+        usable for lookups)."""
+        if self.update_consumer is not None:
+            self.update_consumer.stop()
+        self._prefetch_pool.shutdown(wait=False)
+        if self.ssd is not None:
+            self.ssd.close()
         with self._lock:
             caches = [c for per in self._caches.values() for c in per.values()]
         for cache in caches:

@@ -259,7 +259,5 @@ def make_dram_tier(params: Optional[VolatileDatabaseParams] = None) -> KVTier:
     if params is not None and params.type == DatabaseType.REDIS_CLUSTER:
         raise NotImplementedError(
             "volatile_db type redis_cluster needs the cluster tier "
-            "(ROADMAP queue A item 3, dynamic/UVM caches and the SSD, "
-            "cluster and shm tiers)"
-        )
+            "(tiers/cluster.py, ROADMAP queue A item 3)")
     return NativeDramKVTier(params)

@@ -57,6 +57,15 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.serving.kserve_pb",
     "hugectr_backend_tpu_torch.serving.grpc_server",
     "hugectr_backend_tpu_torch.serving.server",
+    "hugectr_backend_tpu_torch.cache.slotmap",
+    "hugectr_backend_tpu_torch.tiers.ssd",
+    "hugectr_backend_tpu_torch.update",
+    "hugectr_backend_tpu_torch.update.compression",
+    "hugectr_backend_tpu_torch.update.record_batch",
+    "hugectr_backend_tpu_torch.update.source",
+    "hugectr_backend_tpu_torch.update.kafka_lite",
+    "hugectr_backend_tpu_torch.update.mini_broker",
+    "hugectr_backend_tpu_torch.scripts.tier_query_ab",
     "chip_smoke",
 ]
 
@@ -137,9 +146,13 @@ def test_parameter_server_needs_a_card_unless_asked_for_cpu(tmp_path):
     ("embedding_cache_type", "dynamic"),
     ("shard_tables", True),
     ("embedding_cache_type", "uvm"),
+    ("embedding_cache_type", "stochastic"),
+    ("volatile_db", {"type": "redis_cluster"}),
 ])
 def test_uncovered_options_raise(tmp_path, option, value):
-    from hugectr_backend_tpu_torch import HierParameterServer
+    """Options the port does not cover yet raise, naming their ROADMAP item;
+    the dynamic, stochastic and UVM caches are covered: they serve."""
+    from hugectr_backend_tpu_torch import HierParameterServer, LookupSession
     from hugectr_backend_tpu_torch.io.sparse_model import write_sparse_model
 
     write_sparse_model(tmp_path / "t0", [1, 2], [[1.0], [2.0]])
@@ -147,9 +160,26 @@ def test_uncovered_options_raise(tmp_path, option, value):
              "embedding_vecsize_per_table": [1],
              "maxnum_catfeature_query_per_table_per_sample": [1],
              "embedding_cache_type": "static", "deployed_device_list": [0, 1],
-             "gpucacheper": 1.0, option: value}
+             "gpucacheper": 1.0}
+    cfg = {"models": [model]}
+    if option == "volatile_db":
+        cfg[option] = value
+    else:
+        model[option] = value
+    if option == "embedding_cache_type":
+        ps = HierParameterServer.create(cfg, device="cpu")
+        try:
+            cache = ps.get_embedding_cache("m", 1)
+            assert type(cache).__name__ == {"uvm": "UvmEmbeddingCache"}.get(
+                value, "DynamicEmbeddingCache")
+            out = LookupSession.create(ps.get_model_params("m"), cache).lookup_numpy(
+                [np.array([2, 7], np.int64)])[0]
+            np.testing.assert_array_equal(out, [[2.0], [0.0]])
+        finally:
+            ps.shutdown()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HierParameterServer.create({"models": [model]}, device="cpu")
+        HierParameterServer.create(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("alone", [False, True])

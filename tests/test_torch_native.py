@@ -173,6 +173,30 @@ def test_native_dram_tier_matches_jax(policy):
     assert got[10] < 700  # the overflow policy evicted rows
 
 
+@pytest.mark.parametrize("n", [1, 100_000])
+def test_native_dram_tier_small_and_large_calls_match_jax(n):
+    """A call below the store's serial threshold (16,384 keys) runs its
+    partitions on the calling thread, a larger one on threads; both give the
+    JAX package's answers, evictions past the overflow margin included."""
+    def seq(tier):
+        rng = np.random.default_rng(n)
+        keys = rng.choice(1 << 50, size=n, replace=False).astype(np.int64)
+        vecs = rng.standard_normal((n, 16)).astype(np.float32)
+        tier.insert("t", keys, vecs)
+        tier.insert("t", keys[: max(n // 3, 1)], vecs[: max(n // 3, 1)] * 2)
+        q = np.concatenate([keys, -keys[:10] - 1])
+        said = [tier.query("t", q), tier.size("t")]
+        said.append(tier.evict("t", keys[n // 2 : n // 2 + max(n // 10, 1)]))
+        said += [tier.query("t", keys[:1]), tier.size("t"), np.sort(tier.keys("t"))]
+        return said
+
+    over = {"num_partitions": 8, "overflow_margin": max(n * 3 // 4, 1)}
+    got = seq(make_dram_tier(_params(VolatileDatabaseParams,
+                                     DatabaseOverflowPolicy.EVICT_OLDEST, **over)))
+    want = seq(JaxNativeTier(_params(JParams, JPolicy.EVICT_OLDEST, **over)))
+    _same(got, want)
+
+
 def test_native_dram_tier_matches_the_numpy_store_below_the_margin():
     """The numpy store is the native store's plain version: the same
     answers wherever no eviction policy picks victims."""
