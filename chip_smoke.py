@@ -105,6 +105,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    applied them and after ``refresh(1.0)``, each updated key serves its new
    row (its dequant where resident, the f32 row from the tiers where not),
    every other key its old row, and the CPU instance agrees bit for bit.
+5d. The model zoo (the "zoo" phase, ``zoo_phase``), each output held
+   against a CPU instance of the port (its own parameter server on the
+   CPU) on the same weights (Flax's initialisation from a seeded
+   generator) and keys: logits rel < 1e-3, retrieval scores rel < 1e-3 and
+   the retrieved keys equal at every position more than that from its
+   neighbours. K1 must launch exactly once per multi-table predict, twice
+   per DIN / BST predict and once per retrieve, no other kernel, and no
+   plain version of K1 may see a CUDA tensor. (1) DCN-v2 (BASELINE config
+   3) at the JAX defaults (3 cross layers of rank 64, deep 1024-512-256,
+   head 128-1; width 3,341) through ``make_dcn_server`` on phase 3's
+   deployment, batch 4096. (2) Two 1,000,000 x 128 int8 tables of random
+   rows from one sparse file (both "solo"), the DIN leg of the JAX
+   package's bench (BASELINE config 4): ``FusedDinServer`` with DIN
+   (200-80-1, attention 64) and BST (4 heads, 1 layer, head 256-64-1) at
+   batch 1024, S 64, Zipf(1.05) keys, seq_len uniform in [1, 64]; and
+   ``RetrievalServer`` with ``TwoTowerUser`` (256-128) over the 1,000,000
+   items, k 100, batch 1024. Parts 1 and 2 print the wall (median of 10
+   after 2 warm-ups), the device time (profiler) and the idle share. (3)
+   WDL, DeepFM, a small DCN-v2, xDeepFM, NCF and MMoE on the deployment and
+   at the widths of the JAX package's examples/07_model_zoo.py, at batch 8
+   and 4096.
 6. Each kernel timed at the shapes the main path gave it, beside its plain
    version, one PyTorch call for the same product where there is one, and
    its bound: the larger of bytes over the memory rate and operations over
@@ -235,6 +256,18 @@ DYN_FLAVOUR_BATCHES = 6  # step 3, stochastic and UVM each
 DYN_UPDATE_TABLES = 4  # step 5: tables that get new rows
 DYN_UPDATE_KEYS = 4096  # step 5: keys a table
 DYN_DEADLINE_S = 60.0  # the wait for the drainer and for the update consumer
+# The model zoo (the "zoo" phase): DIN / BST / two-tower at the shapes of the
+# JAX package's DIN leg (bench.py:875-905, BASELINE config 4), and the
+# small families at the widths of its examples/07_model_zoo.py.
+ZOO_ROWS = 1_000_000  # each of the two DIN tables (target / user, sequence / items)
+ZOO_BATCH = 1024
+ZOO_SEQ = 64
+ZOO_ZIPF = 1.05
+ZOO_K = 100
+ZOO_REF = 256  # samples the CPU instance scores (a sample's logit is its own)
+ZOO_REF_RETRIEVE = 64  # users the CPU instance retrieves for
+ZOO_REL = 1e-3  # logits and retrieval scores vs the CPU instance
+ZOO_SMALL_BATCHES = (8, 4096)
 
 # Dense peaks (NVIDIA data sheets, without sparsity): memory bytes/s, bf16
 # tensor FLOP/s, int8 tensor OP/s, f32 FLOP/s outside the tensor cores.
@@ -2363,6 +2396,358 @@ def dynamic_tiers(dev, root, tables, batch: int = BATCH, emit_line=emit) -> dict
     return summary
 
 
+# ------------------------------------------------------------------- zoo
+
+
+class NoFallback:
+    """Inside: a plain version of K1 given a CUDA tensor raises (on the card
+    every lookup must run the kernel; CPU instances still use them)."""
+
+    def __enter__(self):
+        import hugectr_backend_tpu_torch.ops.dequant_gather as dg
+
+        self._dg = dg
+        self._orig = {n: getattr(dg, n) for n in ("gather_dequant_ref",
+                                                   "gather_dequant_groups_ref")}
+        for name, fn in self._orig.items():
+            def guard(*args, _fn=fn, _name=name, **kw):
+                flat = [t for a in args for t in (a if isinstance(a, (list, tuple)) else [a])]
+                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in flat):
+                    raise AssertionError(f"{_name} was given a CUDA tensor")
+                return _fn(*args, **kw)
+
+            setattr(dg, name, guard)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self._dg, name, fn)
+
+
+def zoo_launches(call, n: int, k1_each: int, dev, what: str) -> int:
+    """Run ``call`` n times with the launch counts at 0 just before; the
+    only kernel launched must be K1, ``k1_each`` times a call on the card
+    (none on the CPU). -> K1 launches."""
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    kernels.launches.clear()
+    with NoFallback():
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    want = {"gather_dequant": k1_each * n} if dev.type == "cuda" else {}
+    if got != want:
+        raise AssertionError(f"zoo {what}: launches {got} in {n} calls, expected {want}")
+    return got.get("gather_dequant", 0)
+
+
+def zoo_timing(call, n: int = 10, warmup: int = 2) -> dict:
+    """Wall time of ``call`` + synchronize (host clock; median of n after
+    ``warmup``), the device's kernel time per call (profiler) and the idle
+    share."""
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    busy, top = device_profile(lambda: [call() for _ in range(3)], 3)
+    ts.sort()
+    med = ts[len(ts) // 2]
+    return {"wall_ms_median": med, "wall_ms_min": ts[0], "wall_ms_max": ts[-1], "runs": n,
+            "device_kernel_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / med,
+            "top_device_kernels_ms": top}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| over two tensors (got on any device)."""
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"output {tuple(got.shape)} (finite: "
+                             f"{bool(torch.isfinite(got).all())}) vs {tuple(want.shape)}")
+    return float((got - want).abs().max() / (want.abs().max() + 1e-9))
+
+
+def check_rel(what: str, rel: float) -> float:
+    if not rel < ZOO_REL:
+        raise AssertionError(f"zoo {what}: rel {rel} vs the CPU instance (bar {ZOO_REL})")
+    return rel
+
+
+def model_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def zoo_pair(model_fn, seed: int):
+    """(the card's model, the CPU instance's), one set of weights: Flax's
+    initialisation from a seeded generator."""
+    import copy
+
+    model = model_fn().init_flax_(torch.Generator().manual_seed(seed))
+    return model, copy.deepcopy(model)
+
+
+def retrieval_check(keys, scores, ref_keys, ref_scores) -> tuple:
+    """The card's top-k against the CPU instance's top-(k+1) on the same
+    users: scores rel < ZOO_REL, and the keys equal at every position whose
+    score is more than ZOO_REL * max|score| from both neighbours (the k+1-th
+    included). -> (rel, positions compared, positions)."""
+    k = keys.shape[1]
+    rel = check_rel("retrieval scores", rel_err(torch.from_numpy(scores),
+                                                torch.from_numpy(ref_scores[:, :k])))
+    gap = ZOO_REL * float(np.abs(ref_scores).max())
+    d = np.abs(np.diff(ref_scores, axis=1)) > gap  # [n, k]: position j vs j + 1
+    sep = d[:, :k].copy()
+    sep[:, 1:] &= d[:, : k - 1]
+    bad = sep & (keys != ref_keys[:, :k])
+    if bad.any():
+        raise AssertionError(f"zoo retrieval: {int(bad.sum())} separated positions hold "
+                             "other keys than the CPU instance's")
+    return rel, int(sep.sum()), int(sep.size)
+
+
+def din_deployment(root: str, seed: int):
+    """Two ZOO_ROWS x DIM int8 tables (target / user, sequence / items) from
+    one sparse file of random rows; each is "solo" (host-gathered scales)."""
+    from hugectr_backend_tpu_torch.io.sparse_model import write_sparse_model
+    from hugectr_backend_tpu_torch.io.synthetic import make_synthetic_table
+
+    tbl = make_synthetic_table(ZOO_ROWS, DIM, seed=seed, deterministic_fn=False)
+    path = os.path.join(root, "din_items")
+    write_sparse_model(path, tbl.keys, tbl.vectors)
+    cfg = {"models": [{
+        "model": "din",
+        "sparse_files": [path, path],
+        "embedding_vecsize_per_table": [DIM, DIM],
+        "maxnum_catfeature_query_per_table_per_sample": [1, ZOO_SEQ],
+        "gpucacheper": 1.0,
+        "embedding_cache_type": "static",
+        "quant_bits": 8,
+        "deployed_device_list": [0],
+    }]}
+    return tbl, cfg
+
+
+def din_traffic(tbl, batch: int, seed: int):
+    """One batch of the DIN leg: Zipf(ZOO_ZIPF) rows for the targets and the
+    [B, ZOO_SEQ] sequences, seq_len uniform in [1, ZOO_SEQ], dense [B, 13]."""
+    rng = np.random.default_rng(seed)
+    n = tbl.keys.shape[0]
+    return (tbl.keys[rng.zipf(ZOO_ZIPF, batch) % n],
+            tbl.keys[rng.zipf(ZOO_ZIPF, (batch, ZOO_SEQ)) % n],
+            rng.integers(1, ZOO_SEQ + 1, batch).astype(np.int32),
+            rng.standard_normal((batch, NUM_DENSE)).astype(np.float32))
+
+
+def zoo_example_deployment(root: str):
+    """The deployment of the JAX package's examples/07_model_zoo.py: a wide
+    table 5,000 x 1 and tables 20,000 x 16 and 30,000 x 16, as the models
+    "pair" (wide + a, 4 keys each), "stack" (a + b, 2 and 3 keys) and
+    "two_tower" (a + b, one key each)."""
+    from hugectr_backend_tpu_torch.io.sparse_model import write_sparse_model
+    from hugectr_backend_tpu_torch.io.synthetic import make_synthetic_table
+
+    tbls = {}
+    for i, (name, rows, dim) in enumerate((("wide", 5_000, 1), ("a", 20_000, 16),
+                                           ("b", 30_000, 16))):
+        tbls[name] = make_synthetic_table(rows, dim, seed=1 + i)
+        write_sparse_model(os.path.join(root, name), tbls[name].keys, tbls[name].vectors)
+
+    def model(name, files, dims, kps):
+        return {"model": name, "sparse_files": [os.path.join(root, f) for f in files],
+                "embedding_vecsize_per_table": dims,
+                "maxnum_catfeature_query_per_table_per_sample": kps,
+                "gpucacheper": 1.0, "embedding_cache_type": "static",
+                "deployed_device_list": [0]}
+
+    cfg = {"models": [model("pair", ["wide", "a"], [1, 16], [4, 4]),
+                      model("stack", ["a", "b"], [16, 16], [2, 3]),
+                      model("two_tower", ["a", "b"], [16, 16], [1, 1])]}
+    return tbls, cfg
+
+
+def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
+    """The model zoo on the card, each output against a CPU instance of the
+    port (its own parameter server, ``device="cpu"``) on the same weights
+    and keys; K1 launched exactly once per multi-table predict, twice per
+    DIN / BST predict, once per retrieve, and nothing else launched.
+
+    1. DCN-v2 (BASELINE config 3, on one card) at the JAX defaults over
+       ``ps``, the deployment of ``cfg`` (the 26 Criteo tables), on
+       ``batches``.
+    2. DIN, BST and two-tower retrieval (BASELINE config 4) on two
+       ZOO_ROWS x DIM int8 tables, batch ZOO_BATCH, S ZOO_SEQ, k ZOO_K.
+    3. WDL, DeepFM, xDeepFM, NCF, MMoE and a small DCN-v2 on the deployment
+       and at the widths of examples/07_model_zoo.py, at ZOO_SMALL_BATCHES.
+
+    Parts 1 and 2 print the wall, device time and idle share. -> {"launches":
+    {"gather_dequant": n}, "lines": [...]}."""
+    from hugectr_backend_tpu_torch import HierParameterServer
+    from hugectr_backend_tpu_torch.models import (
+        BST,
+        DIN,
+        MMoE,
+        NCF,
+        DCNv2,
+        DeepFM,
+        TwoTowerUser,
+        WideAndDeep,
+        XDeepFM,
+    )
+    from hugectr_backend_tpu_torch.serving import program
+    from hugectr_backend_tpu_torch.serving.pooled import FusedDinServer
+    from hugectr_backend_tpu_torch.serving.retrieval import RetrievalServer
+
+    cpu = torch.device("cpu")
+    k1 = 0
+    lines = []
+
+    def out(line):
+        lines.append(line)
+        emit_line(line)
+
+    def deploy(cfg_):
+        return (HierParameterServer.create(cfg_, device=dev),
+                HierParameterServer.create(cfg_, device=cpu))
+
+    # Part 1: DCN-v2 over the 26 Criteo tables.
+    t0 = time.perf_counter()
+    ps_cpu = HierParameterServer.create(cfg, device=cpu)
+    try:
+        name = cfg["models"][0]["model"]
+        n_tables = len(cfg["models"][0]["sparse_files"])
+        card_m, cpu_m = zoo_pair(lambda: DCNv2(NUM_DENSE, n_tables, DIM), SEED + 20)
+        srv = program.make_dcn_server(ps.get_model_params(name), ps.get_embedding_cache(name, 0),
+                                      card_m)
+        ref_srv = program.make_dcn_server(ps_cpu.get_model_params(name),
+                                          ps_cpu.get_embedding_cache(name, 0), cpu_m)
+        k1 += zoo_launches(lambda: srv.predict(*batches[0]), len(batches), 1, dev, "dcn")
+        keys, dense = batches[0]
+        got = srv.predict(keys, dense)
+        rel = check_rel("dcn", rel_err(got[:ZOO_REF], ref_srv.predict(
+            [k[:ZOO_REF] for k in keys], dense[:ZOO_REF])))
+        out({"zoo": "dcn_v2", "deployment": f"{n_tables} Criteo tables x {DIM} int8",
+             "bytes_on_card": ps.get_embedding_cache(name, 0).nbytes(),
+             "model_bytes": model_bytes(card_m),
+             "batch": int(dense.shape[0]), "width": NUM_DENSE + n_tables * DIM,
+             "rel_vs_cpu": rel, "k1_per_predict": 1 if dev.type == "cuda" else 0,
+             **zoo_timing(lambda: srv.predict(*batches[1]))})
+        del srv, ref_srv, card_m, cpu_m
+    finally:
+        ps_cpu.shutdown()
+    print(f"zoo part 1 (DCN-v2): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Part 2: DIN, BST and two-tower retrieval on two 1,000,000-row tables.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_zoo_") as root:
+        tbl, din_cfg = din_deployment(root, SEED + 21)
+        ps, ps_cpu = deploy(din_cfg)
+        try:
+            cache = ps.get_embedding_cache("din", 0)
+            kinds = [g[1] for g in cache._groups]
+            out({"zoo": "din_deploy", "rows": 2 * ZOO_ROWS, "dim": DIM, "kinds": kinds,
+                 "bytes_on_card": cache.nbytes(), "seconds": time.perf_counter() - t0})
+            params, params_cpu = ps.get_model_params("din"), ps_cpu.get_model_params("din")
+            cache_cpu = ps_cpu.get_embedding_cache("din", 0)
+            traffic = [din_traffic(tbl, ZOO_BATCH, SEED + 22 + i) for i in range(2)]
+            ref = [x[:ZOO_REF] for x in traffic[0]]
+            for fam, make in (
+                    ("din", lambda: DIN(NUM_DENSE, DIM, (200, 80, 1), att_hidden=64)),
+                    ("bst", lambda: BST(NUM_DENSE, DIM, ZOO_SEQ, num_heads=4, num_layers=1,
+                                        head_widths=(256, 64, 1)))):
+                card_m, cpu_m = zoo_pair(make, SEED + 23)
+                srv = FusedDinServer(params, cache, card_m)
+                k1 += zoo_launches(lambda: srv.predict(*traffic[0]), 2, 2, dev, fam)
+                rel = check_rel(fam, rel_err(srv.predict(*traffic[0])[:ZOO_REF],
+                                             FusedDinServer(params_cpu, cache_cpu,
+                                                            cpu_m).predict(*ref)))
+                out({"zoo": fam, "batch": ZOO_BATCH, "seq": ZOO_SEQ, "rel_vs_cpu": rel,
+                     "model_bytes": model_bytes(card_m),
+                     "k1_per_predict": 2 if dev.type == "cuda" else 0,
+                     **zoo_timing(lambda: srv.predict(*traffic[1]))})
+                del srv, card_m, cpu_m
+            card_m, cpu_m = zoo_pair(lambda: TwoTowerUser(NUM_DENSE, 1, DIM, (256, DIM)),
+                                     SEED + 24)
+            srv = RetrievalServer(params, cache, card_m, k=ZOO_K)
+            tkeys, _, _, dense = traffic[0]
+            k1 += zoo_launches(lambda: srv.retrieve(tkeys, dense), 2, 1, dev, "retrieval")
+            keys, scores = srv.retrieve(tkeys, dense)
+            ref_keys, ref_scores = RetrievalServer(params_cpu, cache_cpu, cpu_m,
+                                                   k=ZOO_K).retrieve(
+                tkeys[:ZOO_REF_RETRIEVE], dense[:ZOO_REF_RETRIEVE], k=ZOO_K + 1)
+            rel, compared, positions = retrieval_check(
+                keys[:ZOO_REF_RETRIEVE], scores[:ZOO_REF_RETRIEVE], ref_keys, ref_scores)
+            ut, _, _, udense = traffic[1]
+            out({"zoo": "retrieval", "batch": ZOO_BATCH, "corpus": ZOO_ROWS, "k": ZOO_K,
+                 "score_matrix_bytes": ZOO_BATCH * ZOO_ROWS * 4,
+                 "corpus_f32_bytes": ZOO_ROWS * DIM * 4, "model_bytes": model_bytes(card_m),
+                 "rel_vs_cpu": rel,
+                 "keys_compared": compared, "positions": positions,
+                 "k1_per_retrieve": 1 if dev.type == "cuda" else 0,
+                 **zoo_timing(lambda: srv.retrieve(ut, udense))})
+            del srv, card_m, cpu_m
+        finally:
+            ps.shutdown()
+            ps_cpu.shutdown()
+    torch.cuda.empty_cache()
+    print(f"zoo part 2 (DIN, BST, retrieval): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Part 3: the small families of examples/07_model_zoo.py.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_zoo_") as root:
+        tbls, ex_cfg = zoo_example_deployment(root)
+        ps, ps_cpu = deploy(ex_cfg)
+        try:
+            families = (
+                ("wdl", "pair", program.make_wdl_server,
+                 lambda: WideAndDeep(NUM_DENSE, 4, 16, (64, 1))),
+                ("deepfm", "pair", program.make_deepfm_server,
+                 lambda: DeepFM(NUM_DENSE, 4, 16, (64, 1))),
+                ("dcn_v2_small", "stack", program.make_dcn_server,
+                 lambda: DCNv2(NUM_DENSE, 5, 16, num_cross_layers=2, cross_rank=16,
+                               deep_widths=(64,), head_widths=(32, 1))),
+                ("xdeepfm", "stack", program.make_xdeepfm_server,
+                 lambda: XDeepFM(NUM_DENSE, 5, 16, (16, 8), (64, 1))),
+                ("ncf", "two_tower", program.make_ncf_server, lambda: NCF(0, 16, (64, 32))),
+                ("mmoe", "stack", program.make_mmoe_server, lambda: MMoE(NUM_DENSE, 5, 16)),
+            )
+            rng = np.random.default_rng(SEED + 25)
+            for i, (fam, model_name, make_server, make) in enumerate(families):
+                card_m, cpu_m = zoo_pair(make, SEED + 26 + i)
+                srv = make_server(ps.get_model_params(model_name),
+                                  ps.get_embedding_cache(model_name, 0), card_m)
+                ref_srv = make_server(ps_cpu.get_model_params(model_name),
+                                      ps_cpu.get_embedding_cache(model_name, 0), cpu_m)
+                files = [os.path.basename(f) for f in
+                         next(m for m in ex_cfg["models"]
+                              if m["model"] == model_name)["sparse_files"]]
+                kps = srv.keys_per_sample
+                for b in ZOO_SMALL_BATCHES:
+                    keys = [tbls[f].keys[rng.integers(0, tbls[f].num_rows, (b, k))]
+                            for f, k in zip(files, kps)]
+                    dense = rng.standard_normal((b, 0 if fam == "ncf" else NUM_DENSE)).astype(
+                        np.float32)
+                    k1 += zoo_launches(lambda: srv.predict(keys, dense), 1, 1, dev, fam)
+                    rel = check_rel(fam, rel_err(srv.predict(keys, dense),
+                                                 ref_srv.predict(keys, dense)))
+                    out({"zoo": fam, "model": model_name, "batch": b, "rel_vs_cpu": rel,
+                         "bytes_on_card": ps.get_embedding_cache(model_name, 0).nbytes(),
+                         "model_bytes": model_bytes(card_m),
+                         "k1_per_predict": 1 if dev.type == "cuda" else 0})
+                del srv, ref_srv, card_m, cpu_m
+        finally:
+            ps.shutdown()
+            ps_cpu.shutdown()
+    print(f"zoo part 3 (the example's six families): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"launches": {"gather_dequant": k1} if k1 else {}, "lines": lines}
+
+
 def run_counted(srv, batches):
     """The counted run of one model: N_BATCHES predicts with the fold, then
     N_BATCHES without, launch counts set to 0 just before and read just
@@ -2733,7 +3118,6 @@ def main() -> int:
     t0 = time.perf_counter()
     dyn = dynamic_tiers(dev, sparse_dir.name, tables,
                         emit_line=lambda line: emit({**line, "card": card, "nvidia_smi": smi}))
-    sparse_dir.cleanup()
     for name, n in dyn["launches"].items():
         launches[name] = launches.get(name, 0) + n
     sync = dyn["sync"]
@@ -2746,6 +3130,21 @@ def main() -> int:
           f"deployment's; {sum(dyn['update']['keys_per_table'])} updated keys visible "
           f"{dyn['update']['post_to_visible_ms']:.1f} ms after the post; launches "
           f"{dyn['launches']} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # Phase 5d: the model zoo (DCN-v2 on the same sparse files; DIN, BST and
+    # retrieval on two 1,000,000-row tables; the example's small families).
+    t0 = time.perf_counter()
+    zoo = zoo_phase(dev, ps, cfg, batches,
+                    emit_line=lambda line: emit({**line, "card": card, "nvidia_smi": smi}))
+    sparse_dir.cleanup()
+    for name, n in zoo["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    timed = {ln["zoo"]: ln for ln in zoo["lines"] if "wall_ms_median" in ln}
+    print("zoo: " + "; ".join(
+        f"{fam} wall {ln['wall_ms_median']:.3f} ms, device {ln['device_kernel_ms']} ms, idle "
+        f"{ln['device_idle_share']}" for fam, ln in timed.items())
+        + f"; every output within rel {ZOO_REL} of the CPU instance; K1 launches "
+        f"{zoo['launches']} ({time.perf_counter() - t0:.1f} s; {card} | {smi})", flush=True)
 
     # Phase 6: each kernel at its main-path shapes.
     results = {}

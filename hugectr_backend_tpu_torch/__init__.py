@@ -18,6 +18,11 @@ format both packages write. ``eval`` trains a DLRM with its embedding table
 backward are kernels) and gates quantized serving on AUC
 (``run_parity``, ``run_path_parity``).
 
+The model zoo (``models``: WDL, DCN-v2, DeepFM, xDeepFM, NCF, MMoE, DIN,
+BST, the two-tower user tower) serves through ``serving.program``'s
+``make_*_server``, ``serving.pooled.FusedDinServer`` and
+``serving.retrieval.RetrievalServer``, its lookups on the same gather kernel.
+
 ``serving.server`` serves a ps.json over KServe-v2 HTTP (and gRPC with
 ``grpcio``) through ``ModelManager`` and ``ContinuousBatcher``:
 ``python -m hugectr_backend_tpu_torch.serving.server ps.json --grpc-port -1``.

@@ -73,14 +73,44 @@ class MLP(nn.Module):
             if self.quant_fmt:
                 x = layer(x, kernel_q=w, mixed_precision=mixed_precision)
                 continue
-            w = layer.weight if w is None else w
-            if mixed_precision:
-                x = linear(x, w, mixed_precision=True) + layer.bias
-            else:
-                x = F.linear(x, w, layer.bias)
+            x = dense(x, layer, mixed_precision, weight=w)
             if act:
                 x = F.relu(x)
         return x
+
+    @torch.no_grad()
+    def init_flax_(self, generator: torch.Generator) -> "MLP":
+        """Flax's ``nn.Dense`` init from ``generator``: see :func:`init_dense_`."""
+        if self.quant_fmt:
+            raise ValueError("a quantized MLP is built from trained weights; "
+                             "init the f32 model and quantize_model_params it")
+        for layer in self.layers:
+            init_dense_(layer, generator)
+        return self
+
+
+def dense(x: torch.Tensor, layer: nn.Linear, mixed_precision: bool = False,
+          weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``layer(x)``, its product under :func:`~hugectr_backend_tpu_torch.models.
+    quant_dense.mixed_operands`; ``weight`` replaces the layer's."""
+    w = layer.weight if weight is None else weight
+    if mixed_precision:
+        return linear(x, w, mixed_precision=True) + layer.bias
+    return F.linear(x, w, layer.bias)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """Flax's ``lecun_normal``: a normal truncated at +-2 of its std, scaled
+    so that the truncated distribution has variance 1 / fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def init_dense_(layer: nn.Linear, generator: torch.Generator) -> None:
+    """Flax's ``nn.Dense`` / ``DenseGeneral`` init: ``lecun_normal`` over the
+    input features, zero bias."""
+    lecun_normal_(layer.weight, layer.in_features, generator)
+    nn.init.zeros_(layer.bias)
 
 
 class DotInteraction(nn.Module):
@@ -142,15 +172,8 @@ class DLRM(nn.Module):
         kernels ``lecun_normal`` (a normal truncated at +-2 of its std,
         variance 1 / fan_in), biases zero. Quantized layers have no init of
         their own (they are built from trained weights) and raise."""
-        if self.quant_fmt:
-            raise ValueError("a quantized DLRM is built from trained weights; "
-                             "init the f32 model and quantize_model_params it")
-        for mlp in (self.bottom, self.top):
-            for layer in mlp.layers:
-                std = (1.0 / layer.in_features) ** 0.5 / _TRUNC_STD
-                nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                      generator=generator)
-                nn.init.zeros_(layer.bias)
+        self.bottom.init_flax_(generator)
+        self.top.init_flax_(generator)
         return self
 
     def forward(self, dense: torch.Tensor, emb,
@@ -172,6 +195,7 @@ class DLRM(nn.Module):
 
 
 _LAYER = re.compile(r"(Quant)?Dense_(\d+)$")
+_DENSE = re.compile(r"Dense_(\d+)$")
 
 
 def _carry(a) -> torch.Tensor:
@@ -190,7 +214,7 @@ def load_flax_dlrm_params(tree) -> dict:
     model; any array type numpy can read) -> this package's ``DLRM``
     state_dict (``weight = kernel.T``, ``kernel_q`` transposed likewise).
     A module name it does not know raises."""
-    params = tree["params"] if "params" in tree else tree
+    params = flax_params(tree)
     state = {}
     for mod, prefix in (("MLP_0", "bottom"), ("MLP_1", "top")):
         layers = params[mod]
@@ -209,3 +233,43 @@ def load_flax_dlrm_params(tree) -> dict:
                 state[f"{key}.weight"] = _carry(np.asarray(layer["kernel"], np.float32).T)
             state[f"{key}.bias"] = _carry(np.asarray(layer["bias"], np.float32))
     return state
+
+
+# -- Flax trees of the other families (models/*.py) --------------------------
+
+
+def flax_params(tree) -> dict:
+    """The ``params`` collection of a Flax variables tree (or the tree)."""
+    return tree["params"] if "params" in tree else tree
+
+
+def check_known(params, known: Sequence[str], what: str) -> None:
+    """Raise on a module or parameter name of ``params`` that is not in
+    ``known``."""
+    unknown = sorted(set(params) - set(known))
+    if unknown:
+        raise ValueError(f"{what} holds {unknown}: only {sorted(known)} are known")
+
+
+def carry_dense(layer, key: str, state: dict) -> None:
+    """One Flax ``nn.Dense`` (``kernel`` [in, out], ``bias``) -> ``key.weight``
+    ([out, in]) and ``key.bias``. A ``DenseGeneral`` kernel of more axes
+    (``[in, *out]``, bias ``[*out]``) is flattened to [in, prod(out)]."""
+    k = np.asarray(layer["kernel"], np.float32)
+    state[f"{key}.weight"] = _carry(k.reshape(k.shape[0], -1).T)
+    state[f"{key}.bias"] = _carry(np.asarray(layer["bias"], np.float32).reshape(-1))
+
+
+def carry_mlp(layers, prefix: str, state: dict) -> None:
+    """A Flax ``MLP`` of ``Dense_i`` layers -> ``prefix.layers.i.{weight,bias}``;
+    any other layer name raises."""
+    unknown = [k for k in layers if not _DENSE.match(k)]
+    if unknown:
+        raise ValueError(f"{prefix} holds {unknown}: only Dense_i layers are known")
+    for name, layer in layers.items():
+        carry_dense(layer, f"{prefix}.layers.{_DENSE.match(name).group(1)}", state)
+
+
+def carry_param(a, key: str, state: dict) -> None:
+    """A bare Flax parameter -> ``key``, as f32."""
+    state[key] = _carry(np.asarray(a, np.float32))

@@ -39,6 +39,7 @@ __all__ = [
     "FORMATS",
     "QuantDense",
     "linear",
+    "mixed_operands",
     "quantize_activations",
     "quantize_dense_params",
     "quantize_model_params",
@@ -64,15 +65,19 @@ def quantize_weight(w, fmt: str = "int8"):
     return q, torch.from_numpy(scale)
 
 
+def mixed_operands(mixed_precision: bool, *ts: torch.Tensor) -> tuple:
+    """The operands of a product, as ``use_mixed_precision`` has them: with
+    ``mixed_precision`` each is rounded to bf16 and upcast again, so that an
+    f32 product of them is exact and only the sums round (f32
+    accumulation), as in the JAX package; else unchanged."""
+    if not mixed_precision:
+        return ts
+    return tuple(t.to(torch.bfloat16).float() for t in ts)
+
+
 def linear(x: torch.Tensor, w: torch.Tensor, mixed_precision: bool = False) -> torch.Tensor:
-    """``x @ w^T`` in f32. With ``mixed_precision`` both operands are rounded
-    to bf16 first and upcast again, so the product is exact in f32 and only
-    the sums round (f32 accumulation), as with ``use_mixed_precision`` in
-    the JAX package."""
-    if mixed_precision:
-        x = x.to(torch.bfloat16).float()
-        w = w.to(torch.bfloat16).float()
-    return F.linear(x, w)
+    """``x @ w^T`` in f32, with :func:`mixed_operands`."""
+    return F.linear(*mixed_operands(mixed_precision, x, w))
 
 
 class QuantDense(nn.Module):

@@ -1,22 +1,31 @@
-"""Fused DLRM serving: lookup + dense forward on one device, no host trip.
+"""Fused serving: lookup + dense forward on one device, no host trip.
 
 Port of the JAX package's serving/program.py: ``make_dlrm_forward`` and
 ``FusedDlrmServer`` (one table, K keys per sample: K1 gathers the rows, the
-stacked [B, K, D] goes to K4), ``FusedMultiTableServer`` on its chunked path,
-and ``make_dlrm_multi_server``. In the multi-table server the lookup outputs reach
-the interaction CHUNKED (:class:`EmbParts`: one block per lookup group), so
-the [B, T, D] stack never materializes. By default the one-hot lookup group
-is not looked up at all: it is folded into the interaction kernel (K3), its
-features moved to the front of the feature order, with the first top-MLP
-weight's columns permuted to keep the logits exact. ``HPS_OH_IN_KERNEL=0``
-keeps the group in the lookup (K1) and runs K2 instead. Without a fold the
-features are reordered part-major, as in the JAX package. A quantized DLRM
-(``quant_fmt``) is served the same way, its first top layer's ``kernel_q``
-columns permuted instead of the weight's; ``use_mixed_precision`` gives the
-dense products bf16 operands with f32 sums.
+stacked [B, K, D] goes to K4), ``FusedMultiTableServer`` and the model
+servers built on it. Each predict gathers every table of the model in one
+K1 launch (``lookup_program.lookup_groups``, one launch for all the lookup
+groups).
 
-The other model servers of the JAX file (WDL, DCN, DeepFM, xDeepFM, NCF,
-MMoE) are ROADMAP queue A item 5.
+``FusedMultiTableServer(..., chunked=False)`` (the default) hands the model
+a list of per-table [B, K_t, D_t] blocks: ``make_wdl_server``,
+``make_deepfm_server`` and ``make_ncf_server`` read tables 0 and 1,
+``make_dcn_server``, ``make_xdeepfm_server`` and ``make_mmoe_server`` stack
+all tables on the feature axis (equal dims). ``use_mixed_precision`` gives
+their products bf16 operands with f32 sums.
+
+``chunked=True`` is DLRM's path (``make_dlrm_multi_server``): the lookup
+outputs reach the interaction CHUNKED (:class:`EmbParts`: one block per
+lookup group), so the [B, T, D] stack never materializes. By default the
+one-hot lookup group is not looked up at all: it is folded into the
+interaction kernel (K3), its features moved to the front of the feature
+order, with the first top-MLP weight's columns permuted to keep the logits
+exact. ``HPS_OH_IN_KERNEL=0`` keeps the group in the lookup (K1) and runs K2
+instead. Without a fold the features are reordered part-major, as in the
+JAX package; with K_t > 1 or mixed dims the tables are stacked. A quantized
+DLRM (``quant_fmt``) is served the same way, its first top layer's
+``kernel_q`` columns permuted instead of the weight's; ``use_mixed_precision``
+gives the dense products bf16 operands with f32 sums.
 """
 
 from __future__ import annotations
@@ -90,15 +99,22 @@ class FusedDlrmServer:
 class FusedMultiTableServer:
     """Serve a model that consumes one embedding block per table against an
     :class:`EmbeddingCache`: the host translates keys, the device gathers
-    and runs ``assemble_fn(dense, embs, order)``, where ``embs`` is an
-    :class:`EmbParts` (one key per table, one dim) or the stacked
-    [B, sum K_t, D] tensor, and ``order`` (or None) is the feature order
-    the interaction sees (new position i holds original feature order[i])."""
+    every table in one K1 launch and runs the model through ``assemble_fn``.
 
-    def __init__(self, params: InferenceParams, cache: EmbeddingCache, assemble_fn):
+    - ``chunked=False``: ``assemble_fn(dense, embs)`` with ``embs`` the list
+      of per-table [B, K_t, D_t] blocks.
+    - ``chunked=True`` (DLRM): ``assemble_fn(dense, embs, order)``, where
+      ``embs`` is an :class:`EmbParts` (one key per table, one dim) or the
+      stacked [B, sum K_t, D] tensor, and ``order`` (or None) is the feature
+      order the interaction sees (new position i holds original feature
+      order[i])."""
+
+    def __init__(self, params: InferenceParams, cache: EmbeddingCache, assemble_fn,
+                 chunked: bool = False):
         self.params = params
         self.cache = cache
         self.assemble_fn = assemble_fn
+        self.chunked = chunked
         self.keys_per_sample = list(params.maxnum_catfeature_query_per_table_per_sample)
 
     def _forward(self, vals, dscales, slots_cat, sb, scin_cat, cb, dense, batch, meta,
@@ -110,6 +126,12 @@ class FusedMultiTableServer:
             return lookup_program.lookup_groups(vals, dscales, slots_cat, scin_cat, meta_,
                                                 sb, cb)
 
+        if not self.chunked:
+            gouts = gather(meta)
+            return self.assemble_fn(dense, [
+                gouts[g][start : start + cnt].reshape(batch, k, d)
+                for (g, start, cnt, k, d) in slices
+            ])
         chunk_plan = (
             self._chunk_plan(slices, {g: sb[g][1] - sb[g][0] for g in {s[0] for s in slices}})
             if all(k == 1 and d == slices[0][4] for (_, _, _, k, d) in slices)
@@ -278,4 +300,58 @@ def make_dlrm_multi_server(params, cache, model) -> FusedMultiTableServer:
                                                    pad16=model.quant_fmt == "w8a8")
         return model(dense, emb, top_weight0=w, mixed_precision=mixed)
 
+    return FusedMultiTableServer(params, cache, assemble, chunked=True)
+
+
+def _model_server(params, cache, model, stack: bool) -> FusedMultiTableServer:
+    """A non-chunked server of ``model`` (moved to the cache's device):
+    ``stack`` concatenates the tables' blocks on the feature axis into one
+    [B, sum K_t, D] (equal dims), else the model reads tables 0 and 1."""
+    model = model.to(cache.device).eval()
+    mixed = bool(params.use_mixed_precision)
+
+    def assemble(dense, embs):
+        if stack:
+            return model(dense, torch.cat(embs, dim=1), mixed_precision=mixed)
+        return model(dense, embs[0], embs[1], mixed_precision=mixed)
+
     return FusedMultiTableServer(params, cache, assemble)
+
+
+def make_wdl_server(params, cache, model) -> FusedMultiTableServer:
+    """WDL (:class:`~hugectr_backend_tpu_torch.models.wdl.WideAndDeep`):
+    table 0 = wide (vecsize 1), table 1 = deep (the reference WDL demo: 2
+    tables, vecsize [1, 16])."""
+    return _model_server(params, cache, model, stack=False)
+
+
+def make_dcn_server(params, cache, model) -> FusedMultiTableServer:
+    """DCN-v2 (:class:`~hugectr_backend_tpu_torch.models.dcn.DCNv2`): all
+    tables stacked on the feature axis (equal dims)."""
+    return _model_server(params, cache, model, stack=True)
+
+
+def make_deepfm_server(params, cache, model) -> FusedMultiTableServer:
+    """DeepFM (:class:`~hugectr_backend_tpu_torch.models.deepfm.DeepFM`):
+    table 0 = first-order weights (vecsize 1), table 1 = the second-order
+    and deep embeddings."""
+    return _model_server(params, cache, model, stack=False)
+
+
+def make_xdeepfm_server(params, cache, model) -> FusedMultiTableServer:
+    """xDeepFM (:class:`~hugectr_backend_tpu_torch.models.xdeepfm.XDeepFM`):
+    all tables stacked on the feature axis (equal dims); CIN and the deep
+    MLP share them."""
+    return _model_server(params, cache, model, stack=True)
+
+
+def make_ncf_server(params, cache, model) -> FusedMultiTableServer:
+    """NCF / NeuMF (:class:`~hugectr_backend_tpu_torch.models.ncf.NCF`):
+    table 0 = users, table 1 = items, one key each."""
+    return _model_server(params, cache, model, stack=False)
+
+
+def make_mmoe_server(params, cache, model) -> FusedMultiTableServer:
+    """MMoE (:class:`~hugectr_backend_tpu_torch.models.mmoe.MMoE`): all
+    tables stacked on the feature axis (equal dims); logits [B, num_tasks]."""
+    return _model_server(params, cache, model, stack=True)

@@ -66,6 +66,18 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.update.kafka_lite",
     "hugectr_backend_tpu_torch.update.mini_broker",
     "hugectr_backend_tpu_torch.scripts.tier_query_ab",
+    "hugectr_backend_tpu_torch.models",
+    "hugectr_backend_tpu_torch.models.wdl",
+    "hugectr_backend_tpu_torch.models.dcn",
+    "hugectr_backend_tpu_torch.models.deepfm",
+    "hugectr_backend_tpu_torch.models.xdeepfm",
+    "hugectr_backend_tpu_torch.models.ncf",
+    "hugectr_backend_tpu_torch.models.mmoe",
+    "hugectr_backend_tpu_torch.models.din",
+    "hugectr_backend_tpu_torch.models.bst",
+    "hugectr_backend_tpu_torch.models.two_tower",
+    "hugectr_backend_tpu_torch.serving.pooled",
+    "hugectr_backend_tpu_torch.serving.retrieval",
     "chip_smoke",
 ]
 
