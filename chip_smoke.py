@@ -69,7 +69,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    by one step).
 5b. The front end (the "frontend" phase): ``serve(cfg, port=0,
    block=False, grpc_port=None)`` on the card with max_batch_size 256 over
-   the same sparse files (gRPC is tested on the CPU only), and the JAX
+   the same sparse files (gRPC: on the CPU, and in phase 5e), and the JAX
    package's end-to-end traffic (``bench.py``): 64-sample binary-tensor
    requests, one key a table, Zipf(1.05) over each table's keys plus ~1 %
    keys absent from every table, 8 clients for 10 s after the pow2 buckets
@@ -126,6 +126,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    WDL, DeepFM, a small DCN-v2, xDeepFM, NCF and MMoE on the deployment and
    at the widths of the JAX package's examples/07_model_zoo.py, at batch 8
    and 4096.
+5e. A Triton model repository (the "ensemble" phase, ``ensemble_phase``),
+   laid out as examples/05_triton_repo_ensemble.py lays it out and booted
+   with ``serve(model_repository=..., grpc_port=0)``: the HPS model
+   ``hps_embedding`` holds the 26 tables of phase 3 in one key space
+   (1,855,979 x 128 int8 rows, static cache at 100 %, 26 keys a sample,
+   max_batch_size 4096), behind dense models of reshape [-1, 3328] and TOP
+   (1024-1024-512-256-1, relu ... sigmoid, seeded weights) stored f32, w8a8,
+   int8 and fp8, each in its own ensemble. For each: a fused infer at batch
+   4096 launches K1 once (and K5 once a layer for w8a8, nothing else), and
+   fused = staged = the host reference (the host dequant of the cache's
+   bytes through the port's DenseModel on the CPU, first 256 samples) within
+   the dense-model tolerances (tests/test_torch_dense_model.py), over the
+   ensemble server, HTTP JSON, HTTP binary and gRPC (64-sample requests);
+   the fused and staged walls (median of 10), device time and idle share. A
+   ragged request (not a multiple of 26 keys) to an ensemble whose dense
+   model scores each key goes staged and is right. HTTP p50 / p99 of 200
+   64-sample binary requests from one client. K1 at the fused infer's shape
+   (106,496 keys, padded to 131,072 slots) and K5 at the w8a8 model's five
+   layers (M 4096; K 3328 -> N 1024 first) timed beside their plain versions
+   and bounds.
+5f. The ``redis_cluster`` volatile db (the "cluster" phase,
+   ``cluster_phase``): two pool nodes started through ``python -m
+   hugectr_backend_tpu_torch.tiers.cluster`` with a shared secret and TLS (a
+   certificate made at run time; ``enable_tls`` is one setting for the
+   whole pool, as in the reference), the dynamic deployment of phase 5c
+   (synchronous inserts, the SSD tier, no update stream) with its DRAM tier
+   on them: ``ps.dram`` is the pool, both nodes hold rows, 4 Zipf batches
+   of lookups bit-identical to a CPU instance on the local native store, K1
+   once per lookup; a node with the secret alone (plain TCP) returns its
+   rows bit for bit. The pool's query and insert time beside the local
+   store's for the same keys.
 6. Each kernel timed at the shapes the main path gave it, beside its plain
    version, one PyTorch call for the same product where there is one, and
    its bound: the larger of bytes over the memory rate and operations over
@@ -189,6 +220,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import os
 import subprocess
@@ -268,6 +300,22 @@ ZOO_REF = 256  # samples the CPU instance scores (a sample's logit is its own)
 ZOO_REF_RETRIEVE = 64  # users the CPU instance retrieves for
 ZOO_REL = 1e-3  # logits and retrieval scores vs the CPU instance
 ZOO_SMALL_BATCHES = (8, 4096)
+# A Triton model repository (the "ensemble" phase), laid out as in
+# examples/05_triton_repo_ensemble.py: the 26 tables as one table (key
+# ENS_KEY_STRIDE * t + row) behind a dense model in each format.
+ENS_FORMATS = ("f32", "w8a8", "int8", "fp8")
+# fused / staged / host reference, the tolerances of tests/test_torch_dense_model.py
+ENS_TOL = {"f32": (1e-5, 1e-6), "w8a8": (1e-5, 1e-6), "int8": (1e-3, 1e-5),
+           "fp8": (1e-3, 1e-5)}
+ENS_KEY_STRIDE = 1 << 32
+ENS_TENSORS = ("EMB_KEY", "EMB_N_KEY", "DENSE_OUTPUT")  # the reference sample's names
+ENS_TIMED = 10  # timed infers of each path and format (median)
+ENS_REF = 256  # samples the host reference scores (a sample's output is its own)
+ENS_HTTP_SAMPLES = 64
+ENS_HTTP_REQUESTS = 200
+# The redis_cluster volatile db (the "cluster" phase): two pool nodes.
+CLUSTER_BATCHES = 4
+CLUSTER_START_S = 60.0  # the wait for a node process to answer
 
 # Dense peaks (NVIDIA data sheets, without sparsity): memory bytes/s, bf16
 # tensor FLOP/s, int8 tensor OP/s, f32 FLOP/s outside the tensor cores.
@@ -1232,15 +1280,17 @@ def host_dequant(cache, keys, snap=None):
 
 class Recorder:
     """Record the inputs the main path gives each kernel wrapper (one
-    predict, outside the counted run)."""
+    predict, outside the counted run): ``calls[name]`` lists the arguments
+    of each call of the (module, name) ``targets``, the DLRM's by default."""
 
-    def __init__(self):
+    def __init__(self, *targets):
         import hugectr_backend_tpu_torch.cache.lookup_program as lp
         import hugectr_backend_tpu_torch.models.dlrm as dl
         import hugectr_backend_tpu_torch.models.quant_dense as qd
 
-        self._patches = [(lp, "gather_dequant_groups"), (dl, "dot_interaction_parts"),
-                         (dl, "dot_interaction_oh_parts"), (qd, "w8a8_dense")]
+        self._patches = targets or [(lp, "gather_dequant_groups"),
+                                    (dl, "dot_interaction_parts"),
+                                    (dl, "dot_interaction_oh_parts"), (qd, "w8a8_dense")]
         self.calls = {name: [] for _, name in self._patches}
         self._orig = {}
 
@@ -1642,16 +1692,17 @@ def _http(port, method, path, body=None, headers=None, timeout=60.0):
         return e.code, dict(e.headers), e.read()
 
 
-def _binary_infer(keys, numkeys):
-    """A KServe-v2 binary-tensor request (in and out). -> (body, headers)."""
+def _binary_infer(keys, numkeys, names=("KEYS", "NUMKEYS", "OUTPUT0")):
+    """A KServe-v2 binary-tensor request (in and out); ``names``: the keys',
+    the counts' and the output's tensor. -> (body, headers)."""
     kraw = np.ascontiguousarray(keys, "<i8").tobytes()
     nraw = np.asarray(numkeys, "<i4").tobytes()
     hdr = json.dumps({"inputs": [
-        {"name": "KEYS", "datatype": "INT64", "shape": [len(keys)],
+        {"name": names[0], "datatype": "INT64", "shape": [len(keys)],
          "parameters": {"binary_data_size": len(kraw)}},
-        {"name": "NUMKEYS", "datatype": "INT32", "shape": [len(numkeys)],
+        {"name": names[1], "datatype": "INT32", "shape": [len(numkeys)],
          "parameters": {"binary_data_size": len(nraw)}}],
-        "outputs": [{"name": "OUTPUT0", "parameters": {"binary_data": True}}],
+        "outputs": [{"name": names[2], "parameters": {"binary_data": True}}],
     }).encode()
     return hdr + kraw + nraw, {"Inference-Header-Content-Length": str(len(hdr)),
                                "Content-Type": "application/octet-stream"}
@@ -2748,6 +2799,530 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
     return {"launches": {"gather_dequant": k1} if k1 else {}, "lines": lines}
 
 
+# ------------------------------------------------------------ the ensemble phase
+
+
+def ensemble_repository(root: str, tables, seed: int, max_batch: int):
+    """A Triton-style repository in the layout of
+    examples/05_triton_repo_ensemble.py: one HPS model ``hps_embedding`` (the
+    26 tables in one key space: table t's row i is key ENS_KEY_STRIDE * t +
+    i; int8, static cache at 100 %, 26 keys a sample), the dense models
+    ``dense_<fmt>`` (reshape [-1, 26 * D], then TOP with relu... sigmoid and
+    weights from a numpy seed, stored in each of ENS_FORMATS) behind the
+    ensembles ``ens_<fmt>``, and ``ens_per_key`` whose dense model scores
+    each key (reshape [-1, D]). -> (offsets, {fmt: f32 weights})."""
+    from hugectr_backend_tpu_torch.io.dense_model import save_dense_model
+    from hugectr_backend_tpu_torch.io.sparse_model import write_sparse_model
+
+    n, dim = len(tables), tables[0].vectors.shape[1]
+    hps = os.path.join(root, "hps_embedding")
+    keys = np.concatenate([ENS_KEY_STRIDE * t + np.arange(tb.num_rows, dtype=np.int64)
+                           for t, tb in enumerate(tables)])
+    write_sparse_model(os.path.join(hps, "1", "emb.model"), keys,
+                       np.concatenate([tb.vectors for tb in tables]))
+    with open(os.path.join(hps, "config.pbtxt"), "w") as f:
+        f.write(f'name: "hps_embedding"\nbackend: "hps"\nmax_batch_size: {max_batch}\n'
+                'input [\n  { name: "KEYS" data_type: TYPE_INT64 dims: [ -1 ] },\n'
+                '  { name: "NUMKEYS" data_type: TYPE_INT32 dims: [ -1 ] }\n]\n'
+                'output [ { name: "OUTPUT0" data_type: TYPE_FP32 dims: [ -1 ] } ]\n'
+                'instance_group [ { count: 1 kind: KIND_GPU gpus: [ 0 ] } ]\n')
+    with open(os.path.join(root, "ps.json"), "w") as f:
+        json.dump({"models": [{
+            "model": "hps_embedding", "sparse_files": ["emb.model"],
+            "embedding_vecsize_per_table": [dim],
+            "maxnum_catfeature_query_per_table_per_sample": [n],
+            "max_batch_size": max_batch, "gpucacheper": 1.0,
+            "embedding_cache_type": "static", "quant_bits": 8,
+            "deployed_device_list": [0]}]}, f)
+    rng = np.random.default_rng(seed)
+    widths = (n * dim,) + TOP
+    weights = [((rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32),
+                (rng.standard_normal(b) * 0.01).astype(np.float32))
+               for a, b in zip(widths, widths[1:])]
+    acts = ["relu"] * (len(TOP) - 1) + ["sigmoid"]
+    per_key = [((rng.standard_normal((dim, 64)) / np.sqrt(dim)).astype(np.float32),
+                np.zeros(64, np.float32)),
+               ((rng.standard_normal((64, 1)) / 8.0).astype(np.float32), np.zeros(1, np.float32))]
+    dense = {fmt: (weights, acts, [-1, n * dim], fmt) for fmt in ENS_FORMATS}
+    dense["per_key"] = (per_key, ["relu", "sigmoid"], [-1, dim], None)
+    for name, (w, a, reshape, quant) in dense.items():
+        d = os.path.join(root, f"dense_{name}")
+        save_dense_model(os.path.join(d, "1"), w, a, reshape=reshape,
+                         quant=None if quant in (None, "f32") else quant)
+        with open(os.path.join(d, "config.pbtxt"), "w") as f:
+            f.write(f'name: "dense_{name}"\nplatform: "hps_tpu_dense"\n'
+                    'input [ { name: "input_1" data_type: TYPE_FP32 dims: [ -1 ] } ]\n'
+                    'output [ { name: "output_1" data_type: TYPE_FP32 dims: [ -1, 1 ] } ]\n')
+        e = os.path.join(root, f"ens_{name}")
+        os.makedirs(os.path.join(e, "1"), exist_ok=True)
+        with open(os.path.join(e, "config.pbtxt"), "w") as f:
+            f.write(f'name: "ens_{name}"\nplatform: "ensemble"\n'
+                    'input [\n  { name: "EMB_KEY" data_type: TYPE_INT64 dims: [ -1, -1 ] },\n'
+                    '  { name: "EMB_N_KEY" data_type: TYPE_INT32 dims: [ -1, -1 ] }\n]\n'
+                    'output [ { name: "DENSE_OUTPUT" data_type: TYPE_FP32 dims: [ -1, 1 ] } ]\n'
+                    'ensemble_scheduling { step [\n'
+                    '  { model_name: "hps_embedding" model_version: -1\n'
+                    '    input_map { key: "KEYS" value: "EMB_KEY" }\n'
+                    '    input_map { key: "NUMKEYS" value: "EMB_N_KEY" }\n'
+                    '    output_map { key: "OUTPUT0" value: "LOOKUP_VECTORS" } },\n'
+                    f'  {{ model_name: "dense_{name}" model_version: -1\n'
+                    '    input_map { key: "input_1" value: "LOOKUP_VECTORS" }\n'
+                    '    output_map { key: "output_1" value: "DENSE_OUTPUT" } }\n] }\n')
+    return np.arange(n, dtype=np.int64) * ENS_KEY_STRIDE, weights
+
+
+def ensemble_requests(tables, offsets, samples: int, n: int, seed: int):
+    """n requests of ``samples`` samples, 26 keys each (sample-major, one a
+    table), ~1 % of them absent from the table (negative)."""
+    rng = np.random.default_rng(seed)
+    cards = np.asarray([tb.num_rows for tb in tables])
+    out = []
+    for _ in range(n):
+        keys = offsets + (rng.random((samples, len(tables))) * cards).astype(np.int64)
+        miss = rng.random(keys.shape) < 0.01
+        keys[miss] = -1 - rng.integers(0, 1 << 40, int(miss.sum()))
+        out.append(keys.reshape(-1))
+    return out
+
+
+def _ens_inputs(keys):
+    return {ENS_TENSORS[0]: np.asarray(keys, np.int64),
+            ENS_TENSORS[1]: np.asarray([len(keys)], np.int32)}
+
+
+def _ens_json(keys) -> bytes:
+    return json.dumps({"inputs": [
+        {"name": ENS_TENSORS[0], "datatype": "INT64", "shape": [len(keys)],
+         "data": [int(k) for k in keys]},
+        {"name": ENS_TENSORS[1], "datatype": "INT32", "shape": [1], "data": [len(keys)]},
+    ]}).encode()
+
+
+def _ens_binary(keys):
+    return _binary_infer(keys, [len(keys)], ENS_TENSORS)
+
+
+def grpc_ensemble_infer(port: int, model: str, keys) -> np.ndarray:
+    """One KServe-v2 gRPC ModelInfer (raw tensors) -> DENSE_OUTPUT."""
+    import grpc
+
+    from hugectr_backend_tpu_torch.serving import kserve_pb
+
+    pb2 = kserve_pb.load()
+    req = pb2.ModelInferRequest(
+        model_name=model,
+        inputs=[pb2.ModelInferRequest.InferInputTensor(name=ENS_TENSORS[0], datatype="INT64",
+                                                       shape=[len(keys)]),
+                pb2.ModelInferRequest.InferInputTensor(name=ENS_TENSORS[1], datatype="INT32",
+                                                       shape=[1])],
+        raw_input_contents=[np.ascontiguousarray(keys, "<i8").tobytes(),
+                            np.asarray([len(keys)], "<i4").tobytes()])
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+        fn = ch.unary_unary(f"/{kserve_pb.SERVICE_NAME}/ModelInfer",
+                            request_serializer=lambda m: m.SerializeToString(),
+                            response_deserializer=pb2.ModelInferResponse.FromString)
+        resp = fn(req, timeout=60)
+    (out,) = resp.outputs
+    return np.frombuffer(resp.raw_output_contents[0], "<f4").reshape(list(out.shape))
+
+
+def ens_check(what: str, got, want, fmt) -> float:
+    """got vs want within the dense-model tolerances (ENS_TOL). -> max |d|."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    rtol, atol = ENS_TOL[fmt]
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"ensemble {what}: shape {got.shape} vs {want.shape} or non-finite")
+    err = np.abs(got - want)
+    if not (err <= atol + rtol * np.abs(want)).all():
+        raise AssertionError(f"ensemble {what}: max |delta| {float(err.max())} past rtol {rtol}"
+                             f" atol {atol}")
+    return float(err.max()) if err.size else 0.0
+
+
+def ensemble_phase(dev, tables, bw=None, int8_ops=None, emit_line=emit,
+                   batch: int = BATCH, grpc: bool = True) -> dict:
+    """Triton model repository and ensembles on the card: ``serve(model_repository=
+    ...)`` over ``ensemble_repository`` (the 26 tables of ``tables`` as one
+    table), with HTTP and (``grpc``) gRPC. For each dense format of
+    ENS_FORMATS: the fused path engages with one K1 launch per infer (and
+    one K5 launch per layer for w8a8), fused = staged = the host reference
+    (the host dequant of the cache's bytes through the port's DenseModel on
+    the CPU) within ENS_TOL on the first ENS_REF samples, over the
+    EnsembleServer, HTTP JSON, HTTP binary and gRPC; the fused and staged
+    walls at ``batch`` with device time and idle share. A ragged request
+    (ens_per_key) goes staged and is right. HTTP p50 / p99 of ENS_HTTP_SAMPLES-
+    sample requests. With ``bw`` given, K1 at the fused path's shape and K5 at
+    the w8a8 model's five layers are timed beside their plain versions and
+    bounds. ``dev`` cpu rehearses it (no launch is counted there). -> the
+    numbers, {"launches": ..., "lines": [...], "k1": ..., "k5": [...]}."""
+    import hugectr_backend_tpu_torch.cache.lookup_program as lp
+    import hugectr_backend_tpu_torch.io.dense_model as dmod
+    from hugectr_backend_tpu_torch.cache.embedding_cache import _bucket
+    from hugectr_backend_tpu_torch.io.dense_model import DenseModel
+    from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.serving.server import serve
+
+    on_card = dev.type == "cuda"
+    lines, launches = [], collections.Counter()
+    n = len(tables)
+
+    def out(line):
+        lines.append(line)
+        emit_line(line)
+
+    work = tempfile.TemporaryDirectory(prefix="hps_chip_smoke_ens_")
+    server = None
+    try:
+        t0 = time.perf_counter()
+        offsets, _ = ensemble_repository(work.name, tables, SEED + 40, batch)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        server = serve(model_repository=work.name, port=0, block=False,
+                       grpc_port=0 if grpc else None, device=None if on_card else "cpu")
+        deploy_s = time.perf_counter() - t0
+        handler = server.httpd.RequestHandlerClass
+        ensembles, dense = handler.ensembles, handler.dense_models
+        cache = server.manager.ps.get_embedding_cache("hps_embedding", 0)
+        snap = host_snapshot(cache)
+        out({"ensemble": "deploy", "write_repository_s": write_s, "serve_s": deploy_s,
+             "table_rows": int(cache.tables[0].capacity), "groups": [g[1] for g in cache._groups],
+             "device_bytes": cache.nbytes(), "models": sorted(dense) + sorted(ensembles)})
+        big, small = (ensemble_requests(tables, offsets, batch, ENS_TIMED + 2, SEED + 41),
+                      ensemble_requests(tables, offsets, ENS_HTTP_SAMPLES, 4, SEED + 42))
+        cpu_models = {}
+
+        def host_ref(fmt, keys):
+            """The host dequant of the cache's bytes through the port's dense
+            model on the CPU."""
+            if fmt not in cpu_models:
+                cpu_models[fmt] = DenseModel.load(
+                    os.path.join(work.name, f"dense_{fmt}", "1"), device="cpu")
+            rows = host_dequant(cache, [keys], snap)[0]
+            return cpu_models[fmt].forward(rows)
+
+        k1_args = k5_args = None
+        for fmt in ENS_FORMATS:
+            es = ensembles[f"ens_{fmt}"]
+            name = f"ens_{fmt}"
+            # The counted fused infer: K1 once, K5 once a layer for w8a8.
+            with Recorder((lp, "gather_dequant_groups"), (dmod, "w8a8_dense")) as rec:
+                kernels.launches.clear()
+                fused = es.infer(_ens_inputs(big[0]))[ENS_TENSORS[2]]
+                torch.cuda.synchronize()
+                got = dict(kernels.launches)
+            if es._fused is None:
+                raise AssertionError(f"{name}: the fused path did not engage")
+            want = ({"gather_dequant": 1, **({"w8a8_dense": len(TOP)} if fmt == "w8a8" else {})}
+                    if on_card else {})
+            if got != want:
+                raise AssertionError(f"{name}: a fused infer launched {got}, expected {want}")
+            launches.update(got)
+            # K1's work is the request's b_pad * 26 slots and no bucket pad
+            # past them, so its bound (k1_group_measure) counts real keys.
+            (k1_call,) = rec.calls["gather_dequant_groups"]
+            if k1_call[2].shape[0] != _bucket(batch) * n:
+                raise AssertionError(f"{name}: K1 gathered {k1_call[2].shape[0]} slots for "
+                                     f"{_bucket(batch) * n} keys")
+            if fmt == "w8a8":
+                k1_args = k1_call
+                k5_args = rec.calls["w8a8_dense"]
+            kernels.launches.clear()
+            staged = es.infer_staged(_ens_inputs(big[0]))[ENS_TENSORS[2]]
+            torch.cuda.synchronize()
+            staged_launches = dict(kernels.launches)
+            launches.update(staged_launches)
+            ref = host_ref(fmt, big[0][: ENS_REF * n])
+            err = {"fused_vs_staged": ens_check(f"{name} fused vs staged", fused,
+                                                staged.reshape(fused.shape), fmt),
+                   "fused_vs_host": ens_check(f"{name} fused vs host", fused[:ENS_REF], ref,
+                                              fmt)}
+            # The front ends: HTTP JSON, HTTP binary, gRPC, each against
+            # the host reference and the staged path.
+            keys = small[0]
+            ref_s = host_ref(fmt, keys)
+            status, _, body = _http(server.port, "POST", f"/v2/models/{name}/infer",
+                                    _ens_json(keys))
+            if status != 200:
+                raise AssertionError(f"{name}: JSON infer answered {status}: {body[:200]!r}")
+            jout = np.asarray(json.loads(body)["outputs"][0]["data"], np.float32)
+            resp = _http(server.port, "POST", f"/v2/models/{name}/infer", *_ens_binary(keys))
+            bout = _binary_output(resp)
+            err["http_json_vs_host"] = ens_check(f"{name} HTTP JSON", jout.reshape(-1, 1), ref_s,
+                                                 fmt)
+            err["http_binary_vs_host"] = ens_check(f"{name} HTTP binary", bout.reshape(-1, 1),
+                                                   ref_s, fmt)
+            if not np.array_equal(jout.view(np.uint32), bout.view(np.uint32)):
+                raise AssertionError(f"{name}: JSON and binary responses differ")
+            sm = es.infer_staged(_ens_inputs(keys))[ENS_TENSORS[2]]
+            err["http_vs_staged"] = ens_check(f"{name} HTTP vs staged", bout.reshape(-1, 1),
+                                              sm.reshape(-1, 1), fmt)
+            if grpc:
+                gout = grpc_ensemble_infer(server.grpc.port, name, keys)
+                err["grpc_vs_host"] = ens_check(f"{name} gRPC", gout.reshape(-1, 1), ref_s, fmt)
+                if not np.array_equal(gout.reshape(-1).view(np.uint32), bout.view(np.uint32)):
+                    raise AssertionError(f"{name}: gRPC and HTTP responses differ")
+            # Walls at the full batch, device time and idle share.
+            it = itertools.cycle(big[1:])
+            fused_t = zoo_timing(lambda: es.infer(_ens_inputs(next(it))), n=ENS_TIMED)
+            staged_t = zoo_timing(lambda: es.infer_staged(_ens_inputs(next(it))), n=ENS_TIMED)
+            out({"ensemble": name, "dense": fmt, "batch": batch, "keys": batch * n,
+                 "fused": fused_t, "staged": staged_t, "fused_launches": got,
+                 "staged_launches": staged_launches, "max_abs_err": err,
+                 "tolerance": dict(zip(("rtol", "atol"), ENS_TOL[fmt]))})
+        # A ragged request (not a multiple of 26 keys) goes staged.
+        es = ensembles["ens_per_key"]
+        staged_calls = []
+        real = es.infer_staged
+        es.infer_staged = lambda t: staged_calls.append(1) or real(t)
+        try:
+            keys = small[1][: n * 3 + 13]
+            rag = es.infer(_ens_inputs(keys))[ENS_TENSORS[2]]
+            whole = es.infer(_ens_inputs(small[1]))[ENS_TENSORS[2]]
+        finally:
+            del es.infer_staged
+        if es._fused is None or len(staged_calls) != 1:
+            raise AssertionError(f"ens_per_key: fused {es._fused is not None}, staged calls "
+                                 f"{len(staged_calls)} (expected the ragged one only)")
+        out({"ensemble": "ens_per_key", "ragged_keys": len(keys),
+             "max_abs_err": {"ragged_vs_host": ens_check("ragged", rag, host_ref(
+                 "per_key", keys), "f32"), "whole_vs_host": ens_check(
+                 "per_key whole", whole, host_ref("per_key", small[1]), "f32")}})
+        # HTTP latency of 64-sample requests to the f32 ensemble (fused),
+        # one client, binary tensors.
+        reqs = ensemble_requests(tables, offsets, ENS_HTTP_SAMPLES, ENS_HTTP_REQUESTS, SEED + 43)
+        lat = []
+        for keys in reqs:
+            body, headers = _ens_binary(keys)
+            t0 = time.perf_counter()
+            _binary_output(_http(server.port, "POST", "/v2/models/ens_f32/infer", body,
+                                 headers))
+            lat.append(time.perf_counter() - t0)
+        ls = np.sort(lat) * 1e3
+        http = {"ensemble": "http_latency", "model": "ens_f32", "requests": len(ls),
+                "samples_per_request": ENS_HTTP_SAMPLES, "clients": 1,
+                "p50_ms": float(ls[len(ls) // 2]),
+                "p99_ms": float(ls[min(int(len(ls) * 0.99), len(ls) - 1)])}
+        out(http)
+        k1 = k5 = None
+        if bw is not None and on_card:
+            k1 = k1_group_measure(k1_args, bw)
+            out({"ensemble": "kernel", "kernel": "gather_dequant",
+                 "path": "fused ensemble infer", **k1})
+            k5 = [k5_measure(a, bw, int8_ops) for a in k5_args]
+            for r in k5:
+                out({"ensemble": "kernel", "kernel": "w8a8_dense", "path": "dense_w8a8", **r})
+    finally:
+        if server is not None:
+            server.stop()
+        work.cleanup()
+    return {"launches": dict(launches), "lines": lines, "k1": k1, "k5": k5, "http": http}
+
+
+# ------------------------------------------------------------- the cluster phase
+
+
+def start_pool_node(secret: str, log: str, cert=None, key=None):
+    """Start one DRAM pool node in a process of its own, through the
+    module's command line (``python -m hugectr_backend_tpu_torch.tiers.cluster``),
+    on a port the node picks itself (``--port 0``), with the shared secret
+    and, with ``cert``, TLS; its standard error goes to ``log``, its port to
+    ``log + ".port"``. -> (process, port file, log); ``wait_pool_node``
+    reads the port back."""
+    port_file = log + ".port"
+    cmd = [sys.executable, "-m", "hugectr_backend_tpu_torch.tiers.cluster", "--host",
+           "127.0.0.1", "--port", "0", "--port-file", port_file]
+    if cert:
+        cmd += ["--tls-cert", cert, "--tls-key", key]
+    env = {**os.environ, "HPS_CLUSTER_SECRET": secret}
+    with open(log, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                stdout=subprocess.DEVNULL, stderr=err)
+    return proc, port_file, log
+
+
+def wait_pool_node(proc, port_file: str, log: str) -> int:
+    """Wait until a started node has written its port (it listens by then).
+    -> the port; raise if the node exits or takes longer than
+    CLUSTER_START_S."""
+    deadline = time.perf_counter() + CLUSTER_START_S
+    while not os.path.exists(port_file):
+        if proc.poll() is not None:
+            with open(log) as f:
+                tail = f.read()[-2000:]
+            raise AssertionError(f"pool node exited {proc.returncode}: {tail}")
+        if time.perf_counter() > deadline:
+            proc.kill()
+            raise AssertionError(f"pool node did not start in {CLUSTER_START_S} s")
+        time.sleep(0.1)
+    with open(port_file) as f:
+        return int(f.read())
+
+
+def median_ms(fn, n: int = 5) -> float:
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[n // 2]
+
+
+def cluster_phase(dev, root, tables, batch: int = BATCH, emit_line=emit) -> dict:
+    """The ``redis_cluster`` volatile db on the card: two pool nodes in
+    processes of their own on localhost, both with a shared secret and TLS
+    (a certificate made here with ``openssl``; the reference's
+    ``enable_tls`` is one setting for the whole pool), and the dynamic-cache
+    deployment of ``dyn_cfg`` (synchronous inserts, the SSD tier; no update
+    stream) with its DRAM tier on them. Checked: ``ps.dram`` is a
+    ``ClusterKVTier`` (not the local fallback), both nodes hold rows, every
+    lookup of CLUSTER_BATCHES batches is bit-identical to a CPU instance whose
+    DRAM tier is the local native store, with K1 once per lookup; a node with
+    the secret alone (in-process, plain TCP) answers bit for bit too. Printed:
+    the pool's query and insert times beside the local store's for the same
+    keys. ``dev`` cpu rehearses it. -> the numbers, with "launches"."""
+    import ssl
+
+    from hugectr_backend_tpu_torch import HierParameterServer, LookupSession
+    from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.tiers.base import table_tag
+    from hugectr_backend_tpu_torch.tiers.cluster import ClusterKVTier, ClusterNodeServer
+
+    on_card = dev.type == "cuda"
+    secret = "chip-smoke-pool"
+    work = tempfile.TemporaryDirectory(prefix="hps_chip_smoke_pool_")
+    cert, key = os.path.join(work.name, "cert.pem"), os.path.join(work.name, "key.pem")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout", key,
+                    "-out", cert, "-days", "1", "-subj", "/CN=localhost",
+                    "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+                   check=True, capture_output=True, timeout=60)
+    procs, servers, launches = [], [], collections.Counter()
+    try:
+        t0 = time.perf_counter()
+        for i in range(2):
+            procs.append(start_pool_node(secret, os.path.join(work.name, f"node{i}.log"),
+                                         cert, key))
+        ports = [wait_pool_node(*node) for node in procs]
+        nodes_s = time.perf_counter() - t0
+        addrs = [f"127.0.0.1:{port}" for port in ports]
+        n = len(tables)
+
+        def create(pool: bool, where):
+            cfg = dyn_cfg(root, n, "pool" if pool else "pool_cpu", 0, threshold=1.0,
+                          dim=tables[0].vectors.shape[1])
+            del cfg["update_source"]
+            if pool:
+                cfg["volatile_db"] = {
+                    "type": "redis_cluster", "address": ",".join(addrs), "password": secret,
+                    "enable_tls": True, "tls_ca_certificate": cert,
+                    "tls_server_name_identification": "localhost",
+                    "initial_cache_rate": DYN_DRAM_RATE}
+            t0 = time.perf_counter()
+            ps = HierParameterServer.create(cfg, device=where)
+            servers.append(ps)
+            cache = ps.get_embedding_cache("dlrm", 0)
+            return (ps, cache, LookupSession.create(ps.get_model_params("dlrm"), cache),
+                    time.perf_counter() - t0)
+
+        ps, cache, session, create_s = create(True, None if on_card else "cpu")
+        twin_ps, twin, twin_session, twin_s = create(False, "cpu")
+        if not isinstance(ps.dram, ClusterKVTier):
+            raise AssertionError(f"ps.dram is {type(ps.dram).__name__}, not the pool")
+        tls = ssl.create_default_context(cafile=cert)
+        per_node = []
+        for a in addrs:
+            one = ClusterKVTier([a], secret=secret, tls=tls, server_hostname="localhost")
+            per_node.append(sum(one.size(table_tag("dlrm", f"sparse_embedding{t}"))
+                                for t in range(n)))
+            one.close()
+        if min(per_node) == 0 or sum(per_node) != sum(
+                twin_ps.dram.size(tg) for tg in twin_ps.dram.tables()):
+            raise AssertionError(f"rows per node {per_node}: a node holds none, or the pool "
+                                 "holds other rows than the local store")
+        walls = []
+        for i, keys in enumerate(dyn_batches(tables, batch, CLUSTER_BATCHES, SEED + 50)):
+            kernels.launches.clear()
+            t0 = time.perf_counter()
+            got = session.lookup(keys)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            k1 = kernels.launches.get("gather_dequant", 0)
+            launches.update(kernels.launches)
+            if k1 != (1 if on_card else 0):
+                raise AssertionError(f"pool batch {i}: K1 launched {k1} times")
+            check_twin(cache, twin, got, twin_session.lookup(keys), f"pool batch {i}")
+        # The pool's query and insert beside the local store's, for the same
+        # keys: the largest table's keys of one batch, half of them in DRAM.
+        t = max(range(n), key=lambda i: tables[i].num_rows)
+        tag = table_tag("dlrm", f"sparse_embedding{t}")
+        keys = dyn_batches(tables, batch, 1, SEED + 51)[0][t]
+        (pv, pf), (lv, lf) = ps.dram.query(tag, keys), twin_ps.dram.query(tag, keys)
+        if not (np.array_equal(pf, lf) and same_bits_np(pv[pf], lv[lf])):
+            raise AssertionError("the pool's query differs from the local store's")
+        ukeys = np.unique(keys)  # inserts: each key once
+        rows = tables[t].vectors[: ukeys.size]
+        for tier in (ps.dram, twin_ps.dram):
+            tier.create_table("pool_probe", rows.shape[1])
+        timing = {"keys": int(keys.size), "found": int(pf.sum()),
+                  "pool_query_ms": median_ms(lambda: ps.dram.query(tag, keys)),
+                  "local_query_ms": median_ms(lambda: twin_ps.dram.query(tag, keys)),
+                  "insert_keys": int(ukeys.size),
+                  "pool_insert_ms": median_ms(lambda: ps.dram.insert("pool_probe", ukeys, rows)),
+                  "local_insert_ms": median_ms(
+                      lambda: twin_ps.dram.insert("pool_probe", ukeys, rows))}
+        ps.dram.drop_table("pool_probe")
+        # The shared secret alone, over plain TCP (an in-process node).
+        node = ClusterNodeServer(secret=secret).start()
+        try:
+            plain = ClusterKVTier([f"127.0.0.1:{node.port}"], secret=secret)
+            plain.insert("probe", ukeys, rows)
+            qv, qf = plain.query("probe", ukeys)
+            if not (qf.all() and same_bits_np(qv, rows)):
+                raise AssertionError("the secret-only node does not return its rows")
+            timing["plain_node_query_ms"] = median_ms(lambda: plain.query("probe", ukeys))
+            plain.close()
+        finally:
+            node.stop()
+        res = {"nodes": len(addrs), "node_start_s": nodes_s, "rows_per_node": per_node,
+               "create_s": create_s, "cpu_instance_create_s": twin_s,
+               "batches": CLUSTER_BATCHES, "lookup_ms": walls, "k1_per_lookup":
+               1 if on_card else 0, "tier": timing, "tls": True, "secret": True}
+        emit_line({"cluster": "pool", **res})
+    finally:
+        for ps_ in servers:
+            ps_.shutdown()
+        for proc, _, _ in procs:
+            proc.kill()
+            proc.wait(timeout=10)
+        work.cleanup()
+    return {**res, "launches": dict(launches)}
+
+
+def repository_and_pool_phases() -> int:
+    """The ensemble and cluster phases alone, on the card (build, the 26
+    capped tables, both phases):
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.repository_and_pool_phases())"``."""
+    from hugectr_backend_tpu_torch.native import kvstore
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = torch.cuda.get_device_name(0)
+    bw, _, int8_ops, _ = peaks(card)
+    kernels.build_all()
+    kvstore.load_lib()
+    with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_") as root:
+        tables, _ = build_deployment(root, [min(c, ROW_CAP) for c in CRITEO_CARDS], DIM, SEED)
+        for name, phase in (("ensemble", lambda: ensemble_phase(dev, tables, bw, int8_ops)),
+                            ("cluster", lambda: cluster_phase(dev, root, tables))):
+            t0 = time.perf_counter()
+            res = phase()
+            print(f"{name}: launches {res['launches']} ({time.perf_counter() - t0:.1f} s; "
+                  f"{card})", flush=True)
+    return 0
+
+
 def run_counted(srv, batches):
     """The counted run of one model: N_BATCHES predicts with the fold, then
     N_BATCHES without, launch counts set to 0 just before and read just
@@ -3099,10 +3674,10 @@ def main() -> int:
               "card": card, "nvidia_smi": smi})
 
     # The front end: KServe-v2 HTTP on the card. gRPC is held against the
-    # JAX package on the CPU (tests/test_torch_grpc.py): the card-side run
-    # needs neither grpcio nor protoc.
-    print("frontend: gRPC is tested on the CPU only (tests/test_torch_grpc.py); "
-          "serving HTTP with grpc_port=None", flush=True)
+    # JAX package on the CPU (tests/test_torch_grpc.py) and served on the
+    # card by the ensemble phase.
+    print("frontend: serving HTTP with grpc_port=None (gRPC: tests/test_torch_grpc.py "
+          "on the CPU, the ensemble phase on the card)", flush=True)
     fe = frontend_phase(cfg, tables)
     emit({"frontend_http": fe, "card": card, "nvidia_smi": smi})
     print(f"frontend: {fe['requests']} requests in {fe['wall_s']:.1f} s from "
@@ -3136,7 +3711,6 @@ def main() -> int:
     t0 = time.perf_counter()
     zoo = zoo_phase(dev, ps, cfg, batches,
                     emit_line=lambda line: emit({**line, "card": card, "nvidia_smi": smi}))
-    sparse_dir.cleanup()
     for name, n in zoo["launches"].items():
         launches[name] = launches.get(name, 0) + n
     timed = {ln["zoo"]: ln for ln in zoo["lines"] if "wall_ms_median" in ln}
@@ -3145,6 +3719,38 @@ def main() -> int:
         f"{ln['device_idle_share']}" for fam, ln in timed.items())
         + f"; every output within rel {ZOO_REL} of the CPU instance; K1 launches "
         f"{zoo['launches']} ({time.perf_counter() - t0:.1f} s; {card} | {smi})", flush=True)
+
+    # Phase 5e: a Triton model repository served on the card: the 26 tables
+    # as one HPS model behind dense models in four formats, as ensembles.
+    t0 = time.perf_counter()
+    ens = ensemble_phase(dev, tables, bw, int8_ops,
+                         emit_line=lambda line: emit({**line, "card": card, "nvidia_smi": smi}))
+    for name, n in ens["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    walls = {ln["ensemble"]: (ln["fused"]["wall_ms_median"], ln["staged"]["wall_ms_median"])
+             for ln in ens["lines"] if "fused" in ln}
+    print("ensemble: " + "; ".join(f"{e} fused {f:.3f} ms, staged {st:.3f} ms"
+                                   for e, (f, st) in walls.items())
+          + f" at batch {BATCH}; fused = staged = the host reference over the server, HTTP "
+          f"and gRPC; K1 once per fused infer, K5 {len(TOP)} times for w8a8; HTTP p50 "
+          f"{ens['http']['p50_ms']:.2f} ms, p99 {ens['http']['p99_ms']:.2f} ms; launches "
+          f"{ens['launches']} ({time.perf_counter() - t0:.1f} s; {card} | {smi})", flush=True)
+
+    # Phase 5f: the redis_cluster volatile db: the dynamic deployment with
+    # its DRAM tier on two pool node processes.
+    t0 = time.perf_counter()
+    clu = cluster_phase(dev, sparse_dir.name, tables,
+                        emit_line=lambda line: emit({**line, "card": card, "nvidia_smi": smi}))
+    sparse_dir.cleanup()
+    for name, n in clu["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"cluster: {clu['batches']} lookups over {clu['nodes']} pool nodes (secret + TLS; "
+          f"rows per node {clu['rows_per_node']}) bit-identical to the local-store CPU "
+          f"instance, K1 once per lookup; the pool's query of {clu['tier']['keys']} keys "
+          f"{clu['tier']['pool_query_ms']:.2f} ms vs the local store's "
+          f"{clu['tier']['local_query_ms']:.2f} ms, insert {clu['tier']['pool_insert_ms']:.2f} "
+          f"vs {clu['tier']['local_insert_ms']:.2f} ms ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
 
     # Phase 6: each kernel at its main-path shapes.
     results = {}
@@ -3213,7 +3819,7 @@ def main() -> int:
     chain = [lambda a=a: w8a8_dense(*a) for a in rec_q.calls["w8a8_dense"]]
     emit({"kernel": "w8a8_dense", "shape": "the 8 layers back to back in one CUDA graph",
           "chained_ms": graph_us(chain) * len(chain) / 1e3, "card": card, "nvidia_smi": smi})
-    launches["w8a8_dense"] = qlaunches["w8a8_dense"]
+    launches["w8a8_dense"] = qlaunches["w8a8_dense"] + ens["launches"].get("w8a8_dense", 0)
     # The routes past the former limits, each at its edge shape.
     repaired_route_timings(dev, bw, f32_flops,
                            lambda line: emit({**line, "card": card, "nvidia_smi": smi}))

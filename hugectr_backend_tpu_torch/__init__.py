@@ -26,8 +26,14 @@ BST, the two-tower user tower) serves through ``serving.program``'s
 ``serving.server`` serves a ps.json over KServe-v2 HTTP (and gRPC with
 ``grpcio``) through ``ModelManager`` and ``ContinuousBatcher``:
 ``python -m hugectr_backend_tpu_torch.serving.server ps.json --grpc-port -1``.
-Key translation, the DRAM stores, the quantizer and the batcher's merge run
-on a native host library (``native/``, built with ``g++`` at first use).
+With ``--model-repository DIR`` it serves a Triton-style model repository
+(``io.load_repository``): HPS models, dense models and the ensembles that
+chain them (``serving.ensemble``; the one-table chain runs fused on the
+card). Key translation, the DRAM stores, the quantizer and the batcher's
+merge run on a native host library (``native/``, built with ``g++`` at first
+use); ``volatile_db`` of type ``redis_cluster`` pools the DRAM of node
+servers (``tiers.cluster``:
+``python -m hugectr_backend_tpu_torch.tiers.cluster --port N``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``. The
 Pallas kernels of the JAX package are hand-written CUDA kernels here

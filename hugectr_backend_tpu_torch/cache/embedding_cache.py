@@ -170,9 +170,14 @@ class EmbeddingCache:
             miss_info.append((keys, miss_mask))
         return local_slots, counts, miss_info
 
-    def prepare_lookup(self, counts: Sequence[int], local_slots):
+    def prepare_lookup(self, counts: Sequence[int], local_slots, bucket: bool = True):
         """Host-side assembly of the device-program arguments (call under
         ``self._lock`` so slots and tensor snapshots stay consistent).
+
+        ``bucket``: pad each group's (and each one-hot member's) run to a
+        power of two with default-row slots, the layout the fused server's
+        chunk plan reads. :meth:`lookup` and :meth:`lookup_flat` slice every
+        table's rows out and pass False: on the card the pad is only work.
 
         -> (vals, dscales, slots_np, scin_np, meta, table_pos) where
         ``meta[g]`` describes group g for lookup_program.lookup_groups and
@@ -197,7 +202,7 @@ class EmbeddingCache:
                 for t in members:
                     tb = self.tables[t]
                     n = counts[t]
-                    pc = _bucket(max(n, 1))
+                    pc = _bucket(max(n, 1)) if bucket else max(n, 1)
                     arr = np.full(pc, tb.offset + tb.index.miss_slot, np.int64)
                     arr[:n] = local_slots[t].astype(np.int64) + tb.offset
                     slot_parts.append(arr)
@@ -220,7 +225,8 @@ class EmbeddingCache:
                     adj = local_slots[t0].astype(np.int64)
                     pad_slot = table0.index.miss_slot
                 total = adj.shape[0]
-                arr = np.full(_bucket(max(total, 1)), pad_slot, np.int64)
+                arr = np.full(_bucket(max(total, 1)) if bucket else max(total, 1), pad_slot,
+                              np.int64)
                 arr[:total] = adj
                 start = 0
                 for t in members:
@@ -262,7 +268,7 @@ class EmbeddingCache:
                         local_slots[t] = np.concatenate([local_slots[t], pad])
                         counts[t] = pc
             vals_l, dscales_l, slots_l, scin_l, metas, table_pos = (
-                self.prepare_lookup(counts, local_slots))
+                self.prepare_lookup(counts, local_slots, bucket=False))
         if not need_merge:
             slices = tuple(
                 (table_pos[t][0], table_pos[t][1], counts[t])
@@ -284,7 +290,7 @@ class EmbeddingCache:
         with self._lock:
             local_slots, counts, miss_info = self._translate_all(keys_per_table)
             vals_l, dscales_l, slots_l, scin_l, metas, table_pos = (
-                self.prepare_lookup(counts, local_slots))
+                self.prepare_lookup(counts, local_slots, bucket=False))
         return self._lookup_prepared(
             counts, miss_info, vals_l, dscales_l, slots_l, scin_l, metas, table_pos)
 

@@ -17,9 +17,13 @@ __all__ = [
     "DenseModel",
     "save_dense_model",
     "convert_torch_sequential",
+    "load_repository",
+    "load_model_repository",
+    "parse_pbtxt",
 ]
 
 _DENSE = ("DenseModel", "save_dense_model", "convert_torch_sequential")
+_REPO = ("load_repository", "load_model_repository", "parse_pbtxt")
 
 
 def __getattr__(name):
@@ -28,4 +32,8 @@ def __getattr__(name):
         from hugectr_backend_tpu_torch.io import dense_model
 
         return getattr(dense_model, name)
+    if name in _REPO:
+        from hugectr_backend_tpu_torch.io import model_repo
+
+        return getattr(model_repo, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

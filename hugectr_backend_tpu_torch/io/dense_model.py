@@ -22,8 +22,10 @@ the weight in bf16 and multiply with bf16 operands and f32 sums, as the JAX
 package does. In memory the port keeps each weight ``[out, in]`` (the
 ``nn.Linear`` layout, which K5 reads), the transpose of the file's.
 
-The ensemble that serves this model behind a lookup is ROADMAP queue A
-item 6.
+An ensemble (serving/ensemble.py) serves this model behind a lookup; a model
+repository (io/model_repo.py) names its input and output tensors
+(``input_name`` / ``output_name``). A dense model of a foreign platform
+(``FOREIGN_DENSE_PLATFORMS``) is converted to this format, never executed.
 """
 
 from __future__ import annotations
@@ -45,6 +47,16 @@ from hugectr_backend_tpu_torch.tiers.hbm import default_device
 SPEC_FILE = "dense_model.json"
 WEIGHTS_FILE = "dense_model.npz"
 QUANTS = (None, "int8", "fp8", "w8a8")
+
+#: Triton platforms the reference's ensembles use for the dense step; these
+#: require conversion to the native format (TF/torch/TRT are never executed).
+FOREIGN_DENSE_PLATFORMS = (
+    "tensorflow_savedmodel",
+    "tensorflow_graphdef",
+    "pytorch_libtorch",
+    "tensorrt_plan",
+    "onnxruntime_onnx",
+)
 
 _IDENTITY = ("identity", "linear", "none")
 _ACTIVATIONS = {
@@ -72,6 +84,10 @@ class DenseModel:
     spec: dict
     weights: list
     scales: Optional[list] = None
+    # Tensor names from the model's config.pbtxt (the reference's dense demo
+    # uses input_1/output_1 — 02_model_inference_hps_tf_ensemble.ipynb).
+    input_name: str = "input_1"
+    output_name: str = "output_1"
 
     def __post_init__(self):
         for layer in self.spec.get("layers", []):
@@ -100,6 +116,24 @@ class DenseModel:
     def device(self) -> torch.device:
         return self.weights[0][0].device
 
+    def metadata(self, name: str) -> dict:
+        """KServe-v2 model metadata, served as ``name``."""
+        return {
+            "name": name, "platform": "hps_tpu_dense",
+            "inputs": [{"name": self.input_name, "datatype": "FP32", "shape": [-1]}],
+            "outputs": [{"name": self.output_name, "datatype": "FP32",
+                         "shape": [-1, self.output_dim]}],
+        }
+
+    def config(self, name: str) -> dict:
+        """The model configuration, served as ``name``."""
+        return {
+            "name": name, "platform": "hps_tpu_dense",
+            "input": [{"name": self.input_name, "data_type": "TYPE_FP32", "dims": [-1]}],
+            "output": [{"name": self.output_name, "data_type": "TYPE_FP32",
+                        "dims": [-1, self.output_dim]}],
+        }
+
     # ---------------------------------------------------------------- compute
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
@@ -125,7 +159,8 @@ class DenseModel:
         return x
 
     def forward(self, x: np.ndarray) -> np.ndarray:
-        xt = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(self.device)
+        # A read-only buffer (a response's output) is copied, never aliased.
+        xt = torch.from_numpy(np.require(x, np.float32, ["C", "W"])).to(self.device)
         with torch.inference_mode():
             return self.apply(xt).cpu().numpy()
 

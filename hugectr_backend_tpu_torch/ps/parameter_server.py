@@ -75,8 +75,7 @@ log = get_logger("hps_tpu.ps")
 
 
 def _check_supported(config: ParameterServerConfig) -> None:
-    """Refuse the ps.json options that this port does not cover yet (the
-    volatile_db ``redis_cluster`` store raises in ``make_dram_tier``)."""
+    """Refuse the ps.json options that this port does not cover yet."""
     for p in config.models.values():
         if p.shard_tables:
             raise NotImplementedError(

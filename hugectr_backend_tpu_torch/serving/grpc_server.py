@@ -15,32 +15,28 @@ serve identical semantics:
 The service is wired with grpc generic method handlers over protoc-generated
 messages (serving/kserve_pb.py) — no grpcio-tools codegen needed. ``grpc`` is
 imported only when a server is built, so the HTTP frontend imports without
-it. Ensembles and dense models are ROADMAP queue A item 6: passing them
-raises ``NotImplementedError``.
+it. Ensembles and dense models (``ensembles=`` / ``dense_models=``, from a
+model repository) serve ModelReady, ModelMetadata, RepositoryIndex and
+ModelInfer beside the HPS models.
 """
 
 from __future__ import annotations
 
+import time
 from concurrent import futures
 from typing import Optional
 
 import numpy as np
 
 from hugectr_backend_tpu_torch.config.params import ConfigError
+from hugectr_backend_tpu_torch.serving import metrics
 from hugectr_backend_tpu_torch.serving.model_manager import ModelManager
-from hugectr_backend_tpu_torch.serving.pb_wire import infer_response_bytes
+from hugectr_backend_tpu_torch.serving.pb_wire import NP_TO_DT, WIRE_DT, infer_response_bytes
 from hugectr_backend_tpu_torch.serving.scheduler import RequestError
 from hugectr_backend_tpu_torch.utils.logging import get_logger
 
 log = get_logger("hps_tpu.grpc")
 
-# numpy wire dtypes per KServe datatype string (raw_*_contents are
-# little-endian, matching the HTTP binary-tensor extension).
-_WIRE_DT = {
-    "BOOL": "|b1", "INT8": "<i1", "INT16": "<i2", "INT32": "<i4",
-    "INT64": "<i8", "UINT8": "<u1", "UINT16": "<u2", "UINT32": "<u4",
-    "UINT64": "<u8", "FP16": "<f2", "FP32": "<f4", "FP64": "<f8",
-}
 # Which InferTensorContents field carries each datatype.
 _CONTENTS_FIELD = {
     "BOOL": "bool_contents", "INT8": "int_contents", "INT16": "int_contents",
@@ -50,19 +46,10 @@ _CONTENTS_FIELD = {
     "FP32": "fp32_contents", "FP64": "fp64_contents",
 }
 
-
-def refuse_ensembles(ensembles, dense_models) -> None:
-    """Ensembles and dense models behind the front end are not ported yet."""
-    if ensembles or dense_models:
-        raise NotImplementedError(
-            "ensembles and dense models behind the front end are ROADMAP queue "
-            "A item 6 (serving/ensemble.py, io/model_repo.py)")
-
-
 def _tensor_to_numpy(tensor, raw: Optional[bytes]):
     """Decode one InferInputTensor (raw bytes take precedence over contents)."""
     dt = tensor.datatype or "FP32"
-    wire = _WIRE_DT.get(dt)
+    wire = WIRE_DT.get(dt)
     if wire is None:
         raise RequestError(f"unsupported datatype {dt!r}")
     if raw is not None:
@@ -95,8 +82,9 @@ class KServeGrpcService:
     def __init__(self, manager: ModelManager, ensembles=None, dense_models=None):
         from hugectr_backend_tpu_torch.serving import kserve_pb
 
-        refuse_ensembles(ensembles, dense_models)
         self.manager = manager
+        self.ensembles = dict(ensembles or {})
+        self.dense_models = dict(dense_models or {})
         self.pb2 = kserve_pb.load()
 
     # -- health / metadata ----------------------------------------------------
@@ -113,13 +101,26 @@ class KServeGrpcService:
             extensions=["model_repository", "binary_tensor_data", "statistics"],
         )
 
+    def _model_ready(self, name: str) -> bool:
+        if name in self.ensembles:
+            return self.ensembles[name].ready()
+        return name in self.dense_models or self.manager.is_loaded(name)
+
     def model_ready(self, request, context):
-        return self.pb2.ModelReadyResponse(ready=self.manager.is_loaded(request.name))
+        return self.pb2.ModelReadyResponse(ready=self._model_ready(request.name))
 
     def model_metadata(self, request, context):
         pb2 = self.pb2
         name = request.name
         TM = pb2.ModelMetadataResponse.TensorMetadata
+        named = self.ensembles.get(name, self.dense_models.get(name))
+        if named is not None:
+            md = named.metadata(name)
+            return pb2.ModelMetadataResponse(
+                name=name, versions=["1"], platform=md["platform"],
+                inputs=[TM(**t) for t in md["inputs"]],
+                outputs=[TM(**t) for t in md["outputs"]],
+            )
         if not self.manager.is_loaded(name):
             import grpc
 
@@ -141,6 +142,10 @@ class KServeGrpcService:
                state=m.get("state", "READY"))
             for m in self.manager.loaded_models()
         ]
+        models += [MI(name=n, version="1", state="READY")
+                   for n in sorted(self.dense_models)]
+        models += [MI(name=n, version="1", state="READY")
+                   for n in sorted(self.ensembles)]
         return pb2.RepositoryIndexResponse(models=models)
 
     def repository_model_load(self, request, context):
@@ -182,6 +187,7 @@ class KServeGrpcService:
     def model_infer(self, request, context):
         import grpc
 
+        pb2 = self.pb2
         name = request.model_name
         raws = list(request.raw_input_contents)
         if raws and len(raws) != len(request.inputs):
@@ -197,43 +203,82 @@ class KServeGrpcService:
         except RequestError as e:
             context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
 
-        # The batcher records REQUEST_COUNT/LATENCY/FAIL per request.
+        t0 = time.perf_counter()
+        # HPS models are batcher-backed and the batcher already records
+        # REQUEST_COUNT/LATENCY/FAIL per request — counting here again
+        # doubled gRPC traffic's stats vs HTTP's. Ensembles and dense
+        # models bypass the batcher, so this handler owns their metrics.
+        tracked = name in self.ensembles or name in self.dense_models
         try:
-            if not self.manager.is_loaded(name):
-                context.abort(grpc.StatusCode.NOT_FOUND, f"model {name!r} not found")
-            if "KEYS" not in inputs or "NUMKEYS" not in inputs:
-                raise RequestError(
-                    "inputs KEYS (INT64) and NUMKEYS (INT32) are required "
-                    "(reference model_state.cpp:180-261)"
+            if name in self.ensembles:
+                outputs = self.ensembles[name].infer(inputs)
+                params = {}
+            elif name in self.dense_models:
+                dm = self.dense_models[name]
+                if dm.input_name not in inputs:
+                    raise RequestError(f"input {dm.input_name!r} is required")
+                outputs = {dm.output_name: dm.forward(
+                    np.asarray(inputs[dm.input_name], np.float32))}
+                params = {}
+            else:
+                if not self.manager.is_loaded(name):
+                    context.abort(
+                        grpc.StatusCode.NOT_FOUND, f"model {name!r} not found"
+                    )
+                if "KEYS" not in inputs or "NUMKEYS" not in inputs:
+                    raise RequestError(
+                        "inputs KEYS (INT64) and NUMKEYS (INT32) are required "
+                        "(reference model_state.cpp:180-261)"
+                    )
+                # Reject datatype mismatches instead of silently coercing
+                # (reference hps.cc:446-478; float keys would truncate) —
+                # exactly the HTTP surface's contract: KEYS INT64,
+                # NUMKEYS INT32.
+                kdt = str(np.asarray(inputs["KEYS"]).dtype)
+                if kdt != "int64":
+                    raise RequestError(f"input KEYS must be INT64, got {kdt}")
+                ndt = str(np.asarray(inputs["NUMKEYS"]).dtype)
+                if ndt != "int32":
+                    raise RequestError(f"input NUMKEYS must be INT32, got {ndt}")
+                resp = self.manager.infer(
+                    name,
+                    np.asarray(inputs["KEYS"], np.int64).reshape(-1),
+                    np.asarray(inputs["NUMKEYS"], np.int64).reshape(-1),
                 )
-            # Reject datatype mismatches instead of silently coercing
-            # (reference hps.cc:446-478; float keys would truncate) —
-            # exactly the HTTP surface's contract: KEYS INT64,
-            # NUMKEYS INT32.
-            kdt = str(np.asarray(inputs["KEYS"]).dtype)
-            if kdt != "int64":
-                raise RequestError(f"input KEYS must be INT64, got {kdt}")
-            ndt = str(np.asarray(inputs["NUMKEYS"]).dtype)
-            if ndt != "int32":
-                raise RequestError(f"input NUMKEYS must be INT32, got {ndt}")
-            resp = self.manager.infer(
-                name,
-                np.asarray(inputs["KEYS"], np.int64).reshape(-1),
-                np.asarray(inputs["NUMKEYS"], np.int64).reshape(-1),
-            )
+                # Hot path: frame the response by hand straight from the
+                # output buffer (serving/pb_wire.py — one copy instead of
+                # the tobytes -> message -> SerializeToString three); the
+                # method's response_serializer passes it through.
+                out = np.ascontiguousarray(resp.output, dtype="<f4")
+                return infer_response_bytes(
+                    name, request.model_version or "1", request.id,
+                    {"NumSample": resp.num_samples,
+                     "DeviceID": resp.device_id},
+                    "OUTPUT0", "FP32", [int(out.shape[0])], out,
+                )
         except RequestError as e:
+            if tracked:
+                metrics.REQUEST_FAIL.inc(model=name)
             context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
         except KeyError as e:
             context.abort(grpc.StatusCode.NOT_FOUND, str(e))
-        # Hot path: frame the response by hand straight from the output
-        # buffer (serving/pb_wire.py — one copy instead of the tobytes ->
-        # message -> SerializeToString three); the method's
-        # response_serializer passes it through.
-        out = np.ascontiguousarray(resp.output, dtype="<f4")
-        return infer_response_bytes(
-            name, request.model_version or "1", request.id,
-            {"NumSample": resp.num_samples, "DeviceID": resp.device_id},
-            "OUTPUT0", "FP32", [int(out.shape[0])], out,
+        if tracked:
+            metrics.REQUEST_COUNT.inc(model=name)
+            metrics.REQUEST_LATENCY.observe(
+                time.perf_counter() - t0, model=name)
+
+        out_tensors, out_raws = [], []
+        for oname, arr in outputs.items():
+            arr = np.asarray(arr)
+            dt = NP_TO_DT.get(str(arr.dtype), "FP32")
+            out_tensors.append(pb2.ModelInferResponse.InferOutputTensor(
+                name=oname, datatype=dt, shape=list(arr.shape)))
+            out_raws.append(
+                np.ascontiguousarray(arr.astype(WIRE_DT[dt])).tobytes())
+        return pb2.ModelInferResponse(
+            model_name=name, model_version=request.model_version or "1",
+            id=request.id, parameters=params,
+            outputs=out_tensors, raw_output_contents=out_raws,
         )
 
 
@@ -248,8 +293,7 @@ class HpsGrpcServer:
         from hugectr_backend_tpu_torch.serving import kserve_pb
 
         pb2 = kserve_pb.load()
-        refuse_ensembles(ensembles, dense_models)
-        svc = KServeGrpcService(manager)
+        svc = KServeGrpcService(manager, ensembles, dense_models)
         rpcs = {
             "ServerLive": (pb2.ServerLiveRequest, svc.server_live),
             "ServerReady": (pb2.ServerReadyRequest, svc.server_ready),

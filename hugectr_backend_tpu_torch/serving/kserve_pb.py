@@ -1,28 +1,30 @@
-"""Lazy protoc codegen for the KServe v2 gRPC protocol messages.
+"""The KServe v2 gRPC protocol messages, built from a compiled descriptor.
 
-Port of the JAX package's serving/kserve_pb.py. ``load`` generates
-``kserve_v2_pb2.py`` from this package's copy of ``kserve_v2.proto`` with
-``protoc`` at first use, into the package's ignored ``_build/`` directory
-(the file name carries a hash of the .proto, so an edited .proto is
-regenerated). Only message codegen is needed: the service is wired by hand in
-grpc_server.py through grpc generic method handlers, so grpcio-tools is not
-required.
+Port of the JAX package's serving/kserve_pb.py, which runs ``protoc`` at first
+use. Here ``kserve_v2.desc`` (the ``FileDescriptorProto`` that ``protoc``
+compiles from this package's ``kserve_v2.proto``, as its Python generator
+embeds it, committed beside it) is turned into message classes by
+protobuf's own builder, the calls a protoc-generated ``kserve_v2_pb2.py``
+makes, so a machine without ``protoc`` serves gRPC too. After editing the
+.proto, regenerate it with ``python -m
+hugectr_backend_tpu_torch.serving.kserve_pb`` (needs ``protoc``;
+tests/test_torch_grpc.py checks the two agree). Only messages are built: the
+service is wired by hand in grpc_server.py through grpc generic method
+handlers, so grpcio-tools is not required.
 """
 
 from __future__ import annotations
 
-import hashlib
-import importlib.util
-import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
 import threading
+import types
 
 _HERE = pathlib.Path(__file__).resolve().parent
-_PROTO = _HERE / "kserve_v2.proto"
-BUILD_DIR = _HERE.parent / "_build"
+PROTO = _HERE / "kserve_v2.proto"
+DESCRIPTOR_FILE = _HERE / "kserve_v2.desc"
 _lock = threading.Lock()
 _module = None
 
@@ -30,42 +32,49 @@ _module = None
 SERVICE_NAME = "inference.GRPCInferenceService"
 
 
-def _target() -> pathlib.Path:
-    digest = hashlib.sha1(_PROTO.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"kserve_v2_pb2-{digest}.py"
-
-
-def _generate(out: pathlib.Path) -> None:
-    protoc = shutil.which("protoc")
-    if protoc is None:
-        raise RuntimeError("protoc not found on PATH: the gRPC frontend generates "
-                           "its messages from serving/kserve_v2.proto at first use")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Generate into a private temp dir and publish with an atomic rename:
-    # processes generating at once must never load a half-written pb2.
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        proc = subprocess.run(
-            [protoc, f"-I{_HERE}", f"--python_out={tmp}", _PROTO.name],
-            cwd=_HERE, capture_output=True, timeout=120,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"protoc failed for {_PROTO.name}:\n"
-                               f"{proc.stderr.decode(errors='replace')}")
-        os.replace(pathlib.Path(tmp) / "kserve_v2_pb2.py", out)
-
-
 def load():
-    """Return the generated kserve_v2_pb2 module (codegen on first use)."""
+    """Return the kserve_v2_pb2 module (built on first use)."""
     global _module
     if _module is not None:
         return _module
     with _lock:
         if _module is None:
-            out = _target()
-            if not out.exists():
-                _generate(out)
-            spec = importlib.util.spec_from_file_location("kserve_v2_pb2", out)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
+            from google.protobuf import descriptor_pool
+            from google.protobuf.internal import builder
+
+            mod = types.ModuleType("kserve_v2_pb2")
+            mod.DESCRIPTOR = descriptor_pool.Default().AddSerializedFile(
+                DESCRIPTOR_FILE.read_bytes())
+            builder.BuildMessageAndEnumDescriptors(mod.DESCRIPTOR, mod.__dict__)
+            builder.BuildTopDescriptorsAndMessages(mod.DESCRIPTOR, "kserve_v2_pb2",
+                                                   mod.__dict__)
             _module = mod
         return _module
+
+
+def compile_descriptor() -> bytes:
+    """``protoc``'s compile of ``kserve_v2.proto``, serialized as its Python
+    generator embeds it (no ``json_name``)."""
+    from google.protobuf import descriptor_pb2
+
+    protoc = shutil.which("protoc")
+    if protoc is None:
+        raise RuntimeError("protoc not found on PATH")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "kserve_v2.fds"
+        subprocess.run([protoc, f"-I{_HERE}", f"--descriptor_set_out={out}", PROTO.name],
+                       cwd=_HERE, check=True, capture_output=True, timeout=120)
+        (f,) = descriptor_pb2.FileDescriptorSet.FromString(out.read_bytes()).file
+
+    def strip(messages):
+        for m in messages:
+            for field in m.field:
+                field.ClearField("json_name")
+            strip(m.nested_type)
+
+    strip(f.message_type)
+    return f.SerializeToString()
+
+
+if __name__ == "__main__":
+    DESCRIPTOR_FILE.write_bytes(compile_descriptor())

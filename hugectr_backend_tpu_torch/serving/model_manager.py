@@ -64,7 +64,9 @@ class ModelManager:
     @classmethod
     def create(cls, ps_source, load_all: bool = True, device=None) -> "ModelManager":
         """Build PS + manager; optionally load every configured model (the
-        reference's non-explicit model-control default). ``device="cpu"``
+        reference's non-explicit model-control default). ``ps_source``: a
+        ps.json path, its text or mapping, or the ``ParameterServerConfig``
+        that ``io.model_repo.load_repository`` returns. ``device="cpu"``
         serves everything on the CPU."""
         ps = HierParameterServer.create(ps_source, device=device)
         mgr = cls(ps)
@@ -92,11 +94,14 @@ class ModelManager:
             if prev is None or version_changed:
                 if version_changed:
                     # Online redeploy: re-load tiers for the new version
-                    # (reference hps.cc:207-219 re-parses the PS on version
-                    # change). The JAX package first re-points a model
-                    # repository's files at the version dir; for ps.json
-                    # models that is a no-op, and model repositories are
-                    # ROADMAP queue A item 6.
+                    # (reference hps.cc:207-219 re-parses the PS on version change).
+                    # Repository models re-point their file paths at the
+                    # requested version dir first (no-op otherwise).
+                    from hugectr_backend_tpu_torch.io.model_repo import (
+                        switch_model_version,
+                    )
+
+                    switch_model_version(params, new_version)
                     self.ps.update_database_per_model(params)
                 if model_name not in self.ps._caches:
                     self.ps.create_embedding_cache_per_model(model_name)

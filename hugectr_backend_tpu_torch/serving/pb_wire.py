@@ -18,9 +18,23 @@ Field numbers from serving/kserve_v2.proto (ModelInferResponse:111-125;
 InferOutputTensor name/datatype/shape/..; InferParameter oneof):
 exactness vs the protoc-generated serializer is pinned by a round trip
 through the generated pb2 in tests/test_torch_grpc.py.
+
+``WIRE_DT`` and ``NP_TO_DT`` are the KServe v2 datatypes both front ends
+(HTTP and gRPC) read and write.
 """
 
 from __future__ import annotations
+
+# numpy wire dtype per KServe datatype (little-endian: raw_*_contents and
+# the HTTP binary-tensor extension carry them so).
+WIRE_DT = {
+    "BOOL": "|b1", "INT8": "<i1", "INT16": "<i2", "INT32": "<i4",
+    "INT64": "<i8", "UINT8": "<u1", "UINT16": "<u2", "UINT32": "<u4",
+    "UINT64": "<u8", "FP16": "<f2", "FP32": "<f4", "FP64": "<f8",
+}
+# KServe datatype of an output array, by numpy dtype name (others go as FP32).
+NP_TO_DT = {"int64": "INT64", "int32": "INT32", "float32": "FP32",
+            "float64": "FP64", "bool": "BOOL"}
 
 
 def _varint(buf: bytearray, v: int) -> None:

@@ -2,13 +2,12 @@
 
 Port of the JAX package's serving/server.py: the same endpoints, status codes
 and error bodies, JSON and binary-tensor protocols, TLS and command line,
-over the port's ModelManager. It serves on the card unless ``serve`` (or
-``ModelManager.create``) is given ``device="cpu"``:
+over the port's ModelManager, with the ensembles and dense models of a
+Triton-style model repository beside the HPS models. It serves on the card
+unless ``serve`` (or ``ModelManager.create``) is given ``device="cpu"``:
 
     python -m hugectr_backend_tpu_torch.serving.server ps.json --grpc-port -1
-
-Model repositories (``model_repository=``), ensembles and dense models are
-ROADMAP queue A item 6 and raise ``NotImplementedError``.
+    python -m hugectr_backend_tpu_torch.serving.server --model-repository DIR
 
 Replaces the Triton server frontend the reference plugs into (reference
 README.md:105-108 launches ``tritonserver``; clients use tritonclient.http
@@ -44,8 +43,8 @@ import numpy as np
 
 from hugectr_backend_tpu_torch.config.params import ConfigError
 from hugectr_backend_tpu_torch.serving import metrics
-from hugectr_backend_tpu_torch.serving.grpc_server import refuse_ensembles
 from hugectr_backend_tpu_torch.serving.model_manager import ModelManager
+from hugectr_backend_tpu_torch.serving.pb_wire import NP_TO_DT, WIRE_DT
 from hugectr_backend_tpu_torch.serving.scheduler import RequestError
 from hugectr_backend_tpu_torch.utils.logging import get_logger
 
@@ -54,6 +53,8 @@ log = get_logger("hps_tpu.http")
 
 class _Handler(BaseHTTPRequestHandler):
     manager: ModelManager = None  # set by HpsHttpServer
+    ensembles: dict = {}          # name -> serving.ensemble.EnsembleServer
+    dense_models: dict = {}       # name -> io.dense_model.DenseModel
     protocol_version = "HTTP/1.1"
 
     # -- helpers -------------------------------------------------------------
@@ -93,7 +94,11 @@ class _Handler(BaseHTTPRequestHandler):
                 )
             if len(parts) == 4 and parts[:2] == ["v2", "models"] and parts[3] == "ready":
                 name = parts[2]
-                if self.manager.is_loaded(name):
+                if name in self.ensembles:
+                    if self.ensembles[name].ready():
+                        return self._json(200, {})
+                    return self._error(400, f"ensemble {name!r} not ready")
+                if name in self.dense_models or self.manager.is_loaded(name):
                     return self._json(200, {})
                 return self._error(400, f"model {name!r} not ready")
             if len(parts) == 4 and parts[:2] == ["v2", "models"] and parts[3] == "stats":
@@ -135,6 +140,9 @@ class _Handler(BaseHTTPRequestHandler):
                 # Triton's model-configuration endpoint (tritonclient
                 # get_model_config); reconstructs the config.pbtxt content.
                 name = parts[2]
+                named = self.ensembles.get(name, self.dense_models.get(name))
+                if named is not None:
+                    return self._json(200, named.config(name))
                 if not self.manager.is_loaded(name):
                     return self._error(404, f"model {name!r} not found")
                 p = self.manager.ps.get_model_params(name)
@@ -162,6 +170,9 @@ class _Handler(BaseHTTPRequestHandler):
                 })
             if len(parts) == 3 and parts[:2] == ["v2", "models"]:
                 name = parts[2]
+                named = self.ensembles.get(name, self.dense_models.get(name))
+                if named is not None:
+                    return self._json(200, named.metadata(name))
                 if not self.manager.is_loaded(name):
                     return self._error(404, f"model {name!r} not found")
                 p = self.manager.ps.get_model_params(name)
@@ -198,9 +209,30 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             if len(parts) == 4 and parts[:2] == ["v2", "models"] and parts[3] == "infer":
                 name = parts[2]
+                if name in self.ensembles:
+                    return self._infer_named(name, self.ensembles[name].infer)
+                if name in self.dense_models:
+                    dm = self.dense_models[name]
+                    return self._infer_named(
+                        name,
+                        lambda ins: {
+                            dm.output_name: dm.forward(
+                                np.asarray(ins[dm.input_name], np.float32)
+                            )
+                        },
+                    )
                 return self._infer(name)
             if parts == ["v2", "repository", "index"]:
-                return self._json(200, self.manager.loaded_models())
+                index = self.manager.loaded_models()
+                index += [
+                    {"name": n, "version": "1", "state": "READY"}
+                    for n in sorted(self.dense_models)
+                ]
+                index += [
+                    {"name": n, "version": "1", "state": "READY"}
+                    for n in sorted(self.ensembles)
+                ]
+                return self._json(200, index)
             if (
                 len(parts) == 5
                 and parts[:3] == ["v2", "repository", "models"]
@@ -244,6 +276,109 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:  # pragma: no cover
             log.exception("POST failed")
             return self._error(500, str(e))
+
+    def _infer_named(self, model_name: str, infer_fn):
+        """Generic KServe-v2 infer for models with arbitrary named tensors
+        (ensembles, dense models). ``infer_fn(inputs dict) -> outputs dict``."""
+        body = self._read_body()
+        header_len = self.headers.get("Inference-Header-Content-Length")
+        raw_tail = b""
+        if header_len is not None:
+            try:
+                h = int(header_len)
+            except ValueError:
+                return self._error(400, "bad Inference-Header-Content-Length")
+            body, raw_tail = body[:h], body[h:]
+        try:
+            req = json.loads(body)
+        except json.JSONDecodeError as e:
+            return self._error(400, f"bad JSON: {e}")
+        inputs: dict[str, np.ndarray] = {}
+        offset = 0
+        try:
+            for t in req.get("inputs", []):
+                name = t.get("name")
+                dt = t.get("datatype", "FP32")
+                # HPS wire-contract datatypes are fixed (reference
+                # hps.cc:446-478 rejects mismatches before touching data).
+                want = {"KEYS": "INT64", "NUMKEYS": "INT32"}.get(name)
+                if want is not None and dt != want:
+                    return self._error(
+                        400, f"input {name} must be {want}, got {dt}"
+                    )
+                shape = t.get("shape")
+                bsize = t.get("parameters", {}).get("binary_data_size")
+                if bsize is not None:
+                    wire = WIRE_DT.get(dt)
+                    if wire is None:
+                        return self._error(400, f"unsupported datatype {dt}")
+                    arr = np.frombuffer(raw_tail[offset : offset + bsize], wire)
+                    offset += bsize
+                else:
+                    wire = WIRE_DT.get(dt, "<f4")
+                    arr = np.asarray(t.get("data", []), dtype=np.dtype(wire))
+                if shape:
+                    dims = [int(d) for d in shape]
+                    if any(d < 0 for d in dims):
+                        # request shapes must be concrete (numpy would treat
+                        # ANY negative as a reshape wildcard and silently
+                        # accept it)
+                        return self._error(
+                            400, f"input {name}: negative dim in shape {dims}"
+                        )
+                    arr = arr.reshape(dims)
+                inputs[name] = arr
+        except (TypeError, ValueError) as e:
+            return self._error(400, f"bad tensor data: {e}")
+
+        t0 = time.perf_counter()
+        try:
+            outputs = infer_fn(inputs)
+        except RequestError as e:
+            metrics.REQUEST_FAIL.inc(model=model_name)
+            return self._error(400, str(e))
+        metrics.REQUEST_COUNT.inc(model=model_name)
+        metrics.REQUEST_LATENCY.observe(
+            time.perf_counter() - t0, model=model_name
+        )
+
+        want_binary = any(
+            o.get("parameters", {}).get("binary_data")
+            for o in req.get("outputs", [])
+        )
+        out_list, raws = [], []
+        for oname, arr in outputs.items():
+            arr = np.asarray(arr)
+            dt = NP_TO_DT.get(str(arr.dtype), "FP32")
+            entry = {
+                "name": oname,
+                "datatype": dt,
+                "shape": [int(d) for d in arr.shape],
+            }
+            if want_binary:
+                # ascontiguousarray with a target dtype converts only when
+                # needed — no unconditional astype copy, no tobytes: the
+                # buffers stream to the socket below.
+                raw = np.ascontiguousarray(arr, np.dtype(WIRE_DT[dt]))
+                entry["parameters"] = {"binary_data_size": raw.nbytes}
+                raws.append(raw)
+            else:
+                entry["data"] = arr.reshape(-1).tolist()
+            out_list.append(entry)
+        header = {"model_name": model_name, "outputs": out_list}
+        if want_binary:
+            hdr = json.dumps(header).encode()
+            total = len(hdr) + sum(r.nbytes for r in raws)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Inference-Header-Content-Length", str(len(hdr)))
+            self.send_header("Content-Length", str(total))
+            self.end_headers()
+            self.wfile.write(hdr)
+            for r in raws:
+                self.wfile.write(memoryview(r).cast("B"))
+            return None
+        return self._json(200, header)
 
     def _infer(self, model_name: str):
         body = self._read_body()
@@ -367,8 +502,15 @@ class HpsHttpServer:
     def __init__(self, manager: ModelManager, host="127.0.0.1", port: int = 8000,
                  ensembles=None, dense_models=None,
                  tls_certfile=None, tls_keyfile=None):
-        refuse_ensembles(ensembles, dense_models)
-        handler = type("BoundHandler", (_Handler,), {"manager": manager})
+        handler = type(
+            "BoundHandler",
+            (_Handler,),
+            {
+                "manager": manager,
+                "ensembles": dict(ensembles or {}),
+                "dense_models": dict(dense_models or {}),
+            },
+        )
         # Default listen backlog (5) drops connections under bursty client
         # concurrency — raise it to what a serving frontend expects.
         server_cls = type(
@@ -417,22 +559,42 @@ def serve(ps_source=None, host="127.0.0.1", port=8000, block=True,
           tls_certfile=None, tls_keyfile=None, device=None):
     """Entry point: ``python -m hugectr_backend_tpu_torch.serving.server
     ps.json`` (the reference's ``tritonserver --backend-config=hps,ps=...``
-    equivalent, README.md:105-108). ``grpc_port`` additionally serves the
-    KServe v2 gRPC protocol (Triton's port-8001 surface) over the same
-    manager. ``device``: None serves on the card (``cuda:<id>`` per
-    ``deployed_device_list`` id; raises with no card), ``"cpu"`` on the CPU.
-    ``model_repository`` (a Triton-style repository) is ROADMAP queue A
-    item 6."""
+    equivalent, README.md:105-108). Passing ``model_repository`` consumes a
+    Triton-style model repository (``tritonserver --model-repository=...``):
+    config.pbtxt per model + numeric version dirs, with ps.json at the repo
+    root unless ``ps_source`` is given (io/model_repo.py); its dense models
+    and ensembles serve beside the HPS models. ``grpc_port`` additionally
+    serves the KServe v2 gRPC protocol (Triton's port-8001 surface) over the
+    same manager and ensembles. ``device``: None serves on the card
+    (``cuda:<id>`` per ``deployed_device_list`` id; raises with no card),
+    ``"cpu"`` on the CPU."""
+    ensembles = dense_models = None
     if model_repository is not None:
-        raise NotImplementedError(
-            "model_repository (Triton-style repositories, ensembles and dense "
-            "models) is ROADMAP queue A item 6; serve a ps.json")
-    if ps_source is None:
-        raise ValueError("ps_source is required")
-    manager = ModelManager.create(ps_source, device=device)
+        from hugectr_backend_tpu_torch.io.model_repo import load_repository
+        from hugectr_backend_tpu_torch.serving.ensemble import EnsembleServer
+
+        bundle = load_repository(model_repository, ps_source, device=device)
+        manager = ModelManager.create(bundle.ps_config, load_all=False, device=device)
+        try:
+            for name, version in bundle.hps_versions.items():
+                manager.load(name, version=version)
+            dense_models = bundle.dense
+            ensembles = {
+                name: EnsembleServer(spec, manager, bundle.dense)
+                for name, spec in bundle.ensembles.items()
+            }
+        except BaseException:
+            manager.shutdown()
+            raise
+    else:
+        if ps_source is None:
+            raise ValueError("either ps_source or model_repository is required")
+        manager = ModelManager.create(ps_source, device=device)
     try:
-        server = HpsHttpServer(manager, host, port, tls_certfile=tls_certfile,
-                               tls_keyfile=tls_keyfile).start()
+        server = HpsHttpServer(
+            manager, host, port, ensembles=ensembles, dense_models=dense_models,
+            tls_certfile=tls_certfile, tls_keyfile=tls_keyfile,
+        ).start()
     except BaseException:
         manager.shutdown()
         raise
@@ -442,6 +604,7 @@ def serve(ps_source=None, host="127.0.0.1", port=8000, block=True,
         try:
             server.grpc = HpsGrpcServer(
                 manager, host, grpc_port,
+                ensembles=ensembles, dense_models=dense_models,
                 tls_certfile=tls_certfile, tls_keyfile=tls_keyfile,
             ).start()
         except BaseException:
@@ -459,7 +622,12 @@ if __name__ == "__main__":
     import argparse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("ps_json", help="path to ps.json")
+    ap.add_argument("ps_json", nargs="?", help="path to ps.json")
+    ap.add_argument(
+        "--model-repository",
+        help="Triton-style model repository dir (config.pbtxt + version dirs); "
+        "ps.json defaults to <repo>/ps.json",
+    )
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument(
@@ -471,5 +639,6 @@ if __name__ == "__main__":
     ap.add_argument("--tls-key", help="PEM private key for --tls-cert")
     args = ap.parse_args()
     serve(args.ps_json, args.host, args.port,
+          model_repository=args.model_repository,
           grpc_port=None if args.grpc_port < 0 else args.grpc_port,
           tls_certfile=args.tls_cert, tls_keyfile=args.tls_key)

@@ -8,9 +8,10 @@ resolution target with the configured policy (random / least-used / oldest).
 
 :func:`make_dram_tier` returns the native C++ store
 (``native/kvstore.py NativeDramKVTier``, the same semantics) or the
-shared-memory store, as the JAX package does; this numpy store is their plain
-version, which the tests hold them against. The cluster tier is not ported
-yet (ROADMAP queue A item 3): ``redis_cluster`` raises.
+shared-memory store, or for ``redis_cluster`` the pool of node servers
+(``tiers/cluster.py ClusterKVTier``), as the JAX package does; this numpy
+store is the plain version of the native one, which the tests hold it
+against.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ from hugectr_backend_tpu_torch.config.params import (
     VolatileDatabaseParams,
 )
 from hugectr_backend_tpu_torch.tiers.base import KVTier
+from hugectr_backend_tpu_torch.utils.logging import get_logger
+
+log = get_logger("hps_tpu.dram")
 
 
 class _Partition:
@@ -248,7 +252,9 @@ def make_dram_tier(params: Optional[VolatileDatabaseParams] = None) -> KVTier:
     :class:`~hugectr_backend_tpu_torch.native.kvstore.NativeDramKVTier`;
     ``multi_process_hash_map`` the /dev/shm store shared by every serving
     process on the host (reference docs/hierarchical_parameter_server.md:
-    417-421). The cluster store is queued."""
+    417-421); ``redis_cluster`` the TCP-sharded pool of node servers
+    (tiers/cluster.py), or the local native store, with a warning, when no
+    node answers."""
     from hugectr_backend_tpu_torch.native.kvstore import (
         NativeDramKVTier,
         SharedMemoryDramKVTier,
@@ -257,7 +263,55 @@ def make_dram_tier(params: Optional[VolatileDatabaseParams] = None) -> KVTier:
     if params is not None and params.type == DatabaseType.MULTI_PROCESS_HASH_MAP:
         return SharedMemoryDramKVTier(params)
     if params is not None and params.type == DatabaseType.REDIS_CLUSTER:
-        raise NotImplementedError(
-            "volatile_db type redis_cluster needs the cluster tier "
-            "(tiers/cluster.py, ROADMAP queue A item 3)")
+        tier = _cluster_tier(params)
+        if tier is not None:
+            return tier
     return NativeDramKVTier(params)
+
+
+def _cluster_tier(params: VolatileDatabaseParams) -> Optional[KVTier]:
+    """The reference pools the RAM of a Redis cluster for cross-host volatile
+    capacity (doc:423-458); here one node server per host, keys partitioned
+    by low bits exactly like the reference. -> the pool, or None when no
+    node answers."""
+    from hugectr_backend_tpu_torch.tiers.cluster import ClusterKVTier
+
+    addrs = [a for a in params.address.split(",") if a.strip()]
+    # Security plumbing (reference redis TLS/password opts, doc:450-458):
+    # ``password`` becomes the shared-secret handshake; ``enable_tls`` wraps
+    # the node connections using the configured CA / client cert.
+    tls = None
+    if params.enable_tls:
+        import ssl
+
+        tls = ssl.create_default_context(
+            ssl.Purpose.SERVER_AUTH, cafile=params.tls_ca_certificate
+        )
+        try:
+            tls.load_cert_chain(params.tls_client_certificate, params.tls_client_key)
+        except (FileNotFoundError, ssl.SSLError):
+            pass  # client certs optional; CA-verified server TLS only
+    tier = None
+    try:
+        tier = ClusterKVTier(
+            addrs, max_batch_size=params.max_batch_size,
+            secret=params.password or None, tls=tls,
+            server_hostname=params.tls_server_name_identification,
+        )
+        tier.ping()
+    except (OSError, ValueError) as e:
+        if tier is not None:
+            tier.close()  # the nodes that did answer
+        # Reference resilience posture: fall back rather than fail the
+        # server (its persistent-DB full copy covers a Redis outage,
+        # doc:43). ValueError covers malformed/empty address lists (e.g. a
+        # port-less host string), which degrade the same way a dead node
+        # does.
+        log.warning(
+            "volatile_db redis_cluster: cannot reach pool nodes at %s (%s); "
+            "falling back to the local DRAM store", params.address, e,
+        )
+        return None
+    log.info("volatile_db redis_cluster: pooled DRAM tier across %d node(s) at %s",
+             len(addrs), params.address)
+    return tier

@@ -28,6 +28,7 @@ from hugectr_backend_tpu.io.sparse_model import write_sparse_model
 from hugectr_backend_tpu.io.synthetic import make_synthetic_table
 from hugectr_backend_tpu.serving.model_manager import ModelManager as JaxManager
 from hugectr_backend_tpu.serving.server import HpsHttpServer as JaxHttpServer
+from hugectr_backend_tpu_torch.config.params import ConfigError
 from hugectr_backend_tpu_torch.serving import metrics as tmetrics
 from hugectr_backend_tpu_torch.serving.model_manager import ModelManager
 from hugectr_backend_tpu_torch.serving.scheduler import ContinuousBatcher, RequestError
@@ -392,8 +393,9 @@ def test_batcher_isolates_a_poisoned_request(pair):
 
 
 def test_serve_entry_point_and_tls(tmp_path, thresholds):
-    """``serve`` on the CPU (block=False), plain and over TLS; model
-    repositories, ensembles and dense models raise."""
+    """``serve`` on the CPU (block=False), plain and over TLS; a directory
+    that holds no model repository is refused, and ``HpsHttpServer`` takes
+    ensembles and dense models (tests/test_torch_ensemble.py serves them)."""
     import ssl
     import subprocess
 
@@ -419,14 +421,15 @@ def test_serve_entry_point_and_tls(tmp_path, thresholds):
                                    timeout=5)
     finally:
         srv.stop()
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
+    with pytest.raises(ConfigError, match="no models found"):
         serve(cfg, port=0, block=False, model_repository=str(tmp_path), device="cpu")
     mgr = ModelManager.create(cfg, load_all=False, device="cpu")
+    srv = HpsHttpServer(mgr, port=0, ensembles={}, dense_models={}).start()
     try:
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            HpsHttpServer(mgr, port=0, ensembles={"e": object()})
+        status, _, body = _call(srv, "POST", "/v2/repository/index")
+        assert status == 200 and json.loads(body) == []
     finally:
-        mgr.shutdown()
+        srv.stop()
 
 
 def test_manager_needs_a_card_unless_asked_for_cpu(tmp_path, thresholds):

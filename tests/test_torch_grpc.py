@@ -241,6 +241,21 @@ def test_load_unload_with_version_identical(tmp_path, pb2):
             tmgr.shutdown()
 
 
+def test_descriptor_is_the_protos_compile(pb2):
+    """The committed descriptor is protoc's compile of kserve_v2.proto, byte
+    for byte the one the JAX package's generated module registers."""
+    import re
+    import shutil
+
+    if shutil.which("protoc") is None:
+        pytest.skip("protoc is not installed")
+    data = kserve_pb.DESCRIPTOR_FILE.read_bytes()
+    assert kserve_pb.compile_descriptor() == data
+    assert jax_kserve_pb.load().DESCRIPTOR.serialized_pb == data
+    assert pb2.DESCRIPTOR.serialized_pb == data
+    assert re.search(rb"package inference;", kserve_pb.PROTO.read_bytes())
+
+
 def test_pb_wire_matches_generated_serializer_and_the_jax_bytes(pb2):
     """The hand-framed response parses back to the message the generated
     code builds, and its bytes are the JAX package's."""
@@ -292,7 +307,18 @@ def test_tls_and_the_ensemble_refusal(tmp_path, pb2):
             assert ready.ready
         finally:
             client.close()
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            HpsGrpcServer(srv.manager, port=0, dense_models={"d": object()})
+        # Ensembles and dense models are served now (tests/test_torch_ensemble.py);
+        # an empty set of each leaves the index to the HPS models.
+        extra = HpsGrpcServer(srv.manager, port=0, ensembles={}, dense_models={}).start()
+        try:
+            client = _Client(extra.port)
+            try:
+                index = pb2.RepositoryIndexResponse.FromString(
+                    client.call("RepositoryIndex", pb2.RepositoryIndexRequest()))
+                assert [m.name for m in index.models] == ["dlrm"]
+            finally:
+                client.close()
+        finally:
+            extra.stop()
     finally:
         srv.stop()

@@ -78,6 +78,9 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.models.two_tower",
     "hugectr_backend_tpu_torch.serving.pooled",
     "hugectr_backend_tpu_torch.serving.retrieval",
+    "hugectr_backend_tpu_torch.io.model_repo",
+    "hugectr_backend_tpu_torch.serving.ensemble",
+    "hugectr_backend_tpu_torch.tiers.cluster",
     "chip_smoke",
 ]
 
@@ -159,11 +162,13 @@ def test_parameter_server_needs_a_card_unless_asked_for_cpu(tmp_path):
     ("shard_tables", True),
     ("embedding_cache_type", "uvm"),
     ("embedding_cache_type", "stochastic"),
-    ("volatile_db", {"type": "redis_cluster"}),
+    ("volatile_db", {"type": "redis_cluster", "address": "127.0.0.1:1"}),
 ])
 def test_uncovered_options_raise(tmp_path, option, value):
     """Options the port does not cover yet raise, naming their ROADMAP item;
-    the dynamic, stochastic and UVM caches are covered: they serve."""
+    the dynamic, stochastic and UVM caches and the ``redis_cluster`` volatile
+    db (here on its local fallback: no node answers) are covered: they
+    serve."""
     from hugectr_backend_tpu_torch import HierParameterServer, LookupSession
     from hugectr_backend_tpu_torch.io.sparse_model import write_sparse_model
 
@@ -178,12 +183,13 @@ def test_uncovered_options_raise(tmp_path, option, value):
         cfg[option] = value
     else:
         model[option] = value
-    if option == "embedding_cache_type":
+    if option in ("embedding_cache_type", "volatile_db"):
         ps = HierParameterServer.create(cfg, device="cpu")
         try:
             cache = ps.get_embedding_cache("m", 1)
-            assert type(cache).__name__ == {"uvm": "UvmEmbeddingCache"}.get(
-                value, "DynamicEmbeddingCache")
+            want = ("EmbeddingCache" if option == "volatile_db" else
+                    {"uvm": "UvmEmbeddingCache"}.get(value, "DynamicEmbeddingCache"))
+            assert type(cache).__name__ == want
             out = LookupSession.create(ps.get_model_params("m"), cache).lookup_numpy(
                 [np.array([2, 7], np.int64)])[0]
             np.testing.assert_array_equal(out, [[2.0], [0.0]])

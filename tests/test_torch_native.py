@@ -222,10 +222,13 @@ def test_make_dram_tier_is_native(vtype):
 
 
 def test_redis_cluster_still_raises():
+    """``redis_cluster`` no longer raises: with no node answering at its
+    address it serves from the local native store (tests/test_torch_cluster.py
+    covers the pool itself)."""
     p = VolatileDatabaseParams()
     p.type = DatabaseType.REDIS_CLUSTER
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        make_dram_tier(p)
+    p.address = "127.0.0.1:1"
+    assert isinstance(make_dram_tier(p), kvstore.NativeDramKVTier)
 
 
 _SHM_CHILD = textwrap.dedent("""
