@@ -146,6 +146,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (106,496 keys, padded to 131,072 slots) and K5 at the w8a8 model's five
    layers (M 4096; K 3328 -> N 1024 first) timed beside their plain versions
    and bounds.
+5e2. Sharded tables (the "sharded" phase, ``sharded_phase``; ``parallel/``),
+   every shard on the one card, so no interconnect is measured: (1) the 26
+   tables as one (1,855,979 x 128 int8) in a ``ShardedTable`` at P = 2 and
+   8, both strategies (psum, all_to_all) on the first batch, bit-exact
+   against the host dequant of the shards' bytes and the unsharded cache of
+   phase 3, exactly one K1 launch per lookup; (2) DCN-v2 (BASELINE config 3)
+   through ``make_sharded_dcn_server`` at P = 2, both strategies, logits
+   bit-identical to the unsharded ``make_dcn_server`` and rel < 1e-3 against
+   the port on the CPU, one K1 launch per predict; (3) a ``shard_tables``
+   copy of phase 3's model in one ps.json with it, served over HTTP with
+   ``device="cuda:0"``: 64-sample binary responses byte-identical, one K1
+   launch per request, then new rows, ``refresh`` and the new rows served;
+   (4) the ensemble repository of 5e with its HPS model sharded (P = 2), f32
+   and w8a8 dense models: fused = staged bit for bit, K1 once per fused
+   infer and K5 once a layer; (5) a mesh over a process group (NCCL, world
+   size 1, 4 local shards) bit-identical to the single-process mesh, and
+   ``entry.dryrun_multichip(8, device="cuda:0")`` without and with it.
+   Printed: the host plan (dedup and buckets; per table for DCN-v2), walls,
+   device times, idle shares, and K1 at each lookup's recorded groups beside
+   its bound over the unique real slots, the pad rows and the
+   ``index_select`` chain.
 5f. The ``redis_cluster`` volatile db (the "cluster" phase,
    ``cluster_phase``): two pool nodes started through ``python -m
    hugectr_backend_tpu_torch.tiers.cluster`` with a shared secret and TLS (a
@@ -176,8 +197,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    1e-6 * max|z|^2, backward within rtol 1e-5 and atol 1e-6 * F * max|g| *
    max|z| (f32 sums in another order). The backward kernel also at its
    plan's boundaries: F in {2, 27, 128}, D in {4, 64, 128, 130}, B in
-   {1, 777, 4099}, and K2's parts with gradients not asked for. K3 and K5
-   must raise under autograd.
+   {1, 777, 4099}, and K2's parts with gradients not asked for. K3, K5
+   and K1 must raise under autograd.
 8. Training at full width: ``train_dlrm_multi`` on ``make_multi_click_dataset``
    over the same 26 capped vocabularies (one f32 table of 1,855,979 x 128
    rows under Adam), batch 4096, lr 5e-3, TRAIN_STEPS steps. K4 forward and
@@ -313,6 +334,14 @@ ENS_TIMED = 10  # timed infers of each path and format (median)
 ENS_REF = 256  # samples the host reference scores (a sample's output is its own)
 ENS_HTTP_SAMPLES = 64
 ENS_HTTP_REQUESTS = 200
+# Sharded tables (the "sharded" phase), all shards on the one card.
+SHARD_LOOKUP_P = (2, 8)  # shards of the one-table lookups
+SHARD_P = 2  # shards of DCN-v2, the ps.json model and the ensemble
+SHARD_PG_LOCAL = 4  # local shards of the process-group mesh (world size 1)
+SHARD_HTTP_REQUESTS = 8  # 64-sample requests to each of the two models
+SHARD_UPDATE_KEYS = 256  # keys of table 0 given new rows before the refresh
+SHARD_ENS_FORMATS = ("f32", "w8a8")
+SHARD_TIMED = 10  # timed predicts (median)
 # The redis_cluster volatile db (the "cluster" phase): two pool nodes.
 CLUSTER_BATCHES = 4
 CLUSTER_START_S = 60.0  # the wait for a node process to answer
@@ -1031,7 +1060,8 @@ def repaired_route_timings(dev, bw, f32_flops, emit_line) -> None:
 
 
 def forward_only_checks(dev) -> int:
-    """K3 and K5 have no backward: under autograd their wrappers raise."""
+    """K3, K5 and K1 have no backward: under autograd their wrappers raise."""
+    from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant, gather_dequant_groups
     from hugectr_backend_tpu_torch.ops.fused_interaction import dot_interaction_oh_parts
     from hugectr_backend_tpu_torch.ops.quant_matmul import w8a8_dense
 
@@ -1041,9 +1071,14 @@ def forward_only_checks(dev) -> int:
     parts = [torch.randn(1, 8, DIM, device=dev)]
     x = torch.randn(8, 64, device=dev, requires_grad=True)
     wq = torch.ones(16, 64, dtype=torch.int8, device=dev)
+    table = torch.randn(16, DIM, device=dev, requires_grad=True)
+    k1_slots = torch.zeros(8, dtype=torch.int32, device=dev)
     calls = (lambda: dot_interaction_oh_parts(bottom, arena, slots, None, parts, ((0, 0),)),
-             lambda: w8a8_dense(x, wq, torch.ones(16, device=dev), None, "relu"))
-    for name, call in zip(("K3", "K5"), calls):
+             lambda: w8a8_dense(x, wq, torch.ones(16, device=dev), None, "relu"),
+             lambda: gather_dequant(table, None, k1_slots),
+             lambda: gather_dequant_groups([table], [None], k1_slots, None, (("gather",),),
+                                           ((0, 8),), (None,)))
+    for name, call in zip(("K3", "K5", "K1", "grouped K1"), calls):
         try:
             call()
         except RuntimeError as e:
@@ -2802,15 +2837,18 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
 # ------------------------------------------------------------ the ensemble phase
 
 
-def ensemble_repository(root: str, tables, seed: int, max_batch: int):
+def ensemble_repository(root: str, tables, seed: int, max_batch: int,
+                        formats=ENS_FORMATS, shards: int = 0):
     """A Triton-style repository in the layout of
     examples/05_triton_repo_ensemble.py: one HPS model ``hps_embedding`` (the
     26 tables in one key space: table t's row i is key ENS_KEY_STRIDE * t +
     i; int8, static cache at 100 %, 26 keys a sample), the dense models
     ``dense_<fmt>`` (reshape [-1, 26 * D], then TOP with relu... sigmoid and
-    weights from a numpy seed, stored in each of ENS_FORMATS) behind the
+    weights from a numpy seed, stored in each of ``formats``) behind the
     ensembles ``ens_<fmt>``, and ``ens_per_key`` whose dense model scores
-    each key (reshape [-1, D]). -> (offsets, {fmt: f32 weights})."""
+    each key (reshape [-1, D]). ``shards`` > 1 row-shards the HPS model over
+    ``deployed_device_list`` [0 .. shards - 1] (``shard_tables``; its
+    instance_group lists the same devices). -> (offsets, f32 weights)."""
     from hugectr_backend_tpu_torch.io.dense_model import save_dense_model
     from hugectr_backend_tpu_torch.io.sparse_model import write_sparse_model
 
@@ -2825,7 +2863,8 @@ def ensemble_repository(root: str, tables, seed: int, max_batch: int):
                 'input [\n  { name: "KEYS" data_type: TYPE_INT64 dims: [ -1 ] },\n'
                 '  { name: "NUMKEYS" data_type: TYPE_INT32 dims: [ -1 ] }\n]\n'
                 'output [ { name: "OUTPUT0" data_type: TYPE_FP32 dims: [ -1 ] } ]\n'
-                'instance_group [ { count: 1 kind: KIND_GPU gpus: [ 0 ] } ]\n')
+                'instance_group [ { count: 1 kind: KIND_GPU gpus: [ '
+                + ", ".join(str(d) for d in range(max(shards, 1))) + ' ] } ]\n')
     with open(os.path.join(root, "ps.json"), "w") as f:
         json.dump({"models": [{
             "model": "hps_embedding", "sparse_files": ["emb.model"],
@@ -2833,7 +2872,8 @@ def ensemble_repository(root: str, tables, seed: int, max_batch: int):
             "maxnum_catfeature_query_per_table_per_sample": [n],
             "max_batch_size": max_batch, "gpucacheper": 1.0,
             "embedding_cache_type": "static", "quant_bits": 8,
-            "deployed_device_list": [0]}]}, f)
+            "deployed_device_list": list(range(max(shards, 1))),
+            **({"shard_tables": True} if shards > 1 else {})}]}, f)
     rng = np.random.default_rng(seed)
     widths = (n * dim,) + TOP
     weights = [((rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32),
@@ -2843,8 +2883,9 @@ def ensemble_repository(root: str, tables, seed: int, max_batch: int):
     per_key = [((rng.standard_normal((dim, 64)) / np.sqrt(dim)).astype(np.float32),
                 np.zeros(64, np.float32)),
                ((rng.standard_normal((64, 1)) / 8.0).astype(np.float32), np.zeros(1, np.float32))]
-    dense = {fmt: (weights, acts, [-1, n * dim], fmt) for fmt in ENS_FORMATS}
-    dense["per_key"] = (per_key, ["relu", "sigmoid"], [-1, dim], None)
+    dense = {fmt: (weights, acts, [-1, n * dim], fmt) for fmt in formats}
+    if formats == ENS_FORMATS:
+        dense["per_key"] = (per_key, ["relu", "sigmoid"], [-1, dim], None)
     for name, (w, a, reshape, quant) in dense.items():
         d = os.path.join(root, f"dense_{name}")
         save_dense_model(os.path.join(d, "1"), w, a, reshape=reshape,
@@ -3297,6 +3338,415 @@ def cluster_phase(dev, root, tables, batch: int = BATCH, emit_line=emit) -> dict
     return {**res, "launches": dict(launches)}
 
 
+# ------------------------------------------------------------- the sharded phase
+
+
+def one_key_space(tables):
+    """The tables as one: table t's key k becomes ENS_KEY_STRIDE * t + k.
+    -> (keys, vectors, offsets)."""
+    offsets = np.arange(len(tables), dtype=np.int64) * ENS_KEY_STRIDE
+    keys = np.concatenate([off + tb.keys for off, tb in zip(offsets, tables)])
+    return keys, np.concatenate([tb.vectors for tb in tables]), offsets
+
+
+def one_space_keys(keys_per_table, offsets):
+    """A batch's per-table keys in the one key space, table-major; an absent
+    (negative) key stays absent."""
+    return np.concatenate([np.where(k.reshape(-1) >= 0, k.reshape(-1) + off, k.reshape(-1))
+                           for k, off in zip(keys_per_table, offsets)])
+
+
+def sharded_host_dequant(st, slots) -> np.ndarray:
+    """Rows of ``slots`` from a sharded table's stored bytes, dequantized in
+    numpy: slot s is row s // P of shard s % P."""
+    p = st.n_shards
+    out = np.empty((len(slots), st.dim), np.float32)
+    for k, (v, sc) in enumerate(zip(st.values, st.scales)):
+        m = slots % p == k
+        r = slots[m] // p
+        out[m] = v.cpu().numpy()[r].astype(np.float32) * sc.cpu().numpy()[r][:, None]
+    return out
+
+
+def k1_sharded_measure(args, n_real: int, uniq: int, out_rows: int, bw) -> dict:
+    """K1 at a sharded lookup's recorded groups (one launch over every
+    (table, shard) group of the device): bit-exact against its plain version;
+    times beside the groups' ``index_select`` calls chained in one CUDA graph;
+    the bound over the UNIQUE REAL slots (each such row and its scale read
+    once, each of the ``n_real`` request slots read once, ``out_rows`` f32
+    rows written once) and, beside it, the pad: rows gathered past the unique
+    real ones (the all_to_all buckets' padding, psum's masked gathers, the
+    pow2 pads of the request)."""
+    from hugectr_backend_tpu_torch.ops.dequant_gather import (
+        gather_dequant_groups,
+        gather_dequant_groups_ref,
+    )
+
+    vals, dsc, slots_cat, _, _, sb, _ = args
+    got = gather_dequant_groups(*args)
+    want = gather_dequant_groups_ref(*args)
+    torch.cuda.synchronize()
+    for gi, (x, y) in enumerate(zip(got, want)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"sharded K1, group {gi}: kernel != plain")
+    v0 = vals[0]
+    d = v0.shape[1] * (2 if v0.dtype == torch.uint8 else 1)
+    nbytes = (uniq * (v0.shape[1] * v0.element_size() + (4 if dsc[0] is not None else 0))
+              + n_real * 4 + out_rows * d * 4)
+    idx = [(v, slots_cat[a:b].long()) for v, (a, b) in zip(vals, sb)]
+    # A graph holds every call's output: at most ~2 GB of them (psum at P 8
+    # gathers 8 x the request).
+    per_graph = max(1, min(20, int(2e9 // (slots_cat.shape[0] * d * 4))))
+
+    def kernel():
+        return gather_dequant_groups(*args)
+
+    def plain():
+        return gather_dequant_groups_ref(*args)
+
+    def library():
+        return [torch.index_select(v, 0, i) for v, i in idx]
+
+    return {
+        "shape": {"groups": len(vals), "gathered_rows": int(slots_cat.shape[0]),
+                  "real_slots": n_real, "unique_real_slots": uniq,
+                  "pad_rows": int(slots_cat.shape[0]) - uniq, "d": d,
+                  "dtype": str(v0.dtype).replace("torch.", "")},
+        "max_abs_err": 0.0,
+        "kernel_ms": device_ms(kernel, per_graph), "plain_ms": device_ms(plain, per_graph),
+        "library_ms": device_ms(library, per_graph), "eager_ms": eager_ms(kernel, 20, 3),
+        "per_graph": per_graph,
+        "bound_ms": nbytes / bw * 1e3,
+        "bound_by": "bytes",
+    }
+
+
+def counted(call, want: dict, what: str):
+    """``call()`` with the launch counts at 0 just before and read just
+    after; they must be ``want``, and no plain version of K1 may see a CUDA
+    tensor. -> (result, launches)."""
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    kernels.launches.clear()
+    with NoFallback():
+        res = call()
+        torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    if got != want:
+        raise AssertionError(f"sharded {what}: launches {got}, expected {want}")
+    return res, got
+
+
+def sharded_phase(dev, tables, cfg, cache, batches, bw=None, emit_line=emit,
+                  batch: int = BATCH, lookup_p=SHARD_LOOKUP_P) -> dict:
+    """Sharded tables on the card (``parallel/``), every shard on ``dev``:
+    P shards of one card exchange rows by copies within it, so no
+    interconnect is measured. ``tables``, ``cfg``, ``cache`` and ``batches``
+    are phase 3's deployment (the sparse files of ``cfg`` are served again).
+
+    1. The 26 tables as one (1,855,979 rows, one key space) in a
+       ``ShardedTable`` at each P of ``lookup_p``: both strategies on the
+       first batch (~1 % absent keys), bit-exact against the host dequant of
+       the shards' bytes and against the unsharded ``EmbeddingCache`` of
+       phase 3; exactly one K1 launch per lookup. The host plan's time; the
+       lookup's wall, device time and idle share; K1 beside its bound.
+    2. BASELINE config 3: DCN-v2 at the JAX defaults through
+       ``make_sharded_dcn_server`` at P = SHARD_P, both strategies: logits
+       bit-identical to the unsharded ``make_dcn_server`` on the same card,
+       rel < ZOO_REL against the port on the CPU; one K1 launch per predict;
+       walls, device times and idle shares of all three; the plan per table.
+    3. ps.json: phase 3's model and a ``shard_tables`` copy of it
+       (deployed_device_list [0, 1], ``device=dev``) served over HTTP: 64-sample
+       binary requests answered byte for byte alike, one K1 launch per
+       request; then new rows for table 0, ``refresh``, and the new rows
+       served.
+    4. The ensemble phase's repository with its HPS model sharded (P =
+       SHARD_P), f32 and w8a8 dense models: fused = staged bit for bit; K1
+       once per fused infer, K5 once a layer for w8a8.
+    5. A mesh over a process group (NCCL at world size 1 on the card, gloo
+       on the CPU) with SHARD_PG_LOCAL local shards: both lookups bit-identical
+       to the single-process mesh's; ``dryrun_multichip(8, device=dev)``
+       without and with the group.
+
+    -> {"launches": ..., "lines": [...], "k1": the DCN predict's K1 line}."""
+    import copy
+    import dataclasses
+
+    import torch.distributed as dist
+
+    import hugectr_backend_tpu_torch.parallel.sharded_table as shtab
+    from hugectr_backend_tpu_torch.entry import dryrun_multichip
+    from hugectr_backend_tpu_torch.models import DCNv2
+    from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.ops.quantize import quantize_rows_int8
+    from hugectr_backend_tpu_torch.parallel.fused_sharded import make_sharded_dcn_server
+    from hugectr_backend_tpu_torch.parallel.mesh import make_mesh
+    from hugectr_backend_tpu_torch.parallel.sharded_cache import ShardedEmbeddingCache
+    from hugectr_backend_tpu_torch.parallel.sharded_table import (
+        STRATEGIES,
+        ShardedTable,
+        route,
+        sharded_lookup,
+    )
+    from hugectr_backend_tpu_torch.serving import program
+    from hugectr_backend_tpu_torch.serving.server import serve
+
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    k1_once = {"gather_dequant": 1} if on_card else {}
+    lines, launches = [], collections.Counter()
+    n = len(tables)
+    where = str(dev) if on_card else "cpu"
+
+    def out(line):
+        lines.append(line)
+        emit_line(line)
+
+    def measure_k1(call, n_real, uniq, out_rows):
+        if bw is None or not on_card:
+            return None
+        with Recorder((shtab, "gather_dequant_groups")) as rec:
+            call()
+        (args,) = rec.calls["gather_dequant_groups"]
+        return k1_sharded_measure(args, n_real, uniq, out_rows, bw)
+
+    # Part 1: the one-table lookups at each P.
+    keys_all, vecs_all, offsets = one_key_space(tables)
+    lookup_keys = one_space_keys(batches[0][0], offsets)
+    with torch.inference_mode():
+        unsharded = torch.cat(cache.lookup([k.reshape(-1) for k in batches[0][0]])).cpu().numpy()
+    for p in lookup_p:
+        t0 = time.perf_counter()
+        st = ShardedTable.from_numpy(keys_all, vecs_all, make_mesh(table=p, devices=[dev] * p))
+        build_s = time.perf_counter() - t0
+        slots = st.slots_for(lookup_keys)
+        host = sharded_host_dequant(st, slots)
+        if not same_bits_np(host, unsharded):
+            raise AssertionError(f"P={p}: the shards' bytes != the unsharded cache's rows")
+        uniq = int(np.unique(slots).size)
+        for strategy in STRATEGIES:
+            got, n_l = counted(lambda: sharded_lookup(st, slots, strategy), k1_once,
+                               f"lookup P={p} {strategy}")
+            launches.update(n_l)
+            if not same_bits_np(got.cpu().numpy(), host):
+                raise AssertionError(f"P={p} {strategy}: lookup != host dequant")
+            plan_ms = median_ms(lambda: route(st, slots, strategy))
+            k1 = measure_k1(lambda: sharded_lookup(st, slots, strategy), len(slots), uniq,
+                            uniq if strategy == "all_to_all" else len(slots))
+            out({"sharded": "lookup", "shards": p, "strategy": strategy,
+                 "rows": int(st.capacity), "keys": len(slots), "unique_slots": uniq,
+                 "mb_per_shard": st.nbytes_per_shard() / 1e6, "build_s": build_s,
+                 "host_plan_ms": plan_ms, "bit_exact_vs": ["host dequant", "unsharded cache"],
+                 "launches": n_l, "lookup": zoo_timing(
+                     lambda: sharded_lookup(st, slots, strategy), n=SHARD_TIMED),
+                 **({"k1": k1} if k1 else {})})
+        del st
+        torch.cuda.empty_cache()
+
+    # Part 2: DCN-v2 (BASELINE config 3) at P = SHARD_P.
+    t0 = time.perf_counter()
+    mesh = make_mesh(table=SHARD_P, devices=[dev] * SHARD_P)
+    st26 = [ShardedTable.from_numpy(tb.keys, tb.vectors, mesh) for tb in tables]
+    cpu26 = [ShardedTable.from_numpy(tb.keys, tb.vectors,
+                                     make_mesh(table=SHARD_P, devices=[cpu] * SHARD_P))
+             for tb in tables]
+    build_s = time.perf_counter() - t0
+    card_m, ref_m = zoo_pair(lambda: DCNv2(NUM_DENSE, n, DIM), SEED + 50)
+    name = cfg["models"][0]["model"]
+    plain = program.make_dcn_server(cache.params, cache, copy.deepcopy(card_m))
+    servers = {s: make_sharded_dcn_server(mesh, st26, [1] * n, card_m, strategy=s)
+               for s in STRATEGIES}
+    ref_srv = make_sharded_dcn_server(cpu26[0].mesh, cpu26, [1] * n, ref_m)
+    keys, dense = batches[0]
+    rel = check_rel("sharded dcn", rel_err(
+        servers["all_to_all"].predict(keys, dense)[:ZOO_REF],
+        ref_srv.predict([k[:ZOO_REF] for k in keys], dense[:ZOO_REF])))
+    dcn_k1 = None
+    for s, srv in servers.items():
+        got, n_l = counted(lambda: [srv.predict(*b) for b in batches],
+                           {k: v * len(batches) for k, v in k1_once.items()}, f"dcn {s}")
+        launches.update(n_l)
+        if not all(torch.equal(g, plain.predict(*b)) for g, b in zip(got, batches)):
+            raise AssertionError(f"sharded DCN-v2 {s}: logits != the unsharded server's")
+        slots = [t.slots_for(k.reshape(-1)) for t, k in zip(st26, keys)]
+        plan = [median_ms(lambda: route(t, sl, s)) for t, sl in zip(st26, slots)]
+        uniq = sum(int(np.unique(sl).size) for sl in slots)
+        k1 = measure_k1(lambda: srv.predict(keys, dense), n * batch, uniq,
+                        uniq if s == "all_to_all" else n * batch)
+        if s == "all_to_all":
+            dcn_k1 = k1
+        out({"sharded": "dcn_v2", "shards": SHARD_P, "strategy": s, "batch": batch,
+             "tables": n, "build_s": build_s, "bit_identical_to_unsharded": True,
+             "rel_vs_cpu": rel, "k1_per_predict": 1 if on_card else 0,
+             "host_plan_ms": {"total": sum(plan), "per_table": plan},
+             **zoo_timing(lambda: srv.predict(*batches[1]), n=SHARD_TIMED),
+             **({"k1": k1} if k1 else {})})
+    out({"sharded": "dcn_v2", "shards": 0, "strategy": "unsharded make_dcn_server",
+         "batch": batch, **zoo_timing(lambda: plain.predict(*batches[1]), n=SHARD_TIMED)})
+    del st26, cpu26, servers, plain, ref_srv
+    torch.cuda.empty_cache()
+
+    # Part 3: ps.json shard_tables served over HTTP beside the unsharded model.
+    scfg = json.loads(json.dumps(cfg))
+    base = scfg["models"][0]
+    base["max_batch_size"] = FRONTEND_MAX_BATCH
+    scfg["models"].append({**base, "model": "sharded", "shard_tables": True,
+                           "deployed_device_list": list(range(SHARD_P))})
+    t0 = time.perf_counter()
+    server = serve(scfg, port=0, block=False, grpc_port=None, device=where)
+    deploy_s = time.perf_counter() - t0
+    try:
+        ps = server.manager.ps
+        scache = ps.get_embedding_cache("sharded", 0)
+        if not isinstance(scache, ShardedEmbeddingCache) or scache.device != dev:
+            raise AssertionError(f"sharded model served by {type(scache).__name__} on "
+                                 f"{scache.device}")
+
+        def infer(model, keys, num):
+            return _http(server.port, "POST", f"/v2/models/{model}/infer",
+                         *_binary_infer(keys, num))
+
+        reqs = frontend_requests(tables, SHARD_HTTP_REQUESTS, FRONTEND_SAMPLES, SEED + 52)
+        plain_out = [_binary_output(infer(name, k, m)) for k, m in reqs]
+        got, n_l = counted(lambda: [_binary_output(infer("sharded", k, m)) for k, m in reqs],
+                           {k: v * len(reqs) for k, v in k1_once.items()}, "HTTP")
+        launches.update(n_l)
+        for g, w in zip(got, plain_out):
+            if g.tobytes() != w.tobytes():
+                raise AssertionError("sharded HTTP response != the unsharded model's")
+        # New rows for table 0, refresh, served.
+        upd = tables[0].keys[:SHARD_UPDATE_KEYS]
+        new = np.random.default_rng(SEED + 53).standard_normal((len(upd), DIM)).astype(np.float32)
+        ps.apply_updates("sharded", 0, upd, new)
+        t0 = time.perf_counter()
+        refreshed = ps.refresh_embedding_cache("sharded", 0)
+        refresh_s = time.perf_counter() - t0
+        k, m = reqs[0]
+        k = k.copy()
+        k[:FRONTEND_SAMPLES] = upd[:FRONTEND_SAMPLES]
+        after = _binary_output(infer("sharded", k, m)).reshape(-1, DIM)
+        q, sc = quantize_rows_int8(new[:FRONTEND_SAMPLES])
+        if not same_bits_np(after[:FRONTEND_SAMPLES], q.astype(np.float32) * sc[:, None]):
+            raise AssertionError("sharded refresh: the new rows are not served")
+        rest = _binary_output(infer(name, k, m)).reshape(-1, DIM)[FRONTEND_SAMPLES:]
+        if not same_bits_np(after[FRONTEND_SAMPLES:], rest):
+            raise AssertionError("sharded refresh: the other tables' rows changed")
+        out({"sharded": "ps_json_http", "shards": SHARD_P, "strategy": scache.strategy,
+             "requests": len(reqs), "samples_per_request": FRONTEND_SAMPLES,
+             "byte_identical_to_unsharded": True, "launches": n_l, "deploy_s": deploy_s,
+             "refreshed_rows": refreshed, "refresh_s": refresh_s,
+             "updated_keys_served": FRONTEND_SAMPLES})
+    finally:
+        server.stop()
+
+    # Part 4: the ensemble repository with its HPS model sharded.
+    work = tempfile.TemporaryDirectory(prefix="hps_chip_smoke_shens_")
+    server = None
+    try:
+        offsets_e, _ = ensemble_repository(work.name, tables, SEED + 40, batch,
+                                           formats=SHARD_ENS_FORMATS, shards=SHARD_P)
+        t0 = time.perf_counter()
+        server = serve(model_repository=work.name, port=0, block=False, grpc_port=None,
+                       device=where)
+        deploy_s = time.perf_counter() - t0
+        ensembles = server.httpd.RequestHandlerClass.ensembles
+        big = ensemble_requests(tables, offsets_e, batch, 2, SEED + 54)
+        for fmt in SHARD_ENS_FORMATS:
+            es = ensembles[f"ens_{fmt}"]
+            want_l = dict(k1_once)
+            if on_card and fmt == "w8a8":
+                want_l["w8a8_dense"] = len(TOP)
+            fused, n_l = counted(lambda: es.infer(_ens_inputs(big[0]))[ENS_TENSORS[2]],
+                                 want_l, f"ensemble {fmt} fused")
+            launches.update(n_l)
+            if es._fused is None or not es._fused.sharded:
+                raise AssertionError(f"sharded ensemble {fmt}: the fused path did not engage")
+            staged, s_l = counted(lambda: es.infer_staged(_ens_inputs(big[0]))[ENS_TENSORS[2]],
+                                  want_l, f"ensemble {fmt} staged")
+            launches.update(s_l)
+            if not same_bits_np(fused, staged.reshape(fused.shape)):
+                raise AssertionError(f"sharded ensemble {fmt}: fused != staged")
+            out({"sharded": "ensemble", "dense": fmt, "shards": SHARD_P, "batch": batch,
+                 "keys": batch * n, "deploy_s": deploy_s, "fused_equals_staged": "bit for bit",
+                 "fused_launches": n_l, "fused": zoo_timing(
+                     lambda: es.infer(_ens_inputs(big[1])), n=SHARD_TIMED)})
+    finally:
+        if server is not None:
+            server.stop()
+        work.cleanup()
+
+    # Part 5: the process-group mesh (world size 1) against the
+    # single-process mesh, and the dry run without and with the group.
+    t0 = time.perf_counter()
+    kernels.launches.clear()
+    dry = {"single_process": dryrun_multichip(8, device=dev)}
+    torch.cuda.synchronize()
+    dry_launches = dict(kernels.launches)
+    st = ShardedTable.from_numpy(keys_all, vecs_all,
+                                 make_mesh(table=SHARD_PG_LOCAL, devices=[dev] * SHARD_PG_LOCAL))
+    slots = st.slots_for(lookup_keys)
+    store = tempfile.TemporaryDirectory(prefix="hps_chip_smoke_pg_")
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(store.name, "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        pg = make_mesh(table=SHARD_PG_LOCAL, devices=[dev] * SHARD_PG_LOCAL,
+                       group=dist.group.WORLD)
+        stg = dataclasses.replace(st, mesh=pg)
+        for strategy in STRATEGIES:
+            want = sharded_lookup(st, slots, strategy).cpu().numpy()
+            got, n_l = counted(lambda: sharded_lookup(stg, slots, strategy), k1_once,
+                               f"process group {strategy}")
+            launches.update(n_l)
+            if not same_bits_np(got.cpu().numpy(), want):
+                raise AssertionError(f"process-group mesh {strategy} != single-process mesh")
+        kernels.launches.clear()
+        dry["process_group"] = dryrun_multichip(8, device=dev)
+        torch.cuda.synchronize()
+        for k, v in kernels.launches.items():
+            dry_launches[k] = dry_launches.get(k, 0) + v
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    out({"sharded": "process_group", "backend": backend, "world_size": 1,
+         "local_shards": SHARD_PG_LOCAL, "bit_identical_to_single_process": True,
+         "dryrun_multichip_8": dry, "dryrun_launches": dry_launches,
+         "seconds": time.perf_counter() - t0})
+    launches.update(dry_launches)
+    del st
+    torch.cuda.empty_cache()
+    return {"launches": dict(launches), "lines": lines, "k1": dcn_k1}
+
+
+def sharded_alone() -> int:
+    """The sharded phase alone, on the card (build, phase 3's deployment,
+    the phase): ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.sharded_alone())"``."""
+    from hugectr_backend_tpu_torch import HierParameterServer
+    from hugectr_backend_tpu_torch.native import kvstore
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = torch.cuda.get_device_name(0)
+    bw = peaks(card)[0]
+    kernels.build_all()
+    kvstore.load_lib()
+    with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_") as root:
+        cards = [min(c, ROW_CAP) for c in CRITEO_CARDS]
+        tables, cfg = build_deployment(root, cards, DIM, SEED)
+        ps = HierParameterServer.create(cfg)
+        batches = make_batches(tables, BATCH, N_BATCHES, SEED + 1)
+        t0 = time.perf_counter()
+        res = sharded_phase(dev, tables, cfg, ps.get_embedding_cache("dlrm", 0), batches, bw)
+        print(f"sharded: launches {res['launches']} ({time.perf_counter() - t0:.1f} s; "
+              f"{card})", flush=True)
+        ps.shutdown()
+    return 0
+
+
 def repository_and_pool_phases() -> int:
     """The ensemble and cluster phases alone, on the card (build, the 26
     capped tables, both phases):
@@ -3736,6 +4186,22 @@ def main() -> int:
           f"{ens['http']['p50_ms']:.2f} ms, p99 {ens['http']['p99_ms']:.2f} ms; launches "
           f"{ens['launches']} ({time.perf_counter() - t0:.1f} s; {card} | {smi})", flush=True)
 
+    # Phase 5e2: sharded tables (parallel/), every shard on this card.
+    t0 = time.perf_counter()
+    shd = sharded_phase(dev, tables, cfg, cache, batches, bw,
+                        emit_line=lambda line: emit({**line, "card": card, "nvidia_smi": smi}))
+    dcn_walls = {ln["strategy"]: ln["wall_ms_median"] for ln in shd["lines"]
+                 if ln["sharded"] == "dcn_v2"}
+    print("sharded: lookups at P " + ", ".join(str(p) for p in SHARD_LOOKUP_P)
+          + " bit-exact vs the host dequant and the unsharded cache, one K1 launch each; "
+          f"DCN-v2 at P={SHARD_P} bit-identical to the unsharded server, walls "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in dcn_walls.items())
+          + f"; ps.json HTTP byte-identical, refresh served; sharded ensemble fused = staged; "
+          f"the process-group mesh ({'NCCL' if dev.type == 'cuda' else 'gloo'}, world size 1) "
+          f"bit-identical; dryrun_multichip(8) passed; launches {shd['launches']} "
+          f"({time.perf_counter() - t0:.1f} s; P shards on one card: no interconnect measured; "
+          f"{card} | {smi})", flush=True)
+
     # Phase 5f: the redis_cluster volatile db: the dynamic deployment with
     # its DRAM tier on two pool node processes.
     t0 = time.perf_counter()
@@ -3959,6 +4425,8 @@ def main() -> int:
     print(f"card memory after the microbenchmarks: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
           "allocated", flush=True)
 
+    for name, n in shd["launches"].items():
+        launches[name] = launches.get(name, 0) + n
     print(smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

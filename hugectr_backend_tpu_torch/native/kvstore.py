@@ -149,6 +149,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     _fn(lib, "hps_statmap_translate", None, vp, i64, pi64, pi32, i32)
     _fn(lib, "hps_statmap_translate_batch", None, i32, c.POINTER(vp), pi64,
         c.POINTER(pi64), c.POINTER(pi32), pi32)
+    # kvstore.cpp: the all-to-all plan's dedup (tiers/hbm.py dedup_int64).
+    _fn(lib, "hps_dedup_i64", i64, i64, pi64, pi64, pi32)
     # kvstore.cpp: the single-pass quantizer (ops/quantize.py).
     _fn(lib, "hps_quantize_rows", None, i64, i32, pf32, pi64, vp, pf32, i32)
     # kvstore.cpp: the batcher's merge and regroup (serving/batchpack.py).

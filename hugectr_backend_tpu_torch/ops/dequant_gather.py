@@ -214,7 +214,10 @@ def gather_dequant(values: torch.Tensor, scales: Optional[torch.Tensor],
     -> [N, D] f32.
 
     Slots are checked on the host before upload (cache/lookup_program.py);
-    the kernel writes a NaN row for a slot out of range."""
+    the kernel writes a NaN row for a slot out of range. Forward-only: raises
+    when autograd would record it (parallel/sharded_table.py wraps it in a
+    backward for tables that train)."""
+    kernels.forward_only("gather_dequant", values, scales, scin)
     if values.device.type == "cpu":
         return gather_dequant_ref(values, scales, slots, scin)
     _check_scales(scales, scin)
@@ -304,8 +307,9 @@ def gather_dequant_groups(vals: Sequence[torch.Tensor],
     group ignores device scales, as in the JAX package.
 
     -> per group its [n, D] f32 rows (None for "skip"), views of one
-    buffer; the kernel launches once."""
+    buffer; the kernel launches once. Forward-only, as :func:`gather_dequant`."""
     name = "gather_dequant_groups"
+    kernels.forward_only(name, *vals, *dscales, scin_cat)
     if slots_cat.device.type == "cpu":
         if any(v.device.type != "cpu" for v in vals):
             raise ValueError(f"{name}: slots on the CPU, tables on {vals[0].device}")

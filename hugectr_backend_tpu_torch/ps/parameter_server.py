@@ -19,8 +19,13 @@ queue or Kafka) streams trainer updates into the DRAM and SSD tiers; the
 device caches pick them up on refresh.
 
 Caches live on ``cuda:<deployed_device_list[i]>`` unless ``create`` is given
-``device="cpu"``. A ps.json option that this port does not cover yet raises
-``NotImplementedError`` naming its ROADMAP item; none is ignored.
+a device: ``"cpu"`` puts every id on the host, ``"cuda:<i>"`` every id on
+that card (a ``shard_tables`` model's shards too: several shards on one
+device, the counterpart of the JAX tests' virtual devices). A
+``shard_tables`` model gets ONE mesh-wide ``ShardedEmbeddingCache``
+(parallel/sharded_cache.py) under ``instance_devices[0]``. The port covers
+every ps.json option; ``use_cuda_graph`` is logged, lookups run eagerly
+(ROADMAP queue A item 2).
 """
 
 from __future__ import annotations
@@ -75,12 +80,8 @@ log = get_logger("hps_tpu.ps")
 
 
 def _check_supported(config: ParameterServerConfig) -> None:
-    """Refuse the ps.json options that this port does not cover yet."""
+    """Log the ps.json options the port takes without acting on them."""
     for p in config.models.values():
-        if p.shard_tables:
-            raise NotImplementedError(
-                f"model {p.model_name!r}: shard_tables is ROADMAP queue A "
-                "item 7 (parallel/ on torch.distributed)")
         if p.use_cuda_graph:
             log.info("model %s: use_cuda_graph: lookups run eagerly until "
                      "ROADMAP queue A item 2 (CUDA graphs per bucket)",
@@ -93,9 +94,12 @@ class HierParameterServer:
     def __init__(self, config: ParameterServerConfig, device=None):
         _check_supported(config)
         self.config = config
-        # "cpu" -> everything on the CPU; otherwise cuda:<deployed id> per
-        # cache (default_device raises here when there is no card).
-        self.on_cpu = default_device(device).type == "cpu"
+        # None -> cuda:<deployed id> per cache; "cpu" or "cuda:<i>" -> every
+        # id on that device (default_device raises here when there is no
+        # card).
+        dev = default_device(device)
+        pinned = device is not None and (dev.type == "cpu" or torch.device(device).index is not None)
+        self._pinned = dev if pinned else None
         self.dram: KVTier = make_dram_tier(config.volatile_db)
         self.ssd: Optional[KVTier] = None
         if config.persistent_db.type == DatabaseType.ROCKS_DB:
@@ -210,9 +214,15 @@ class HierParameterServer:
         with self._lock:
             host_tables = self._prep_model_tables(params)
             per_device: dict[int, EmbeddingCache] = {}
-            for dev_id in params.deployed_devices:
-                if self.on_cpu:
-                    device = torch.device("cpu")
+            if params.shard_tables:
+                # Capacity partitioning by config (the reference's
+                # num_partitions): ONE mesh-wide sharded cache spanning
+                # deployed_device_list, served by a single instance.
+                per_device[params.instance_devices[0]] = self._build_sharded_cache(
+                    params, host_tables)
+            for dev_id in ([] if params.shard_tables else params.deployed_devices):
+                if self._pinned is not None:
+                    device = self._pinned
                 else:
                     if dev_id >= torch.cuda.device_count():
                         raise ConfigError(
@@ -222,6 +232,37 @@ class HierParameterServer:
                 per_device[dev_id] = self._build_cache(params, device, host_tables)
             self._caches[model_name] = per_device
             self._model_versions.setdefault(model_name, 1)
+
+    def _build_sharded_cache(self, params: InferenceParams, host_tables):
+        """Row-shard every table over the mesh of the model's
+        deployed_device_list (parallel/sharded_cache.py)."""
+        from hugectr_backend_tpu_torch.parallel.sharded_cache import (
+            ShardedEmbeddingCache,
+            build_shard_mesh,
+        )
+        from hugectr_backend_tpu_torch.parallel.sharded_table import ShardedTable
+
+        quant = self._quant_mode(params)
+        mesh = build_shard_mesh(params, self._pinned)
+        tables = []
+        for t, (keys, vecs) in enumerate(host_tables):
+            try:
+                tables.append(ShardedTable.from_numpy(
+                    keys, vecs, mesh, quant=quant,
+                    default_value=params.default_value_for_table(t)))
+            except NotImplementedError as e:
+                raise ConfigError(f"model {params.model_name!r} table {t}: {e}") from None
+        tier_query = lambda ti, keys, m=params.model_name, p=params: self._query_tiers(  # noqa: E731
+            table_tag(m, p.table_name(ti)), keys)
+        tier_keys = lambda ti, m=params.model_name, p=params: self._tier_keys(  # noqa: E731
+            table_tag(m, p.table_name(ti)))
+        log.info(
+            "sharded model %s: %d tables over %d-device mesh (axis %r, %s, %s), "
+            "%.1f MB/shard", params.model_name, len(tables),
+            mesh.shape[params.table_shard_axis], params.table_shard_axis,
+            params.shard_strategy, quant, sum(t.nbytes_per_shard() for t in tables) / 1e6)
+        return ShardedEmbeddingCache(params, tables, mesh, tier_query=tier_query,
+                                     tier_keys=tier_keys)
 
     def _quant_mode(self, params: InferenceParams) -> str:
         if not params.use_gpu_embedding_cache:

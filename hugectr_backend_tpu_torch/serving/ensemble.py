@@ -27,8 +27,10 @@ The fused path is only used when its semantics equal the staged path: a full
 everywhere" == default vector (reference docs/architecture.md:32). Unlike
 the JAX package, which serves staged when building the fused program raises,
 an error of the fused path propagates here; a ragged request still goes
-staged, since that is semantics. The sharded fused branch needs ``parallel/``
-(ROADMAP queue A item 7) and raises ``NotImplementedError``.
+staged, since that is semantics. A ``shard_tables`` HPS model runs the same
+chain over its ``ShardedEmbeddingCache.lookup_flat`` (parallel/: one K1
+launch per device over every shard), the dense model on the mesh's output
+device.
 """
 
 from __future__ import annotations
@@ -162,6 +164,7 @@ class _FusedChain:
     """What the fused path needs, fixed when it is built."""
 
     device_id: int
+    sharded: bool   # the HPS model's tables are row-sharded over a mesh
     k: int          # keys a sample
     rows_per_sample: int  # dense output rows a sample
     max_batch_size: int
@@ -266,18 +269,15 @@ class EnsembleServer:
         d = params.embedding_vecsize_per_table[0]
         if rs is None or len(rs) != 2 or rs[0] != -1 or rs[1] <= 0 or (k * d) % rs[1]:
             return None  # padding would not stay a clean row prefix
-        if params.shard_tables:
-            raise NotImplementedError(
-                f"ensemble {self.spec.name}: the fused lookup of a sharded model "
-                f"({sparse.model_name}) needs parallel/, ROADMAP queue A item 7")
         log.info(
-            "ensemble %s: fused %s -> %s (one lookup launch feeds the dense "
-            "model on the device)",
-            self.spec.name, sparse.model_name, dense_step.model_name,
+            "ensemble %s: fused %s%s -> %s (one lookup launch per device feeds "
+            "the dense model on the device)", self.spec.name,
+            "sharded " if params.shard_tables else "", sparse.model_name,
+            dense_step.model_name,
         )
         return _FusedChain(
-            params.instance_devices[0], k, (k * d) // rs[1], params.max_batch_size,
-            sparse, dense_step)
+            params.instance_devices[0], bool(params.shard_tables), k, (k * d) // rs[1],
+            params.max_batch_size, sparse, dense_step)
 
     def _run_fused(self, tensors: dict[str, np.ndarray]) -> Optional[dict]:
         fc = self._fused
@@ -306,8 +306,9 @@ class EnsembleServer:
                 f"{fc.max_batch_size} (reference hps.cc:573-582)"
             )
         dm = self.dense[fc.dense.model_name]
-        # One K1 launch over b_pad * k slots; the hit meter counts the b * k
-        # real keys, the pad rows are default rows.
+        # One K1 launch (per device of a sharded model's mesh) over b_pad * k
+        # slots; the hit meter counts the b * k real keys, the pad rows are
+        # default rows.
         flat = cache.lookup_flat([keys], pad_counts=[_bucket(b) * k])
         with torch.inference_mode():
             y = dm.apply(flat.to(dm.device))

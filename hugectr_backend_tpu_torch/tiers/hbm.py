@@ -99,6 +99,26 @@ def _make_native_statmap(sorted_keys: np.ndarray) -> _NativeStaticIndex:
     return _NativeStaticIndex(lib, handle, miss_slot=keys.shape[0])
 
 
+def dedup_int64(values: np.ndarray):
+    """Dedup an int64 array: -> (uniq, inv) with ``uniq[inv] == values``, in
+    one O(n) native pass (``native/kvstore.cpp hps_dedup_i64``; the all-to-all
+    plan of parallel/sharded_table.py). NOTE: ``uniq`` is in first-seen
+    order, not sorted as ``np.unique``'s: callers must not rely on it."""
+    from hugectr_backend_tpu_torch.native.kvstore import load_lib
+
+    values = np.ascontiguousarray(values, np.int64).reshape(-1)
+    n = values.shape[0]
+    if n == 0:
+        return values, np.empty(0, np.int64)
+    uniq = np.empty(n, np.int64)
+    inv = np.empty(n, np.int32)
+    r = load_lib().hps_dedup_i64(
+        n, values.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        uniq.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        inv.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return uniq[:r], inv.astype(np.int64)
+
+
 def translate_indexes_batch(indexes, keys_list) -> list:
     """Translate many ``(KeyIndex, keys)`` pairs; ONE native call covers all
     native-backed indexes, so every table's chunks run in parallel on the

@@ -461,42 +461,89 @@ def test_instance_group_cannot_shrink_sharded_mesh(tmp_path):
     assert str(got.value) == str(want.value)
 
 
-def _sharded_ensemble(tmp_path):
-    """The parameter server refuses shard_tables itself, so a manager stub
-    serves the sharded params."""
-    _build_repo(tmp_path, extra_ps={"shard_tables": True,
-                                    "deployed_device_list": [0, 1]})
-    (tmp_path / "hps_embedding" / "config.pbtxt").write_text(
-        HPS_PBTXT.replace("gpus: [ 0 ]", "gpus: [ 0, 1 ]"))
-    bundle = load_repository(tmp_path, device="cpu")
-    assert bundle.ps_config.models["hps_embedding"].shard_tables
-
-    class _Ps:
-        def get_model_params(self, name):
-            return bundle.ps_config.model_params(name)
-
-    class _Manager:
-        ps = _Ps()
-
-    return EnsembleServer(bundle.ensembles["ensemble_model"], _Manager(), bundle.dense)
+SHARDED_HPS_PBTXT = HPS_PBTXT.replace("gpus: [ 0 ]", "gpus: [ 0, 1, 2, 3, 4, 5, 6, 7 ]")
 
 
-def test_sharded_fused_branch_refuses_naming_item_7(tmp_path):
-    """The fused build raises, naming item 7, and the error propagates (no
-    silent staged fallback)."""
-    es = _sharded_ensemble(tmp_path)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        es.infer(_inputs(np.arange(8, dtype=np.int64)))
+def _sharded_repo(tmp_path):
+    tbl, weights = _build_repo(tmp_path, extra_ps={
+        "shard_tables": True, "deployed_device_list": [0, 1, 2, 3, 4, 5, 6, 7]})
+    (tmp_path / "hps_embedding" / "config.pbtxt").write_text(SHARDED_HPS_PBTXT)
+    return tbl, weights
+
+
+def test_sharded_fused_branch_refuses_naming_item_7(tmp_path, monkeypatch):
+    """(Named for the refusal it pinned until the port had parallel/.) A
+    SHARDED HPS model runs the fused chain: one K1 call per device of its
+    mesh (one here: 8 shards on the host) feeds the dense model, against the
+    JAX package's fused sharded ensemble (tests/test_ensemble.py::
+    test_ensemble_fused_sharded) within the f32 tolerance, the port's staged
+    path bit for bit, and the numpy MLP; misses serve default rows."""
+    from hugectr_backend_tpu_torch.parallel import sharded_table
+    from hugectr_backend_tpu_torch.parallel.sharded_cache import ShardedEmbeddingCache
+
+    tbl, weights = _sharded_repo(tmp_path)
+    b = 6
+    keys = tbl.keys[: b * KEYS_PER_SAMPLE].astype(np.int64)
+    km = keys.copy()
+    km[:KEYS_PER_SAMPLE] = -999
+    outs = []
+    calls = []
+    real = sharded_table.gather_dequant_groups
+    monkeypatch.setattr(sharded_table, "gather_dequant_groups",
+                        lambda *a: calls.append(len(a[0])) or real(*a))
+    for jax in (True, False):
+        bundle, mgr, ensembles = _serve_bundle(tmp_path, jax=jax)
+        try:
+            es = ensembles["ensemble_model"]
+            calls.clear()
+            got = [es.infer(_inputs(k))["DENSE_OUTPUT"] for k in (keys, km)]
+            outs.append(got)
+            if jax:
+                assert es._fused is not None and es._fused[0] == "sharded"
+                continue
+            assert isinstance(mgr.ps.get_embedding_cache("hps_embedding", 0),
+                              ShardedEmbeddingCache)
+            assert es._fused is not None and es._fused.sharded and calls == [8, 8]
+            staged = es.infer_staged(_inputs(keys))["DENSE_OUTPUT"]
+            np.testing.assert_array_equal(staged.reshape(got[0].shape), got[0])
+        finally:
+            mgr.shutdown()
+    x = expected_vector(keys, DIM).reshape(b, DIM * KEYS_PER_SAMPLE)
+    xm = x.copy()
+    xm[0, : KEYS_PER_SAMPLE * DIM] = 0.0
+    for want, got, ref in zip(*outs, (x, xm)):
+        assert got.shape == want.shape == (b, 1)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got, _np_mlp(weights, ref), rtol=1e-5, atol=1e-6)
 
 
 def test_failed_fused_build_raises_on_every_infer(tmp_path):
     """A fused build that raised has decided nothing: every later infer
-    builds again and raises again, instead of serving staged."""
-    es = _sharded_ensemble(tmp_path)
-    for _ in range(3):
-        with pytest.raises(NotImplementedError, match="queue A item 7"):
-            es.infer(_inputs(np.arange(8, dtype=np.int64)))
-        assert es._fused is None and not es._fused_ready
+    builds again and raises again, instead of serving staged. The build is
+    made to fail by a dense model whose layout cannot be read."""
+    _build_repo(tmp_path)
+    bundle, mgr, ensembles = _serve_bundle(tmp_path)
+
+    class _Unreadable:
+        def __init__(self, dm):
+            self._dm = dm
+
+        @property
+        def reshape(self):
+            raise RuntimeError("dense model layout unreadable")
+
+        def __getattr__(self, name):
+            return getattr(self._dm, name)
+
+    try:
+        es = ensembles["ensemble_model"]
+        es.dense["dense_model"] = _Unreadable(es.dense["dense_model"])
+        for _ in range(3):
+            with pytest.raises(RuntimeError, match="layout unreadable"):
+                es.infer(_inputs(np.arange(8, dtype=np.int64)))
+            assert es._fused is None and not es._fused_ready
+    finally:
+        mgr.shutdown()
 
 
 def test_dense_model_follows_the_hps_instance(tmp_path):

@@ -78,6 +78,12 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.models.two_tower",
     "hugectr_backend_tpu_torch.serving.pooled",
     "hugectr_backend_tpu_torch.serving.retrieval",
+    "hugectr_backend_tpu_torch.parallel",
+    "hugectr_backend_tpu_torch.parallel.mesh",
+    "hugectr_backend_tpu_torch.parallel.sharded_table",
+    "hugectr_backend_tpu_torch.parallel.sharded_cache",
+    "hugectr_backend_tpu_torch.parallel.fused_sharded",
+    "hugectr_backend_tpu_torch.entry",
     "hugectr_backend_tpu_torch.io.model_repo",
     "hugectr_backend_tpu_torch.serving.ensemble",
     "hugectr_backend_tpu_torch.tiers.cluster",
@@ -165,10 +171,11 @@ def test_parameter_server_needs_a_card_unless_asked_for_cpu(tmp_path):
     ("volatile_db", {"type": "redis_cluster", "address": "127.0.0.1:1"}),
 ])
 def test_uncovered_options_raise(tmp_path, option, value):
-    """Options the port does not cover yet raise, naming their ROADMAP item;
-    the dynamic, stochastic and UVM caches and the ``redis_cluster`` volatile
-    db (here on its local fallback: no node answers) are covered: they
-    serve."""
+    """Options the port did not cover raised, naming their ROADMAP item; each
+    is covered now and serves: the dynamic, stochastic and UVM caches, the
+    ``redis_cluster`` volatile db (here on its local fallback: no node
+    answers) and ``shard_tables`` (two shards on the host, one mesh-wide
+    instance under device 0)."""
     from hugectr_backend_tpu_torch import HierParameterServer, LookupSession
     from hugectr_backend_tpu_torch.io.sparse_model import write_sparse_model
 
@@ -183,21 +190,22 @@ def test_uncovered_options_raise(tmp_path, option, value):
         cfg[option] = value
     else:
         model[option] = value
-    if option in ("embedding_cache_type", "volatile_db"):
-        ps = HierParameterServer.create(cfg, device="cpu")
-        try:
-            cache = ps.get_embedding_cache("m", 1)
-            want = ("EmbeddingCache" if option == "volatile_db" else
-                    {"uvm": "UvmEmbeddingCache"}.get(value, "DynamicEmbeddingCache"))
-            assert type(cache).__name__ == want
-            out = LookupSession.create(ps.get_model_params("m"), cache).lookup_numpy(
-                [np.array([2, 7], np.int64)])[0]
-            np.testing.assert_array_equal(out, [[2.0], [0.0]])
-        finally:
-            ps.shutdown()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HierParameterServer.create(cfg, device="cpu")
+    ps = HierParameterServer.create(cfg, device="cpu")
+    try:
+        if option == "shard_tables":
+            with pytest.raises(KeyError):
+                ps.get_embedding_cache("m", 1)
+        cache = ps.get_embedding_cache("m", 0 if option == "shard_tables" else 1)
+        want = {"volatile_db": "EmbeddingCache", "shard_tables": "ShardedEmbeddingCache",
+                "embedding_cache_type": "DynamicEmbeddingCache"}[option]
+        if value == "uvm":
+            want = "UvmEmbeddingCache"
+        assert type(cache).__name__ == want
+        out = LookupSession.create(ps.get_model_params("m"), cache).lookup_numpy(
+            [np.array([2, 7], np.int64)])[0]
+        np.testing.assert_array_equal(out, [[2.0], [0.0]])
+    finally:
+        ps.shutdown()
 
 
 @pytest.mark.parametrize("alone", [False, True])
