@@ -167,6 +167,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    device times, idle shares, and K1 at each lookup's recorded groups beside
    its bound over the unique real slots, the pad rows and the
    ``index_select`` chain.
+5e3. The entry points around the package (the "examples" phase,
+   ``examples_phase``): (1) ``entry.entry()`` on the card (K1 then K4, once
+   each) against ``entry(device="cpu")`` with the same weights; (2) each of
+   the nine ``hugectr_backend_tpu_torch.examples`` run by its ``main()`` on
+   the card, its own checks raising, its launches counted (K1 exactly once
+   per lookup, predict, request or retrieve; K4 in 02's single-table server
+   and K3 or K2 in its multi-table one; int4 tables given to K1 in 06; none
+   in 08, which runs on the host) and its outputs held against the same
+   example run with ``device="cpu"`` in this process (lookups, HTTP
+   responses and int4 rows bit-identical, 06's hit rate equal, logits within
+   rtol 1e-4 and atol 1e-5 x max(1, max|logit|), 05's ensemble within 1e-5
+   / 1e-6, retrieval scores rel < 1e-6 with the keys equal wherever a score
+   stands apart from its neighbours); (3) ``tools.perf_client`` (a process
+   of its own, 8 clients, 64-sample binary requests of 26 keys) for 5 s
+   against a fresh server of one 262,144 x 128 int8 table, its qps and p50 /
+   p99 printed beside the frontend phase's; (4)
+   ``scripts.frontend_saturation`` at its full configuration with the
+   DEVICE STUBBED OUT (front-end software alone; direct, HTTP and gRPC legs
+   at the full concurrency), beside the frontend phase's requests/s and p50;
+   (5) ``scripts.auc_parity`` in smoke mode, every gate held and the
+   one-hot fold engaged.
 5f. The ``redis_cluster`` volatile db (the "cluster" phase,
    ``cluster_phase``): two pool nodes started through ``python -m
    hugectr_backend_tpu_torch.tiers.cluster`` with a shared secret and TLS (a
@@ -241,6 +262,8 @@ The line before the last is ``{"kernels": [...]}``; the last is
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -342,6 +365,19 @@ SHARD_HTTP_REQUESTS = 8  # 64-sample requests to each of the two models
 SHARD_UPDATE_KEYS = 256  # keys of table 0 given new rows before the refresh
 SHARD_ENS_FORMATS = ("f32", "w8a8")
 SHARD_TIMED = 10  # timed predicts (median)
+# The examples phase: each example's card run against its CPU run
+# (tests/test_torch_examples_*.py's tolerances), perf_client and
+# frontend_saturation beside the frontend phase.
+EX_LOGITS_TOL = (1e-4, 1e-5)  # rtol, atol x max(1, max|want|): f32 sums in another order
+EX_ENSEMBLE_TOL = (1e-5, 1e-6)  # the ensemble's f32 dense layers
+EX_RETRIEVAL_REL = 1e-6  # retrieval scores, max|delta| / max|score|
+# perf_client sends one NUMKEYS entry (the reference CI's perf_analyzer
+# --shape KEYS:26 --shape NUMKEYS:1), so it cannot drive the frontend phase's
+# 26 tables: it drives one table at the row cap of that deployment's large
+# tables (keys 0..rows-1, DIM wide, int8). A 64-sample request then carries
+# the frontend phase's 1,664 keys and gets its response bytes back.
+PERF_CLIENT_ROWS = ROW_CAP
+PERF_CLIENT_S = 5.0
 # The redis_cluster volatile db (the "cluster" phase): two pool nodes.
 CLUSTER_BATCHES = 4
 CLUSTER_START_S = 60.0  # the wait for a node process to answer
@@ -3718,6 +3754,320 @@ def sharded_phase(dev, tables, cfg, cache, batches, bw=None, emit_line=emit,
     return {"launches": dict(launches), "lines": lines, "k1": dcn_k1}
 
 
+# ------------------------------------------------------------ the examples phase
+
+
+def ex_same(what: str, got, want) -> None:
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or got.dtype != want.dtype or got.tobytes() != want.tobytes():
+        raise AssertionError(f"examples: {what}: the card's run differs from the CPU run's")
+
+
+def ex_close(what: str, got, want, tol) -> float:
+    """|got - want| <= rtol * |want| + atol * max(1, max|want|), elementwise.
+    -> max |delta|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"examples: {what}: shape {got.shape} vs {want.shape}, or "
+                             "non-finite values on the card")
+    err = np.abs(got - want)
+    if (err > tol[0] * np.abs(want) + tol[1] * max(1.0, float(np.abs(want).max()))).any():
+        raise AssertionError(f"examples: {what}: max |delta| {err.max()} past rtol {tol[0]}, "
+                             f"atol {tol[1]} x max(1, max|want|)")
+    return float(err.max())
+
+
+def ex_retrieval(got, want) -> dict:
+    """Retrieval on the card against the CPU run: scores rel < EX_RETRIEVAL_REL,
+    and the keys equal wherever a score stands apart from its neighbours
+    (ties within the tolerance may come in another order). The k-th key is
+    never compared: its right neighbour, the (k+1)-th score, is not
+    returned, so a tie there cannot be seen."""
+    s_got, s_want = np.asarray(got["scores"]), np.asarray(want["scores"])
+    if s_got.shape != s_want.shape:
+        raise AssertionError(f"examples: retrieval shapes {s_got.shape} vs {s_want.shape}")
+    rel = float(np.abs(s_got - s_want).max() / np.abs(s_want).max())
+    if rel >= EX_RETRIEVAL_REL:
+        raise AssertionError(f"examples: retrieval scores rel {rel} (bar {EX_RETRIEVAL_REL})")
+    gap = EX_RETRIEVAL_REL * float(np.abs(s_want).max())
+    apart = np.abs(np.diff(s_want, axis=1)) > gap  # position j vs j + 1
+    sep = np.ones_like(s_want, dtype=bool)
+    sep[:, :-1] &= apart
+    sep[:, 1:] &= apart
+    sep[:, -1] = False  # its right neighbour (the k+1-th) is unknown
+    bad = sep & (np.asarray(got["item_keys"]) != np.asarray(want["item_keys"]))
+    if bad.any():
+        raise AssertionError(f"examples: retrieval: {int(bad.sum())} separated positions "
+                             "hold other keys on the card than on the CPU")
+    return {"scores_rel": rel, "keys_compared": int(sep.sum()), "positions": int(sep.size)}
+
+
+def ex_compare(name: str, got: dict, want: dict) -> dict:
+    """One example's card run against its CPU run, at the CPU tests'
+    tolerances. -> what was compared."""
+    if name in ("01_deploy_and_lookup", "04_sharded_multichip"):
+        ex_same(f"{name} keys", got["keys"], want["keys"])
+        ex_same(f"{name} HTTP output", got["output"], want["output"])
+        return {"output": "bit-identical"}
+    if name == "02_fused_dlrm_serving":
+        return {"logits_max_abs": ex_close("02 FusedDlrmServer logits", got["logits"],
+                                           want["logits"], EX_LOGITS_TOL),
+                "multi_logits_max_abs": ex_close("02 multi-table logits", got["multi_logits"],
+                                                 want["multi_logits"], EX_LOGITS_TOL)}
+    if name == "03_online_updates":
+        ex_same("03 before", got["before"], want["before"])
+        ex_same("03 after", got["after"], want["after"])
+        return {"rows": "bit-identical"}
+    if name == "05_triton_repo_ensemble":
+        ex_same("05 torch MLP", got["torch_output"], want["torch_output"])
+        return {"ensemble_max_abs": ex_close("05 ensemble", got["output"], want["output"],
+                                             EX_ENSEMBLE_TOL)}
+    if name == "06_capacity_tiering_int4":
+        ex_same("06 int4 rows", got["output"], want["output"])
+        ex_same("06 missing key", got["miss"], want["miss"])
+        if got["hit_rate"] != want["hit_rate"]:
+            raise AssertionError(f"examples: 06 hit rate {got['hit_rate']} on the card, "
+                                 f"{want['hit_rate']} on the CPU")
+        return {"output": "bit-identical", "hit_rate": got["hit_rate"]}
+    if name == "07_model_zoo":
+        if list(got) != list(want):
+            raise AssertionError(f"examples: 07 families {list(got)} vs {list(want)}")
+        return {fam: ex_close(f"07 {fam}", got[fam], want[fam], EX_LOGITS_TOL) for fam in got}
+    if name == "08_kafka_groups_compression":
+        if got["total"] != want["total"] or got["rows"].keys() != want["rows"].keys():
+            raise AssertionError("examples: 08 consumed other rows in the two runs")
+        for k, v in want["rows"].items():
+            ex_same(f"08 row {k}", got["rows"][k], v)
+        return {"rows": got["total"], "lz4_decoder": got["lz4_decoder"]}
+    if name == "09_retrieval_topk":
+        return ex_retrieval(got, want)
+    raise KeyError(name)
+
+
+def ex_expected_launches(name: str, out: dict) -> dict:
+    """The kernel launches one run of example ``name`` must count on the
+    card: K1 once per lookup, predict, request or retrieve; K4 in 02's
+    single-table server; the interaction 02's multi-table plan picks. Keys
+    with a tuple count the sum of those kernels."""
+    k1 = {"01_deploy_and_lookup": 1, "02_fused_dlrm_serving": 2,
+          "03_online_updates": out.get("lookups"), "04_sharded_multichip": 1,
+          "05_triton_repo_ensemble": 1, "06_capacity_tiering_int4": 2, "07_model_zoo": 7,
+          "08_kafka_groups_compression": 0, "09_retrieval_topk": 1}[name]
+    want = {"gather_dequant": k1} if k1 else {}
+    if name == "02_fused_dlrm_serving":
+        want["fused_dot_interaction"] = 1
+        want[("dot_interaction_parts", "dot_interaction_oh_parts")] = 1
+    return want
+
+
+def ex_check_launches(name: str, got: dict, want: dict, dev) -> None:
+    if dev.type != "cuda":
+        if any(got.values()):
+            raise AssertionError(f"examples: {name} launched {got} on the CPU")
+        return
+    seen = set()
+    for key, n in want.items():
+        names = key if isinstance(key, tuple) else (key,)
+        seen.update(names)
+        if sum(got.get(k, 0) for k in names) != n:
+            raise AssertionError(f"examples: {name} launched {got}; expected {want}")
+    extra = {k: v for k, v in got.items() if v and k not in seen}
+    if extra:
+        raise AssertionError(f"examples: {name} launched other kernels too: {extra}")
+
+
+def perf_client_leg(device, seconds: float, emit_line=emit) -> dict:
+    """``tools.perf_client`` (a process of its own, 8 clients, 64-sample
+    binary requests of 26 keys, one table) for ``seconds`` against a fresh
+    server on ``device``: one PERF_CLIENT_ROWS x DIM int8 table whose keys
+    are 0..rows-1, so that the tool's uniform keys all hit (see
+    PERF_CLIENT_ROWS for why one table). -> its report, with the K1
+    launches of the window."""
+    from hugectr_backend_tpu_torch.io.sparse_model import write_sparse_model
+    from hugectr_backend_tpu_torch.io.synthetic import make_synthetic_table
+    from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.serving.server import serve
+
+    with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_perf_") as root:
+        tbl = make_synthetic_table(PERF_CLIENT_ROWS, DIM, seed=SEED + 61,
+                                   key_space=PERF_CLIENT_ROWS)
+        write_sparse_model(os.path.join(root, "t0"), tbl.keys, tbl.vectors)
+        cfg = {"models": [{"model": "dlrm", "sparse_files": [os.path.join(root, "t0")],
+                           "embedding_vecsize_per_table": [DIM],
+                           "maxnum_catfeature_query_per_table_per_sample": [26],
+                           "max_batch_size": FRONTEND_MAX_BATCH, "gpucacheper": 1.0,
+                           "embedding_cache_type": "static", "deployed_device_list": [0]}]}
+        server = serve(cfg, port=0, block=False, grpc_port=None, device=device)
+        try:
+            args = [sys.executable, "-m", "hugectr_backend_tpu_torch.tools.perf_client",
+                    "--url", f"http://127.0.0.1:{server.port}", "--model", "dlrm",
+                    "--batch", str(FRONTEND_SAMPLES), "--keys-per-sample", "26",
+                    "--key-range", str(PERF_CLIENT_ROWS),
+                    "--concurrency", str(FRONTEND_CLIENTS), "--binary"]
+            here = os.path.dirname(os.path.abspath(__file__))
+            subprocess.run(args + ["--duration", "1"], cwd=here, check=True,
+                           capture_output=True, timeout=120)  # warm-up
+            kernels.launches.clear()
+            r = subprocess.run(args + ["--duration", str(seconds)], cwd=here, check=True,
+                               capture_output=True, text=True, timeout=120 + seconds)
+            k1 = kernels.launches.get("gather_dequant", 0)
+        finally:
+            server.stop()
+    rep = json.loads(r.stdout.strip().splitlines()[-1])
+    if rep["requests_err"] or not rep["requests_ok"]:
+        raise AssertionError(f"perf_client: {rep}")
+    # One K1 launch per merged batch: at most one a request (and one for
+    # each warm-up request still in flight when the window opened).
+    if (torch.device(device or "cuda").type == "cuda"
+            and not 1 <= k1 <= rep["requests_ok"] + FRONTEND_CLIENTS):
+        raise AssertionError(f"perf_client: {k1} K1 launches for {rep['requests_ok']} requests")
+    rep["k1_launches"] = k1
+    emit_line({"perf_client": rep, "rows": PERF_CLIENT_ROWS})
+    return rep
+
+
+def examples_phase(dev, fe=None, emit_line=emit, names=None, smoke: bool = False) -> dict:
+    """The entry points around the package (the "examples" phase):
+    (1) ``entry.entry()`` on ``dev`` against ``entry(device="cpu")`` (the
+    same weights): K1 and K4 once a call; (2) every example's ``main()`` on
+    ``dev``, its launches counted (``ex_expected_launches``) and its
+    outputs held against the same example run with ``device="cpu"`` in this
+    process (``ex_compare``); (3) ``tools.perf_client`` for PERF_CLIENT_S
+    against a fresh server; (4) ``scripts.frontend_saturation`` at its full
+    configuration, each leg at its full concurrency (the device stubbed),
+    beside the frontend phase's ``fe``; (5) ``scripts.auc_parity`` in smoke
+    mode, every gate held. ``names`` limits (2) and ``smoke`` runs (3)-(4)
+    small (the CPU rehearsal). -> {"launches", "lines"}."""
+    import hugectr_backend_tpu_torch.cache.lookup_program as lp
+    from hugectr_backend_tpu_torch import examples
+    from hugectr_backend_tpu_torch.entry import entry
+    from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.scripts import auc_parity
+    from hugectr_backend_tpu_torch.scripts import frontend_saturation as fsat
+
+    device = None if dev.type == "cuda" else "cpu"
+    launches = collections.Counter()
+    lines = []
+
+    def out(line):
+        lines.append(line)
+        emit_line(line)
+
+    def counted(call):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        res = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in kernels.launches.items() if v}
+        launches.update(got)
+        return res, got, wall
+
+    # (1) entry().
+    fn, args = entry(device)
+    logits, got, wall = counted(lambda: fn(*args))
+    ex_check_launches("entry", got, {"gather_dequant": 1, "fused_dot_interaction": 1}, dev)
+    fn_c, args_c = entry("cpu")
+    err = ex_close("entry logits", logits.cpu().numpy(), fn_c(*args_c).numpy(), EX_LOGITS_TOL)
+    out({"example": "entry", "launches": got, "wall_s": wall, "vs_cpu_max_abs": err})
+    del fn, args, logits
+
+    # (2) The nine examples, each on the card, then on the CPU. What they
+    # print is kept out of this run's output (the lines below carry it).
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    for name in names or examples.NAMES:
+        mod = examples.load(name)
+        with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_ex_") as root:
+            with Recorder((lp, "gather_dequant_groups")) as rec, quiet:
+                res, got, wall = counted(lambda: mod.main(device=device, root=root))
+        ex_check_launches(name, got, ex_expected_launches(name, res), dev)
+        if name == "06_capacity_tiering_int4" and dev.type == "cuda" and not any(
+                v.dtype == torch.uint8 for call in rec.calls["gather_dequant_groups"]
+                for v in call[0]):
+            raise AssertionError("examples: 06 never gave K1 an int4 table")
+        with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_ex_cpu_") as root:
+            t0 = time.perf_counter()
+            with quiet:
+                ref = mod.main(device="cpu", root=root)
+            cpu_wall = time.perf_counter() - t0
+        out({"example": name, "launches": got, "wall_s": wall, "cpu_wall_s": cpu_wall,
+             "vs_cpu": ex_compare(name, res, ref)})
+
+    # (3) perf_client against a fresh server.
+    rep = perf_client_leg(device, 1.0 if smoke else PERF_CLIENT_S, emit_line)
+    launches["gather_dequant"] += rep["k1_launches"]
+    fe_txt = ("" if fe is None else
+              f"; the frontend phase's own clients (26 tables): {fe['qps']:.1f} requests/s, "
+              f"p50 {fe['p50_ms']:.2f} ms, p99 {fe['p99_ms']:.2f} ms")
+    print(f"examples: perf_client (one {PERF_CLIENT_ROWS} x {DIM} table, 26 keys a sample, "
+          f"{FRONTEND_CLIENTS} clients, 64-sample binary requests): {rep['qps']} requests/s, "
+          f"p50 {rep['latency_ms']['p50']} ms, p99 {rep['latency_ms']['p99']} ms, "
+          f"{rep['k1_launches']} K1 launches for {rep['requests_ok']} requests"
+          + (fe_txt and " [NOT the same deployment: the same keys and response bytes a "
+             "request, but one table with uniform keys, all present, against 26 tables "
+             "with Zipf keys and ~1 % absent]" + fe_txt), flush=True)
+
+    # (4) frontend_saturation: the device stubbed out (no launch can count).
+    kernels.launches.clear()
+    with quiet:
+        sat = fsat.run(device, smoke=smoke, conc_scan=[fsat.concurrency(smoke)])
+    if any(kernels.launches.values()):
+        raise AssertionError(f"frontend_saturation launched {dict(kernels.launches)}")
+    legs = [leg for leg, _, _ in fsat.LEGS]
+    for leg in legs:
+        if not sat[leg]["samples_per_s"] > 0:
+            raise AssertionError(f"frontend_saturation {leg}: {sat[leg]}")
+    out({"frontend_saturation": sat, "beside_frontend_phase": fe and {
+        k: fe[k] for k in ("qps", "p50_ms", "p99_ms", "mean_merged_batch")}})
+    print("examples: frontend_saturation (DEVICE STUBBED: front-end software only; server "
+          f"booted on {sat['server_device']}, {sat['concurrency']} clients in this process): "
+          + "; ".join(f"{leg} {sat[leg]['requests_per_s']:.1f} requests/s, "
+                      f"{sat[leg]['samples_per_s']:.0f} samples/s, "
+                      f"{sat[leg]['merged_batches_per_s']:.1f} merged batches/s"
+                      + (f", p50 {sat[leg]['p50_ms']:.2f} ms" if "p50_ms" in sat[leg] else "")
+                      for leg in legs) + fe_txt, flush=True)
+
+    # (5) auc_parity, smoke mode.
+    with quiet:
+        res, got, wall = counted(lambda: auc_parity.run(device, smoke=True))
+    if not all(res["gates"].values()) or not all(res["path_parity"]["oh_kernel_engaged"]):
+        raise AssertionError(f"auc_parity: gates {res['gates']}, one-hot fold engaged "
+                             f"{res['path_parity']['oh_kernel_engaged']}")
+    if dev.type == "cuda":
+        for k in ("gather_dequant", "fused_dot_interaction", "dot_interaction_bwd",
+                  "dot_interaction_oh_parts", "dot_interaction_parts", "w8a8_dense"):
+            if not got.get(k):
+                raise AssertionError(f"auc_parity never launched {k}: {got}")
+    out({"auc_parity_smoke": {"max_abs_delta": res["max_abs_delta"], "gates": res["gates"],
+                              "path_max_abs_delta": res["path_parity"]["max_abs_delta"]},
+         "launches": got, "wall_s": wall})
+    return {"launches": dict(launches), "lines": lines}
+
+
+def examples_alone() -> int:
+    """The examples phase alone, on the card (build, the phase):
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.examples_alone())"``."""
+    from hugectr_backend_tpu_torch.native import kvstore
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = torch.cuda.get_device_name(0)
+    kernels.build_all()
+    kvstore.load_lib()
+    t0 = time.perf_counter()
+    res = examples_phase(dev)
+    print(f"examples: launches {res['launches']} ({time.perf_counter() - t0:.1f} s; {card})",
+          flush=True)
+    return 0
+
+
 def sharded_alone() -> int:
     """The sharded phase alone, on the card (build, phase 3's deployment,
     the phase): ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.sharded_alone())"``."""
@@ -4202,6 +4552,16 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s; P shards on one card: no interconnect measured; "
           f"{card} | {smi})", flush=True)
 
+    # Phase 5e3: the entry points around the package: entry(), the nine
+    # examples, perf_client, frontend_saturation (device stubbed) and
+    # auc_parity's smoke pass.
+    t0 = time.perf_counter()
+    exa = examples_phase(dev, fe,
+                         emit_line=lambda line: emit({**line, "card": card, "nvidia_smi": smi}))
+    print(f"examples: entry() and the nine examples on the card held to their CPU runs; "
+          f"launches {exa['launches']} ({time.perf_counter() - t0:.1f} s; {card} | {smi})",
+          flush=True)
+
     # Phase 5f: the redis_cluster volatile db: the dynamic deployment with
     # its DRAM tier on two pool node processes.
     t0 = time.perf_counter()
@@ -4425,7 +4785,7 @@ def main() -> int:
     print(f"card memory after the microbenchmarks: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
           "allocated", flush=True)
 
-    for name, n in shd["launches"].items():
+    for name, n in list(shd["launches"].items()) + list(exa["launches"].items()):
         launches[name] = launches.get(name, 0) + n
     print(smi)
     emit({"kernels": [

@@ -1,6 +1,17 @@
-"""Multi-shard dry run: one sharded training step and sharded serving.
+"""The program's entry points: the flagship single-card program and the
+multi-shard dry run.
 
-The counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``:
+``entry(device=None) -> (fn, example_args)`` is the counterpart of the JAX
+package's ``__graft_entry__.entry``: the fused DLRM serve step (K1's gather
+and dequant of a 50,000 x 64 int8 table, then the DLRM with K4 for the
+interaction) at batch 128, 26 keys a sample:
+
+    from hugectr_backend_tpu_torch.entry import entry
+    fn, args = entry()                 # on the card
+    logits = fn(*args)                 # [128]
+
+The multi-shard dry run is the counterpart of
+``__graft_entry__.dryrun_multichip``:
 
     from hugectr_backend_tpu_torch.entry import dryrun_multichip
     dryrun_multichip(8, device="cuda:0")   # 8 mesh entries on one card
@@ -33,6 +44,48 @@ def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """The JAX dry run's loss: mean(max(l, 0) - l y + log1p(exp(-|l|)))."""
     return torch.mean(torch.clamp(logits, min=0) - logits * labels
                       + torch.log1p(torch.exp(-logits.abs())))
+
+
+def entry(device=None, state=None):
+    """-> (fn, example_args) for the fused DLRM forward step on ``device``
+    (None: the card; ``"cpu"``: the host, where K1 and K4 run their plain
+    versions).
+
+    The JAX package's ``fn`` takes the Flax params first (``forward(params,
+    values, scales, slots, scin, dense)``); this ``fn`` binds the module, so
+    ``example_args`` is ``(values, scales, slots, None, dense)``: the int8
+    table's rows and per-row scales, 128 x 26 int32 slots from a numpy seed,
+    no per-key scales, and zero dense features. The weights are Flax's
+    initialisation drawn from a seeded generator, or ``state`` (a state dict
+    of ``DLRM(13, 26, (256, 64), (256, 64, 1))``, e.g. the JAX params carried
+    across with ``models.load_flax_dlrm_params``). ``fn`` runs under
+    ``torch.inference_mode``."""
+    from hugectr_backend_tpu_torch.io.synthetic import make_synthetic_table
+    from hugectr_backend_tpu_torch.models.dlrm import DLRM
+    from hugectr_backend_tpu_torch.serving.program import make_dlrm_forward
+    from hugectr_backend_tpu_torch.tiers.hbm import DeviceTable, default_device
+
+    dev = default_device(device)
+    batch, keys_per_sample, dim, num_dense = 128, 26, 64, 13
+    tbl = make_synthetic_table(50_000, dim, seed=0)
+    dt = DeviceTable.from_numpy(tbl.keys, tbl.vectors, quant="int8", device=dev)
+
+    model = DLRM(num_dense, keys_per_sample, bottom_widths=(256, 64), top_widths=(256, 64, 1))
+    if state is None:
+        model.init_flax_(torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict(state)
+    model = model.to(dev).eval()
+    fwd = make_dlrm_forward(model, keys_per_sample)
+
+    def fn(values, scales, slots, scin, dense):
+        with torch.inference_mode():
+            return fwd(values, scales, slots, scin, dense)
+
+    slots = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 50_000, batch * keys_per_sample).astype(np.int32)).to(dev)
+    dense = torch.zeros((batch, num_dense), dtype=torch.float32, device=dev)
+    return fn, (dt.values, dt.scales, slots, None, dense)
 
 
 def dryrun_multichip(n_devices: int, device=None) -> dict:

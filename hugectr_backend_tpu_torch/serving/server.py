@@ -56,6 +56,13 @@ class _Handler(BaseHTTPRequestHandler):
     ensembles: dict = {}          # name -> serving.ensemble.EnsembleServer
     dense_models: dict = {}       # name -> io.dense_model.DenseModel
     protocol_version = "HTTP/1.1"
+    # TCP_NODELAY on every connection: a response goes out in two or three
+    # writes (status + headers, then the body; the binary extension's JSON
+    # header, then the tensor), and with Nagle's algorithm on, a small second
+    # write waits for the client's delayed ACK of the first (~40 ms on
+    # Linux) on a keep-alive connection. The JAX package's server has Nagle
+    # on (ROADMAP queue C).
+    disable_nagle_algorithm = True
 
     # -- helpers -------------------------------------------------------------
 

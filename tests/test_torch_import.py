@@ -87,6 +87,23 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.io.model_repo",
     "hugectr_backend_tpu_torch.serving.ensemble",
     "hugectr_backend_tpu_torch.tiers.cluster",
+    "hugectr_backend_tpu_torch.examples",
+    "hugectr_backend_tpu_torch.examples._common",
+    "hugectr_backend_tpu_torch.examples.01_deploy_and_lookup",
+    "hugectr_backend_tpu_torch.examples.02_fused_dlrm_serving",
+    "hugectr_backend_tpu_torch.examples.03_online_updates",
+    "hugectr_backend_tpu_torch.examples.04_sharded_multichip",
+    "hugectr_backend_tpu_torch.examples.05_triton_repo_ensemble",
+    "hugectr_backend_tpu_torch.examples.06_capacity_tiering_int4",
+    "hugectr_backend_tpu_torch.examples.07_model_zoo",
+    "hugectr_backend_tpu_torch.examples.08_kafka_groups_compression",
+    "hugectr_backend_tpu_torch.examples.09_retrieval_topk",
+    "hugectr_backend_tpu_torch.tools",
+    "hugectr_backend_tpu_torch.tools.convert_dense_model",
+    "hugectr_backend_tpu_torch.tools.convert_sparse_model",
+    "hugectr_backend_tpu_torch.tools.perf_client",
+    "hugectr_backend_tpu_torch.scripts.auc_parity",
+    "hugectr_backend_tpu_torch.scripts.frontend_saturation",
     "chip_smoke",
 ]
 
@@ -250,3 +267,31 @@ def test_training_and_harness_need_a_card_unless_asked_for_cpu(tmp_path, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
     assert np.isfinite(np.asarray(calls[entry](device="cpu")[-1])).all()
+
+
+def test_every_example_and_tool_is_checked():
+    """Each of the port's examples and tools is in SLICE_MODULES (imported
+    without JAX above), and the examples package lists every example."""
+    from hugectr_backend_tpu_torch.examples import NAMES
+
+    examples = sorted(p.stem for p in (PKG / "examples").glob("0*.py"))
+    assert list(NAMES) == examples and len(examples) == 9
+    tools = sorted(p.stem for p in (PKG / "tools").glob("*.py") if p.stem != "__init__")
+    assert tools == ["convert_dense_model", "convert_sparse_model", "perf_client"]
+    for name in [f"examples.{e}" for e in examples] + [f"tools.{t}" for t in tools]:
+        assert f"hugectr_backend_tpu_torch.{name}" in SLICE_MODULES, name
+
+
+@pytest.mark.parametrize("name", ["01_deploy_and_lookup", "02_fused_dlrm_serving",
+                                  "03_online_updates", "05_triton_repo_ensemble",
+                                  "06_capacity_tiering_int4", "07_model_zoo",
+                                  "09_retrieval_topk"])
+def test_examples_need_a_card_unless_asked_for_cpu(tmp_path, name):
+    """Every example that puts tensors on a device runs on the card by
+    default and raises where there is none (08 runs on the host alone)."""
+    from hugectr_backend_tpu_torch.examples import load
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        load(name).main(root=tmp_path)
