@@ -32,7 +32,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    warp's tile and past 1,024 fed features or one-hot members) and at 800
    and 850 (z in device memory), the backward at F 148 and 700 (through
    autograd, and K2's parts with gradients not asked for), K5 with N <= 8
-   at K 29,057, 30,000 and 100,000 (every activation).
+   at K 29,057, 30,000 and 100,000 (every activation). K2, K3 and K4's bf16
+   route (bf16 bottom, features and output; ``bf16_interaction_checks``) at
+   the same F, B 37 (odd output rows start on odd 2-byte boundaries), D 128,
+   36 and 31, every arena kind, the wide route too: the bottom copy exact,
+   the pairs within 1 bf16 ulp of the plain version (plus the f32 atol where
+   a sum cancels); a CUDA tensor of another type still raises.
 3. The main path at full width: a Criteo-Kaggle-shaped DLRM (the 26
    categorical cardinalities, each capped at 262,144 rows; D = 128, int8;
    13 dense features; bottom MLP 512-256-128, top MLP 1024-1024-512-256-1;
@@ -203,6 +208,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    version, one PyTorch call for the same product where there is one, and
    its bound: the larger of bytes over the memory rate and operations over
    the card's tensor-core rate for their type (bf16 for K2/K3, int8 for K5).
+   K2 and K3 also at bf16 (the same rows cast; the bound over 2-byte rows).
    K5 is timed at each of its 8 layer shapes, each line naming the plan it
    took; its entry in the kernels line sums the 8 (one predict's worth). K1
    is timed as each path's one grouped launch (its library time: the
@@ -233,12 +239,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    per sample, the same widths; 600 steps over 4M samples at lr 1e-3) served by
    ``FusedDlrmServer`` (K1, K4) in the same variants. Gates (the JAX package's, tests/test_auc_parity.py):
    fp32 AUC > 0.55, |delta int8| < 1e-3, |delta w8a8| < 5e-3.
-10. K4 forward and backward timed at the training shape (CUDA-graph
-   replay) beside their plain versions, ``torch.bmm`` yardsticks (bf16 z z^T
-   forward; f32 (dzzt) z backward, TF32 off) and their bounds (bytes; the
-   backward's f32 FMAs over the card's non-tensor f32 rate take less), and
-   the train step: wall time (median of 10), device time and idle share from
-   ``torch.profiler``.
+10. K4 forward (f32 and bf16) and backward timed at the training shape
+   (CUDA-graph replay) beside their plain versions, ``torch.bmm``
+   yardsticks (bf16 z z^T forward; f32 (dzzt) z backward, TF32 off) and
+   their bounds (bytes; the backward's f32 FMAs over the card's non-tensor
+   f32 rate take less), and the train step: wall time (median of 10),
+   device time and idle share from ``torch.profiler``.
 
 11. The lookup microbenchmarks (``hugectr_backend_tpu_torch.scripts``, this
    slice's path; run last, after the training state is freed, so that the
@@ -254,6 +260,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    4096: 65,536 keys over 52 row tiles of 512) beside its plain version,
    ``index_select`` and K1 on the same slots, bit for bit against the plain
    version.
+
+12. The benchmark programs (``bench_phase``; this slice's path), launch
+   counts set to 0 just before and read just after:
+   ``hugectr_backend_tpu_torch.bench`` at the uncapped Criteo-Kaggle cardinalities (33.76M rows x 128
+   int8, 4.32 GB; 14 one-hot / 4 arena / 8 solo; the headline lookup at
+   batch 4096 and 1024 bit-exact against the closed form with one K1 launch
+   an iteration; the six fused variants f32 (fold, K3), f32_twostage (K2),
+   bf16cast (K3 at bf16), int8, fp8, w8a8 (K5), fold vs two-stage rel <
+   5e-3, each variant's first 64 logits against the same model on the CPU,
+   each forward's launches; DIN against the host's pool; the tier, host
+   translation and HTTP stages, the latter at 5 s), then the seven
+   microbenchmarks (``microbench_w8a8_kernel``, ``_dense``,
+   ``_interaction``, ``_int4_gather``, ``_overhead``, ``_update_storm`` for
+   5 s, ``_scaling``), each at its card sizes with its own correctness step.
+   K1, K2, K3, K4 and K5 must launch. The phase prints its peak memory and
+   seconds; ``bench_alone()`` runs it alone.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -382,15 +404,6 @@ PERF_CLIENT_S = 5.0
 CLUSTER_BATCHES = 4
 CLUSTER_START_S = 60.0  # the wait for a node process to answer
 
-# Dense peaks (NVIDIA data sheets, without sparsity): memory bytes/s, bf16
-# tensor FLOP/s, int8 tensor OP/s, f32 FLOP/s outside the tensor cores.
-PEAKS = (
-    ("H200", 4.8e12, 989e12, 1979e12, 67e12),
-    ("H100 NVL", 3.9e12, 835e12, 1671e12, 60e12),
-    ("H100 PCIe", 2.0e12, 756e12, 1513e12, 51e12),
-    ("H100", 3.35e12, 989e12, 1979e12, 67e12),  # SXM
-)
-
 SOURCES = {
     "gather_dequant": ("hugectr_backend_tpu_torch/csrc/gather_dequant.cu",
                        "hugectr_backend_tpu/ops/dequant_gather.py:54"),
@@ -409,15 +422,6 @@ SOURCES = {
     "onehot_gather_rows": ("hugectr_backend_tpu_torch/csrc/onehot_gather.cu",
                            "hugectr_backend_tpu/ops/onehot_gather.py:218"),
 }
-
-
-def peaks(name: str):
-    """-> (memory bytes/s, bf16 FLOP/s, int8 OP/s, f32 non-tensor FLOP/s) of
-    the card."""
-    for key, *rates in PEAKS:
-        if key in name:
-            return rates
-    raise RuntimeError(f"no peak rates known for {name!r}")
 
 
 def emit(obj) -> None:
@@ -674,6 +678,141 @@ def k3_wide_checks(dev) -> int:
                 if not ok:
                     raise AssertionError(f"{name} F={f} D={d}: max err {err}")
                 n_checks += 1
+    return n_checks
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp at |x| (8 significant bits; the smallest normal's at 0)."""
+    m = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def bf16_interaction_err(got, want, zm):
+    """-> (ok, max_abs_err) for a bf16 forward against its plain version:
+    both round f32 sums of the same bf16 products, summed in other orders,
+    so each element is within 1 bf16 ulp of the plain one, widened by the
+    f32 check's atol 1e-6 * max|z|^2 where a sum cancels to near zero."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        return False, float("inf")
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= bf16_ulp(want) + 1e-6 * zm * zm).all())
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+def bf16_interaction_checks(dev) -> int:
+    """K2, K3 and K4's bf16 route (bf16 bottom, features and output) against
+    the plain versions at F in K3_EDGE_F, B 37 (odd: every other output row
+    starts on an odd 2-byte boundary), D 128 (the vector path), 36 and 31
+    (odd), on general and part-major maps with phantom rows, strided
+    stacked views, and int8 / fp8 / bf16 / f32 one-hot arenas with slots
+    outside their members; and the wide route (z in shared and in device
+    memory). The bottom copy must be exact; the pairs within
+    ``bf16_interaction_err``."""
+    from hugectr_backend_tpu_torch.ops.fused_interaction import (
+        dot_interaction_oh_parts,
+        dot_interaction_oh_parts_ref,
+        dot_interaction_parts,
+        dot_interaction_parts_ref,
+        fused_dot_interaction,
+        fused_dot_interaction_ref,
+        k3_plan,
+        oh_rows_ref,
+        part_major_order,
+    )
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(14)
+    n_checks = 0
+
+    def check(what, got, want, feats, bottom, wide=False):
+        nonlocal n_checks
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        d = bottom.shape[1]
+        if not torch.equal(got[:, :d], bottom):
+            raise AssertionError(f"{what}: the bottom copy is not exact")
+        ok, err = bf16_interaction_err(got, want, zmax(feats))
+        if not ok:
+            raise AssertionError(f"{what} (bf16): max err {err}")
+        n_checks += 1
+
+    b = 37
+    for f in K3_EDGE_F:
+        for d in (DIM, 36, 31):
+            bottom = torch.randn(b, d, generator=g).to(bf).to(dev)
+            emb = torch.randn(b + 2, f - 1, d, generator=g).to(bf).to(dev)[:b]
+            feats = [bottom] + list(emb.unbind(1))
+            check(f"K4 F={f} D={d}", fused_dot_interaction(bottom, emb),
+                  fused_dot_interaction_ref(bottom, emb), feats, bottom)
+            n_oh = max(1, min(f // 3, 100)) if f > 2 else 1
+            n_fed = f - 1 - n_oh
+            # Parts with phantom rows: a general map over two parts, and its
+            # part-major order.
+            n0 = max(n_fed - n_fed // 2, 0)
+            parts = [torch.randn(n0 + 1, b + 3, d, generator=g).to(bf).to(dev),
+                     torch.randn(n_fed - n0 + 1, b, d, generator=g).to(bf).to(dev)]
+            general = tuple([(1, t) for t in range(n_fed - n0)] + [(0, t) for t in range(n0)])
+            _, pmajor = part_major_order(general)
+            for name, fmap in (("general", general), ("part-major", pmajor)):
+                feats = [bottom] + [parts[p][s][:b] for p, s in fmap]
+                check(f"K2 {name} F={n_fed + 1} D={d}", dot_interaction_parts(bottom, parts, fmap),
+                      dot_interaction_parts_ref(bottom, parts, fmap), feats, bottom)
+            for dt in (torch.int8, torch.float8_e4m3fn, torch.bfloat16, torch.float32):
+                rows = 64 * n_oh
+                arena = (torch.randn(rows, d, generator=g) * 40).clamp(-127, 127)
+                arena = (arena.round() if dt == torch.int8 else arena).to(dt).to(dev)
+                members = tuple((64 * j, 64 - (j % 5)) for j in range(n_oh))
+                slots = torch.stack([torch.randint(max(0, o - 8), min(rows, o + z + 8), (b + 3,),
+                                                   generator=g, dtype=torch.int32)
+                                     for o, z in members]).to(dev)
+                scales = (torch.rand(n_oh, b + 3, generator=g) + 0.01).to(dev)
+                args = (bottom, arena, slots, scales, parts, pmajor, members)
+                feats = ([bottom] + oh_rows_ref(arena, slots, scales, b, members)
+                         + [parts[p][s][:b] for p, s in pmajor])
+                check(f"K3 {dt} F={f} D={d}", dot_interaction_oh_parts(*args),
+                      dot_interaction_oh_parts_ref(*args), feats, bottom)
+    # The wide route: z in shared memory (F 689) and in device memory (F 800).
+    for bw_, f, d, n_oh in ((5, 689, DIM, 60), (3, 800, DIM, 0), (7, 1100, 36, 40)):
+        bottom = torch.randn(bw_, d, generator=g).to(bf).to(dev)
+        emb = torch.randn(bw_, f - 1 - n_oh, d, generator=g).to(bf).to(dev)
+        plan = k3_plan(bw_, f, d)
+        if type(plan).__name__ != "K3WidePlan":
+            raise AssertionError(f"F={f} D={d}: expected the wide plan, got {plan}")
+        if n_oh == 0:
+            check(f"K4 wide F={f} D={d}", fused_dot_interaction(bottom, emb),
+                  fused_dot_interaction_ref(bottom, emb), [bottom] + list(emb.unbind(1)),
+                  bottom)
+            continue
+        rows = 8 * n_oh
+        arena = (torch.randn(rows, d, generator=g) * 40).clamp(-127, 127).round()
+        arena = arena.to(torch.int8).to(dev)
+        members = tuple((8 * j, 8 - (j % 3)) for j in range(n_oh))
+        slots = torch.stack([torch.randint(max(0, o - 2), min(rows, o + z + 2), (bw_,),
+                                           generator=g, dtype=torch.int32)
+                             for o, z in members]).to(dev)
+        scales = (torch.rand(n_oh, bw_, generator=g) + 0.01).to(dev)
+        fmap = tuple((0, t) for t in range(emb.shape[1]))
+        args = (bottom, arena, slots, scales, [emb.transpose(0, 1)], fmap, members)
+        feats = [bottom] + oh_rows_ref(arena, slots, scales, bw_, members) + list(emb.unbind(1))
+        check(f"K3 wide F={f} D={d}", dot_interaction_oh_parts(*args),
+              dot_interaction_oh_parts_ref(*args), feats, bottom)
+    # A CUDA tensor of another type, or features of another type than the
+    # bottom, still raises: nothing falls back.
+    if dev.type == "cuda":
+        bottom = torch.randn(4, DIM, generator=g).to(dev)
+        for bad in (bottom.half(), bottom.double()):
+            try:
+                fused_dot_interaction(bad, bad[:, None, :].expand(4, 3, DIM).contiguous())
+            except ValueError:
+                n_checks += 1
+            else:
+                raise AssertionError(f"K4 took a {bad.dtype} bottom")
+        try:
+            dot_interaction_parts(bottom.to(bf), [bottom[None]], ((0, 0),))
+        except ValueError:
+            n_checks += 1
+        else:
+            raise AssertionError("K2 took f32 parts beside a bf16 bottom")
     return n_checks
 
 
@@ -1527,23 +1666,27 @@ def k1_group_measure(args, bw):
 
 
 def interaction_measure(name, fn, ref, args, feats, in_bytes, bw, flops):
-    """``in_bytes``: what the kernel must read (each input once)."""
+    """``in_bytes``: what the kernel must read (each input once). A bf16
+    output is held to ``bf16_interaction_err`` and written at 2 bytes a
+    value."""
     got = fn(*args)
     want = ref(*args)
     torch.cuda.synchronize()
-    ok, err = interaction_err(got, want, zmax(feats))
+    out_es = got.element_size()
+    check = bf16_interaction_err if got.dtype == torch.bfloat16 else interaction_err
+    ok, err = check(got, want, zmax(feats))
     if not ok:
-        raise AssertionError(f"{name} at the main-path shape: max err {err}")
+        raise AssertionError(f"{name} ({got.dtype}) at the main-path shape: max err {err}")
     del got, want
     f = len(feats)
     b, d = feats[0].shape
     pairs = f * (f - 1) // 2
     z = torch.stack(feats, dim=1).to(torch.bfloat16)
     zt = z.transpose(1, 2)
-    t_bytes = (in_bytes + b * (d + pairs) * 4) / bw * 1e3
+    t_bytes = (in_bytes + b * (d + pairs) * out_es) / bw * 1e3
     t_ops = 2.0 * b * pairs * d / flops * 1e3
     return {
-        "shape": {"batch": b, "features": f, "d": d},
+        "shape": {"batch": b, "features": f, "d": d, "io": "bf16" if out_es == 2 else "f32"},
         "max_abs_err": err,
         **timings(lambda: fn(*args), lambda: ref(*args), lambda: torch.bmm(z, zt)),
         "bound_ms": max(t_bytes, t_ops),
@@ -4047,6 +4190,83 @@ def examples_phase(dev, fe=None, emit_line=emit, names=None, smoke: bool = False
     return {"launches": dict(launches), "lines": lines}
 
 
+BENCH_HTTP_S = 5.0  # the benchmark's HTTP windows inside chip_smoke (10 run alone)
+BENCH_STORM_S = 5.0  # microbench_update_storm's window
+#: What the benchmark programs must launch (the fused variants, DIN and the
+#: lookups: K1; the fold and the two-stage path: K3, K2; w8a8: K5;
+#: microbench_interaction and _dense: K4).
+BENCH_KERNELS = ("gather_dequant", "dot_interaction_oh_parts", "dot_interaction_parts",
+                 "fused_dot_interaction", "w8a8_dense")
+
+
+def bench_phase(dev, emit_line=emit) -> dict:
+    """The JAX package's benchmark programs, ported (``bench``, the seven
+    ``scripts/microbench_*``), each at its card sizes and checking itself:
+    the headline lookup's first rows bit-exact against the closed form at
+    batch 4096 and 1024 with one K1 launch an iteration; the six fused
+    variants (fold vs two-stage rel < 5e-3; each variant's first 64 logits
+    against the same model on the CPU within ``bench.VARIANT_TOL``; K3 once
+    per fold forward, K2 once per two-stage forward, K5 8 times per w8a8
+    forward); the DIN pool against the host's; the HTTP stages at
+    ``BENCH_HTTP_S``; each microbenchmark's own correctness step. -> its
+    result lines, the launches, the peak memory and the seconds."""
+    from hugectr_backend_tpu_torch import bench
+    from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.scripts import (
+        microbench_dense,
+        microbench_int4_gather,
+        microbench_interaction,
+        microbench_overhead,
+        microbench_scaling,
+        microbench_update_storm,
+        microbench_w8a8_kernel,
+    )
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.empty(1, device=dev)  # the allocator's stats exist once it has allocated
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(kernels.launches)
+    lines = {"bench": bench.run(dev, seconds=BENCH_HTTP_S, emit=emit_line)}
+    print(f"bench: {time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB allocated", flush=True)
+    for mod, kw in ((microbench_w8a8_kernel, {}), (microbench_dense, {}),
+                    (microbench_interaction, {}), (microbench_int4_gather, {}),
+                    (microbench_overhead, {}), (microbench_update_storm,
+                                                {"seconds": BENCH_STORM_S}),
+                    (microbench_scaling, {})):
+        t1 = time.perf_counter()
+        lines[mod.__name__.rsplit(".", 1)[1]] = mod.run(dev, emit=emit_line, **kw)
+        torch.cuda.synchronize(dev)
+        print(f"{mod.__name__.rsplit('.', 1)[1]}: {time.perf_counter() - t1:.1f} s", flush=True)
+    launches = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v - before.get(k, 0)}
+    for name in BENCH_KERNELS:
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"the benchmark programs never launched {name}")
+    return {"lines": lines, "launches": launches, "seconds": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def bench_alone() -> int:
+    """The bench phase alone, on the card (build, the phase):
+    ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.bench_alone())"``."""
+    from hugectr_backend_tpu_torch.native import kvstore
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kernels.build_all()
+    kvstore.load_lib()
+    res = bench_phase(dev)
+    print(f"bench phase: launches {res['launches']} ({res['seconds']:.1f} s, peak "
+          f"{res['peak_gb']:.3f} GB; {torch.cuda.get_device_name(0)})", flush=True)
+    return 0
+
+
 def examples_alone() -> int:
     """The examples phase alone, on the card (build, the phase):
     ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.examples_alone())"``."""
@@ -4074,6 +4294,7 @@ def sharded_alone() -> int:
     from hugectr_backend_tpu_torch import HierParameterServer
     from hugectr_backend_tpu_torch.native import kvstore
     from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.scripts.common import peaks
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4103,6 +4324,7 @@ def repository_and_pool_phases() -> int:
     ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.repository_and_pool_phases())"``."""
     from hugectr_backend_tpu_torch.native import kvstore
     from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.scripts.common import peaks
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4299,6 +4521,7 @@ def main() -> int:
         dot_interaction_parts_ref,
         oh_rows_ref,
     )
+    from hugectr_backend_tpu_torch.scripts.common import peaks
     from hugectr_backend_tpu_torch.serving.program import make_dlrm_multi_server
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4343,6 +4566,7 @@ def main() -> int:
     n1g = k1_group_edge_checks(dev)
     n23 = k2_k3_edge_checks(dev)
     n3w = k3_wide_checks(dev)
+    n3b = bf16_interaction_checks(dev)
     n5 = k5_edge_checks(dev)
     # Phase 7's checks run here too, before anything long.
     n4 = k4_edge_checks(dev)
@@ -4353,7 +4577,8 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"edge checks: K1 {n1} bit-exact, grouped K1 {n1g} bit-exact, K2/K3 {n23} and "
           f"past 128 features {n3w} within rtol {RTOL}, "
-          f"atol 1e-6*max|z|^2, K5 {n5} (bit-exact for act None / relu, else "
+          f"atol 1e-6*max|z|^2, K2/K3/K4 at bf16 {n3b} within 1 bf16 ulp (+ the same "
+          f"atol), K5 {n5} (bit-exact for act None / relu, else "
           f"rtol = atol = {K5_TOL}), K4 and the backward kernel {n4} within rtol "
           f"{RTOL} and atol 1e-6*max|z|^2 (forward) / 1e-6*F*max|g|*max|z| "
           f"(backward), the backward kernel at its plan's boundaries {nb}, "
@@ -4604,6 +4829,14 @@ def main() -> int:
                             feats, len(feats) * b * d * 4, bw, flops)
     results["dot_interaction_parts"] = r
     emit({"kernel": "dot_interaction_parts", **r, "card": card, "nvidia_smi": smi})
+    # The bf16 route (compute_dtype=bf16): the same rows in bf16.
+    bf = torch.bfloat16
+    bargs = (bottom.to(bf), [p.to(bf) for p in parts], fmap)
+    bfeats = [bargs[0]] + [bargs[1][p][s][:b] for p, s in fmap]
+    r = interaction_measure("dot_interaction_parts", dot_interaction_parts,
+                            dot_interaction_parts_ref, bargs, bfeats, len(bfeats) * b * d * 2,
+                            bw, flops)
+    emit({"kernel": "dot_interaction_parts", **r, "card": card, "nvidia_smi": smi})
     (bottom, arena, slots, scales, parts, fmap, members), = \
         rec_fold.calls["dot_interaction_oh_parts"]
     n_oh = slots.shape[0]
@@ -4619,6 +4852,15 @@ def main() -> int:
                             (bottom, arena, slots, scales, parts, fmap, members),
                             feats, in_bytes, bw, flops)
     results["dot_interaction_oh_parts"] = r
+    emit({"kernel": "dot_interaction_oh_parts", **r, "card": card, "nvidia_smi": smi})
+    bargs = (bottom.to(bf), arena, slots, scales, [p.to(bf) for p in parts], fmap, members)
+    bfeats = ([bargs[0]] + oh_rows_ref(arena, slots, scales, b, members)
+              + [bargs[4][p][s][:b] for p, s in fmap])
+    in_bytes = (len(fed) * b * d * 2
+                + torch.unique(slots[:, :b]).numel() * d * arena.element_size()
+                + n_oh * b * (4 + (4 if scales is not None else 0)))
+    r = interaction_measure("dot_interaction_oh_parts", dot_interaction_oh_parts,
+                            dot_interaction_oh_parts_ref, bargs, bfeats, in_bytes, bw, flops)
     emit({"kernel": "dot_interaction_oh_parts", **r, "card": card, "nvidia_smi": smi})
     # K5 at its 8 layer shapes (the fold predict's); its entry in the kernels
     # line sums them: one predict's worth.
@@ -4729,6 +4971,13 @@ def main() -> int:
                             len(feats) * BATCH * DIM * 4, bw, flops)
     results["fused_dot_interaction"] = r
     emit({"kernel": "fused_dot_interaction", **r, "card": card, "nvidia_smi": smi})
+    bargs = (k4_bottom.detach().to(torch.bfloat16), k4_emb.detach().to(torch.bfloat16))
+    r = interaction_measure("fused_dot_interaction", fused_dot_interaction,
+                            fused_dot_interaction_ref, bargs,
+                            [bargs[0]] + list(bargs[1].unbind(1)),
+                            len(feats) * BATCH * DIM * 2, bw, flops)
+    emit({"kernel": "fused_dot_interaction", **r, "card": card, "nvidia_smi": smi})
+    del bargs
     n_out = DIM + len(feats) * (len(feats) - 1) // 2
     g_out = torch.randn(BATCH, n_out, generator=torch.Generator().manual_seed(6)).to(dev)
     r = k4_bwd_measure(k4_bottom, k4_emb, g_out, bw, f32_flops)
@@ -4785,7 +5034,18 @@ def main() -> int:
     print(f"card memory after the microbenchmarks: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
           "allocated", flush=True)
 
-    for name, n in list(shd["launches"].items()) + list(exa["launches"].items()):
+    # Phase 12: the benchmark programs (slice 14's path), counted: the
+    # uncapped tables, the fused variants, DIN, the HTTP stages and the seven
+    # microbenchmarks, every earlier phase's state freed.
+    print(f"card memory before the benchmark programs: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated", flush=True)
+    kernels.launches.clear()
+    bph = bench_phase(dev, emit_line=mb_emit)
+    print(f"bench phase: the benchmark and the seven microbenchmarks passed their checks; "
+          f"launches {bph['launches']}; peak {bph['peak_gb']:.3f} GB allocated; "
+          f"{bph['seconds']:.1f} s ({card} | {smi})", flush=True)
+    for name, n in (list(shd["launches"].items()) + list(exa["launches"].items())
+                    + list(bph["launches"].items())):
         launches[name] = launches.get(name, 0) + n
     print(smi)
     emit({"kernels": [

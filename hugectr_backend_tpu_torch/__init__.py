@@ -18,6 +18,13 @@ format both packages write. ``eval`` trains a DLRM with its embedding table
 backward are kernels) and gates quantized serving on AUC
 (``run_parity``, ``run_path_parity``).
 
+``DLRM(..., compute_dtype=torch.bfloat16)`` runs its MLPs in bf16 and the
+interaction kernels with bf16 in and out, as the JAX modules'
+``compute_dtype``. ``python -m hugectr_backend_tpu_torch.bench`` is the
+JAX package's headline benchmark on the card (the uncapped Criteo-Kaggle
+tables, six dense variants, DIN, the tiers, HTTP and gRPC); its
+microbenchmarks are ``scripts.microbench_*``.
+
 The model zoo (``models``: WDL, DCN-v2, DeepFM, xDeepFM, NCF, MMoE, DIN,
 BST, the two-tower user tower) serves through ``serving.program``'s
 ``make_*_server``, ``serving.pooled.FusedDinServer`` and

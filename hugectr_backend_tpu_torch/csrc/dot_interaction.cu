@@ -6,7 +6,7 @@
 // sample b:
 //
 //     z    = [bottom[b]; oh rows; fed feature rows]   F x D, rounded to bf16
-//     out  = [bottom[b] | triu(z z^T, 1)]              D + F(F-1)/2 floats, f32
+//     out  = [bottom[b] | triu(z z^T, 1)]              D + F(F-1)/2 values
 //
 // The pairs come in the order of np.triu_indices(F, 1). For K3 the first
 // n_oh rows after the bottom are built here from a small quantized arena, as
@@ -17,10 +17,18 @@
 // product is exact in f32, so the result differs from the TPU's only in the
 // order of the f32 sums.
 //
+// The bottom, the fed features and the output share one type, f32 or bf16
+// (the JAX DLRM's compute_dtype; the Pallas bodies write `bottom.dtype`).
+// The pair sums are f32 either way and round once to bf16 at the store on
+// the bf16 route; a bf16 row is already a z row, so its copy into z is
+// exact. A bf16 output row is D + P values of 2 bytes, so its start is
+// 2-byte aligned only: that route stores element by element.
+//
 // What bounds it on an H100: device-memory bytes. At the Criteo shape
 // (B = 4096, F = 27, D = 128) K3 reads 28.3 MB of f32 rows and the one-hot
 // rows, slots and scales, and writes 7.8 MB, against 0.37 GFLOP of pair
-// products, which the bf16 tensor cores finish in well under a microsecond.
+// products, which the bf16 tensor cores finish in well under a microsecond
+// (on the bf16 route the fed rows are half the bytes, the output 3.9 MB).
 // So the kernel is a latency problem: a sample's rows must all be in flight
 // at once, and enough samples with them.
 //
@@ -77,7 +85,7 @@ constexpr int SMALL_DESC = 64;  // ... in the small parameter block
 constexpr int MAX_SMEM = 232448;
 
 struct Feat {
-  const float* ptr;
+  const void* ptr;   // f32 or bf16, the launch's IO type
   long long stride;  // elements between consecutive samples
 };
 
@@ -92,7 +100,7 @@ struct Params {
   int stage_len, warp_bytes;    // one warp's stage (floats); z tile + stage (bytes)
   int oh_vec, oh_cpr;           // one-hot rows of whole 16-byte chunks; chunks per row
   long long out_ld;             // D + P
-  float* out;
+  void* out;                    // f32 or bf16, the launch's IO type
   const void* arena;
   long long arena_rows;
   const int* slots;
@@ -107,6 +115,19 @@ __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v)
 __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
+
+// One element of the IO type (f32 or bf16) read through the read-only cache,
+// as f32, and one written from f32 with the streaming (evict-first) hint
+// (bf16: rounded to nearest even): the wide route's accesses.
+__device__ __forceinline__ float ld_io(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_io(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void st_io_cs(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void st_io_cs(__nv_bfloat16* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
@@ -151,20 +172,23 @@ struct Walk {
 // Index of pair (r, r + 1) in the row-major upper triangle of F features.
 __device__ __forceinline__ int pair_start(int r, int F) { return r * (2 * F - r - 1) / 2; }
 
-// A fed element a lane loads: a 16-byte vector, or a single float (rows off
-// the 16-byte path); NF of them a round.
-template <bool VEC4>
-using FedT = typename std::conditional<VEC4, float4, float>::type;
+// A fed element a lane loads: 4 values (16 bytes of f32, 8 of bf16), or a
+// single value (rows off the vector path); NF of them a round.
+template <bool VEC4, typename IO>
+using FedT = typename std::conditional<
+    VEC4, typename std::conditional<std::is_same<IO, float>::value, float4, uint2>::type,
+    typename std::conditional<std::is_same<IO, float>::value, float, unsigned short>::type>::type;
 
-template <bool VEC4, int MAXD>
+template <bool VEC4, typename IO, int MAXD>
 __device__ __forceinline__ void load_fed(const Params<MAXD>& p, int b, Walk w,
-                                         FedT<VEC4> (&fr)[NF]) {
+                                         FedT<VEC4, IO> (&fr)[NF]) {
 #pragma unroll
   for (int i = 0; i < NF; ++i) {
     if (w.row < p.n_fed) {
-      const float* src = p.fed[w.row].ptr + b * p.fed[w.row].stride;
+      const FedT<false, IO>* src =
+          static_cast<const FedT<false, IO>*>(p.fed[w.row].ptr) + b * p.fed[w.row].stride;
       if constexpr (VEC4) {
-        fr[i] = __ldg(reinterpret_cast<const float4*>(src) + w.col);
+        fr[i] = __ldg(reinterpret_cast<const FedT<true, IO>*>(src) + w.col);
       } else {
         fr[i] = __ldg(src + w.col);
       }
@@ -173,20 +197,29 @@ __device__ __forceinline__ void load_fed(const Params<MAXD>& p, int b, Walk w,
   }
 }
 
-// Round the loaded fed elements to bf16 into z; the bottom (fed row 0) also
-// goes to the stage in f32, at `shift`.
-template <bool VEC4, int MAXD>
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// Round the loaded fed elements to bf16 into z (a bf16 row goes as it is);
+// the bottom (fed row 0) also goes to the stage in f32, at `shift`.
+template <bool VEC4, typename IO, int MAXD>
 __device__ __forceinline__ void store_fed(const Params<MAXD>& p, Walk w,
-                                          const FedT<VEC4> (&fr)[NF],
+                                          const FedT<VEC4, IO> (&fr)[NF],
                                           __nv_bfloat16* z, float* stage, int shift) {
 #pragma unroll
   for (int i = 0; i < NF; ++i) {
     if (w.row < p.n_fed) {
       const int zr = w.row == 0 ? 0 : p.n_oh + w.row;
       if constexpr (VEC4) {
-        const float4 v = fr[i];
-        *reinterpret_cast<uint2*>(z + zr * p.ld + 4 * w.col) =
-            make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+        float4 v;
+        if constexpr (std::is_same<IO, float>::value) {
+          v = fr[i];
+          *reinterpret_cast<uint2*>(z + zr * p.ld + 4 * w.col) =
+              make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+        } else {
+          *reinterpret_cast<uint2*>(z + zr * p.ld + 4 * w.col) = fr[i];
+          v = make_float4(bf16_lo(fr[i].x), bf16_hi(fr[i].x), bf16_lo(fr[i].y), bf16_hi(fr[i].y));
+        }
         if (w.row == 0) {
           float* s = stage + shift + 4 * w.col;
           s[0] = v.x;
@@ -195,8 +228,15 @@ __device__ __forceinline__ void store_fed(const Params<MAXD>& p, Walk w,
           s[3] = v.w;
         }
       } else {
-        z[zr * p.ld + w.col] = __float2bfloat16_rn(fr[i]);
-        if (w.row == 0) stage[shift + w.col] = fr[i];
+        float v;
+        if constexpr (std::is_same<IO, float>::value) {
+          v = fr[i];
+          z[zr * p.ld + w.col] = __float2bfloat16_rn(v);
+        } else {
+          v = bf16_lo(fr[i]);
+          z[zr * p.ld + w.col] = __ushort_as_bfloat16(fr[i]);
+        }
+        if (w.row == 0) stage[shift + w.col] = v;
       }
     }
     w.next();
@@ -292,7 +332,7 @@ __device__ __forceinline__ void oh_elements(const Params<MAXD>& p, int b, int la
   }
 }
 
-template <typename AT, bool VEC4, int MAXD>
+template <typename AT, bool VEC4, int MAXD, typename IO>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_CTAS)
     dot_interaction_kernel(const __grid_constant__ Params<MAXD> p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -329,9 +369,9 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_CTAS)
     if (oh_rounds > 0) load_oh_keys(p, b, ow0, sl, sc);
     Walk fw = fw0;
     for (int r = 0; r < fed_rounds; ++r) {
-      FedT<VEC4> fr[NF];
-      load_fed<VEC4>(p, b, fw, fr);
-      store_fed<VEC4>(p, fw, fr, z, stage, shift0);
+      FedT<VEC4, IO> fr[NF];
+      load_fed<VEC4, IO>(p, b, fw, fr);
+      store_fed<VEC4, IO>(p, fw, fr, z, stage, shift0);
       for (int i = 0; i < NF; ++i) fw.next();
     }
     // Round two: the one-hot rows.
@@ -394,19 +434,25 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_CTAS)
         }
       }
       __syncwarp();
-      // stage[shift, shift + len) -> out[gs, gs + len), 16 bytes at a time
-      // where a whole vector lies inside.
-      float* dst = p.out + (gs - shift);
-      const int n4 = (shift + len + 3) >> 2;
-      for (int q = lane; q < n4; q += 32) {
-        const int lo = 4 * q;
-        if (lo >= shift && lo + 4 <= shift + len) {
-          reinterpret_cast<float4*>(dst)[q] = reinterpret_cast<const float4*>(stage)[q];
-        } else {
+      if constexpr (std::is_same<IO, float>::value) {
+        // stage[shift, shift + len) -> out[gs, gs + len), 16 bytes at a time
+        // where a whole vector lies inside.
+        float* dst = static_cast<float*>(p.out) + (gs - shift);
+        const int n4 = (shift + len + 3) >> 2;
+        for (int q = lane; q < n4; q += 32) {
+          const int lo = 4 * q;
+          if (lo >= shift && lo + 4 <= shift + len) {
+            reinterpret_cast<float4*>(dst)[q] = reinterpret_cast<const float4*>(stage)[q];
+          } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (lo + e >= shift && lo + e < shift + len) dst[lo + e] = stage[lo + e];
+            for (int e = 0; e < 4; ++e)
+              if (lo + e >= shift && lo + e < shift + len) dst[lo + e] = stage[lo + e];
+          }
         }
+      } else {
+        // A bf16 row starts 2-byte aligned only: one element a lane, rounded.
+        __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.out) + gs;
+        for (int q = lane; q < len; q += 32) dst[q] = __float2bfloat16_rn(stage[shift + q]);
       }
       __syncwarp();  // the next block (or sample) overwrites the stage
     }
@@ -433,7 +479,7 @@ cudaError_t allow_smem(K kernel, uint64_t& done) {
 
 struct Args {
   int B, D, n_oh, n_feats;
-  const float* bottom;
+  const void* bottom;
   long long bottom_ld;
   const long long *feat_ptrs, *feat_strides;
   const void* arena;
@@ -443,11 +489,11 @@ struct Args {
   const float* scales;
   long long scales_ld;
   const int *member_offs, *member_sizes;
-  float* out;
+  void* out;
   int vec4, oh_vec, warps, grid, smem;
 };
 
-template <typename AT, int MAXD>
+template <typename AT, int MAXD, typename IO>
 int launch(const Args& a, cudaStream_t stream) {
   Params<MAXD> p;
   p.B = a.B;
@@ -474,7 +520,7 @@ int launch(const Args& a, cudaStream_t stream) {
   p.fed[0].ptr = a.bottom;
   p.fed[0].stride = a.bottom_ld;
   for (int i = 0; i < a.n_feats; ++i) {
-    p.fed[1 + i].ptr = reinterpret_cast<const float*>(a.feat_ptrs[i]);
+    p.fed[1 + i].ptr = reinterpret_cast<const void*>(a.feat_ptrs[i]);
     p.fed[1 + i].stride = a.feat_strides[i];
   }
   for (int j = 0; j < a.n_oh; ++j) {
@@ -486,18 +532,29 @@ int launch(const Args& a, cudaStream_t stream) {
       (a.oh_vec && a.D * static_cast<int>(sizeof(AT)) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   static uint64_t done[2] = {0, 0};
-  auto kern = a.vec4 ? dot_interaction_kernel<AT, true, MAXD>
-                     : dot_interaction_kernel<AT, false, MAXD>;
+  auto kern = a.vec4 ? dot_interaction_kernel<AT, true, MAXD, IO>
+                     : dot_interaction_kernel<AT, false, MAXD, IO>;
   cudaError_t err = allow_smem(kern, done[a.vec4 ? 1 : 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<a.grid, a.warps * 32, a.smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename AT>
+template <typename AT, typename IO>
 int launch_kind(const Args& a, cudaStream_t s) {
-  if (a.n_feats < SMALL_DESC && a.n_oh <= SMALL_DESC) return launch<AT, SMALL_DESC>(a, s);
-  return launch<AT, MAX_DESC>(a, s);
+  if (a.n_feats < SMALL_DESC && a.n_oh <= SMALL_DESC) return launch<AT, SMALL_DESC, IO>(a, s);
+  return launch<AT, MAX_DESC, IO>(a, s);
+}
+
+template <typename IO>
+int launch_io(int arena_kind, const Args& a, cudaStream_t s) {
+  switch (arena_kind) {
+    case KIND_I8: return launch_kind<int8_t, IO>(a, s);
+    case KIND_FP8: return launch_kind<__nv_fp8_e4m3, IO>(a, s);
+    case KIND_BF16: return launch_kind<__nv_bfloat16, IO>(a, s);
+    case KIND_F32: return launch_kind<float, IO>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ------------------------------------------------------------ the wide route
@@ -528,14 +585,14 @@ struct WideParams {
   int B, D, n_oh, n_fed, F;      // F = n_fed + n_oh; fed row 0 is the bottom
   int D_pad, F_pad, ld;          // ld: row stride of the z tile (D_pad + 8)
   long long out_ld;              // D + P
-  float* out;
+  void* out;                     // f32 or bf16, the launch's IO type
   const void* arena;
   long long arena_rows;
   const int* slots;
   long long slots_ld;
   const float* scales;           // null -> 1
   long long scales_ld;
-  const long long* fed;          // [n_fed][2]: row pointer and batch stride (floats)
+  const long long* fed;          // [n_fed][2]: row pointer and batch stride (elements)
   const int* members;            // [n_oh][2]: offset, size
   __nv_bfloat16* scratch;        // [gridDim.x][F_pad][ld], or null: z in shared memory
 };
@@ -554,7 +611,7 @@ __device__ __forceinline__ long long pair_start64(long long r, long long F) {
   return r * (2 * F - r - 1) / 2;
 }
 
-template <typename AT>
+template <typename AT, typename IO>
 __global__ void __launch_bounds__(WIDE_THREADS)
     dot_interaction_wide_kernel(const __grid_constant__ WideParams p) {
   const int tid = threadIdx.x;
@@ -578,7 +635,7 @@ __global__ void __launch_bounds__(WIDE_THREADS)
   float (*st)[NG * 8 + 1] = stage[warp];
   for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
     __syncthreads();  // the previous sample's product is done with z
-    float* orow = p.out + static_cast<long long>(b) * p.out_ld;
+    IO* orow = static_cast<IO*>(p.out) + static_cast<long long>(b) * p.out_ld;
     // The fed rows, then the one-hot rows: element tid + WIDE_THREADS i of
     // each as (row, column), stepped, with WIDE_BATCH loads a thread in
     // flight before any is used.
@@ -591,7 +648,7 @@ __global__ void __launch_bounds__(WIDE_THREADS)
       for (int u = 0; u < WIDE_BATCH; ++u) {
         rr[u] = row;
         cc[u] = col;
-        v[u] = row < p.n_fed ? __ldg(reinterpret_cast<const float*>(__ldg(p.fed + 2 * row)) +
+        v[u] = row < p.n_fed ? ld_io(reinterpret_cast<const IO*>(__ldg(p.fed + 2 * row)) +
                                      b * __ldg(p.fed + 2 * row + 1) + col)
                              : 0.0f;
         wide_step(row, col, drow, dcol, D);
@@ -601,7 +658,7 @@ __global__ void __launch_bounds__(WIDE_THREADS)
         if (rr[u] >= p.n_fed) break;
         z[static_cast<size_t>(rr[u] == 0 ? 0 : p.n_oh + rr[u]) * ld + cc[u]] =
             __float2bfloat16_rn(v[u]);
-        if (rr[u] == 0) __stcs(orow + cc[u], v[u]);
+        if (rr[u] == 0) st_io_cs(orow + cc[u], v[u]);
       }
     }
     row = tid / D;
@@ -675,7 +732,7 @@ __global__ void __launch_bounds__(WIDE_THREADS)
         const int col = nt0 * 8 + lane;
         for (int r = r0; r < r0 + 16; ++r)
           if (r < col && col < F)
-            __stcs(orow + D + pair_start64(r, F) + (col - r - 1), st[r - r0][lane]);
+            st_io_cs(orow + D + pair_start64(r, F) + (col - r - 1), st[r - r0][lane]);
         __syncwarp();
       }
     }
@@ -692,12 +749,12 @@ struct WideArgs {
   const float* scales;
   long long scales_ld;
   const int* members;
-  float* out;
+  void* out;
   __nv_bfloat16* scratch;
   int grid, smem;
 };
 
-template <typename AT>
+template <typename AT, typename IO>
 int launch_wide(const WideArgs& a, cudaStream_t stream) {
   WideParams p;
   p.B = a.B;
@@ -724,7 +781,7 @@ int launch_wide(const WideArgs& a, cudaStream_t stream) {
   if ((a.scratch == nullptr) != (a.smem > 0) || (a.smem > 0 && a.smem != tile) ||
       a.smem > MAX_SMEM - WIDE_STAGE_BYTES)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = dot_interaction_wide_kernel<AT>;
+  auto kern = dot_interaction_wide_kernel<AT, IO>;
   if (a.smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
@@ -732,6 +789,17 @@ int launch_wide(const WideArgs& a, cudaStream_t stream) {
   }
   kern<<<a.grid, WIDE_THREADS, a.smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename IO>
+int launch_wide_io(int arena_kind, const WideArgs& a, cudaStream_t s) {
+  switch (arena_kind) {
+    case KIND_I8: return launch_wide<int8_t, IO>(a, s);
+    case KIND_FP8: return launch_wide<__nv_fp8_e4m3, IO>(a, s);
+    case KIND_BF16: return launch_wide<__nv_bfloat16, IO>(a, s);
+    case KIND_F32: return launch_wide<float, IO>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -742,25 +810,27 @@ const char* hps_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// bottom [B, D] f32 (row stride bottom_ld); n_feats fed features, feature i
-// at feat_ptrs[i] + b * feat_strides[i] (f32, contiguous over D); n_oh
+// bottom [B, D] (row stride bottom_ld); n_feats fed features, feature i
+// at feat_ptrs[i] + b * feat_strides[i] (contiguous over D); n_oh
 // gathered features from `arena` [arena_rows, D] of `arena_kind`, slot of
 // (j, b) at slots[j * slots_ld + b], scale at scales[j * scales_ld + b]
 // (scales may be null), member j's rows [member_offs[j], + member_sizes[j]);
-// out [B, D + P] f32, 16-byte aligned. `vec4`: D % 4 == 0 and every fed row
-// start is 16-byte aligned; `oh_vec`: arena rows are whole 16-byte chunks
+// out [B, D + P], 16-byte aligned. The bottom, the fed features and out are
+// f32, or bf16 with `io_bf16`. `vec4`: D % 4 == 0 and every fed row start
+// is aligned to 4 values; `oh_vec`: arena rows are whole 16-byte chunks
 // and the arena is 16-byte aligned (the caller checks). The plan (warps per
 // CTA, grid, dynamic shared memory) comes from the caller
 // (ops/fused_interaction.py k3_plan); a plan or a shape the kernel does not
 // take returns cudaErrorInvalidValue. Returns cudaGetLastError() after the
 // launch.
 int hps_dot_interaction(int device, void* stream, int B, int D, int n_oh, int n_feats,
-                        const float* bottom, long long bottom_ld,
+                        const void* bottom, long long bottom_ld,
                         const long long* feat_ptrs, const long long* feat_strides,
                         int arena_kind, const void* arena, long long arena_rows,
                         const int* slots, long long slots_ld, const float* scales,
                         long long scales_ld, const int* member_offs, const int* member_sizes,
-                        float* out, int vec4, int oh_vec, int warps, int grid, int smem) {
+                        void* out, int io_bf16, int vec4, int oh_vec, int warps, int grid,
+                        int smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_feats > MAX_DESC || n_feats < 0 || n_oh < 0 || n_oh > MAX_DESC || D < 1 ||
@@ -771,19 +841,14 @@ int hps_dot_interaction(int device, void* stream, int B, int D, int n_oh, int n_
                arena_rows, slots, slots_ld, scales, scales_ld, member_offs, member_sizes,
                out, vec4, n_oh > 0 && oh_vec, warps, grid, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (arena_kind) {
-    case KIND_I8: return launch_kind<int8_t>(a, s);
-    case KIND_FP8: return launch_kind<__nv_fp8_e4m3>(a, s);
-    case KIND_BF16: return launch_kind<__nv_bfloat16>(a, s);
-    case KIND_F32: return launch_kind<float>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return io_bf16 ? launch_io<__nv_bfloat16>(arena_kind, a, s) : launch_io<float>(arena_kind, a, s);
 }
 
 // The wide route (see above). fed [n_fed][2] int64 on the device: row
-// pointer and batch stride (floats) of fed row i, row 0 the bottom;
+// pointer and batch stride (elements) of fed row i, row 0 the bottom;
 // members [n_oh][2] int32 on the device; the arena, slots and scales as
-// hps_dot_interaction's; out [B, D + P] f32. The plan
+// hps_dot_interaction's; out [B, D + P]; the fed rows and out f32, or bf16
+// with `io_bf16`. The plan
 // (ops/fused_interaction.py k3_plan, a K3WidePlan) gives the grid of
 // 256-thread CTAs and where z lives: `smem` bytes of dynamic shared memory
 // (2 * F_pad * (D_pad + 8), F and D rounded up to 16) and a null scratch,
@@ -793,7 +858,7 @@ int hps_dot_interaction_wide(int device, void* stream, int B, int D, int n_oh, i
                              const long long* fed, int arena_kind, const void* arena,
                              long long arena_rows, const int* slots, long long slots_ld,
                              const float* scales, long long scales_ld, const int* members,
-                             float* out, void* scratch, int grid, int smem) {
+                             void* out, int io_bf16, void* scratch, int grid, int smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B < 0 || D < 1 || n_fed < 1 || n_oh < 0 || grid < 1 || fed == nullptr || smem < 0 ||
@@ -803,13 +868,8 @@ int hps_dot_interaction_wide(int device, void* stream, int B, int D, int n_oh, i
   const WideArgs a{B, D, n_oh, n_fed, fed, arena, arena_rows, slots, slots_ld, scales,
                    scales_ld, members, out, static_cast<__nv_bfloat16*>(scratch), grid, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (arena_kind) {
-    case KIND_I8: return launch_wide<int8_t>(a, s);
-    case KIND_FP8: return launch_wide<__nv_fp8_e4m3>(a, s);
-    case KIND_BF16: return launch_wide<__nv_bfloat16>(a, s);
-    case KIND_F32: return launch_wide<float>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return io_bf16 ? launch_wide_io<__nv_bfloat16>(arena_kind, a, s)
+                 : launch_wide_io<float>(arena_kind, a, s);
 }
 
 }  // extern "C"

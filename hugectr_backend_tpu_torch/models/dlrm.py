@@ -5,10 +5,14 @@ plain ``nn.Linear`` layers in f32 (the JAX package leaves them to XLA), or
 with ``quant_fmt`` set, :class:`~hugectr_backend_tpu_torch.models.quant_dense.QuantDense`
 layers with the activation fused in (w8a8 runs K5). With
 ``mixed_precision`` the f32 and weight-only products take bf16 operands and
-accumulate in f32. The interaction runs on the kernels of
-ops/fused_interaction.py: K3 when the embeddings carry a folded one-hot
-group (forward-only), K2 for other chunked embeddings, K4 for a stacked
-``[B, T, D]`` tensor. Like the Pallas bodies, the kernels round z to bf16
+accumulate in f32. ``compute_dtype`` (f32 by default, or bf16) is the JAX
+modules' own: the MLPs cast their input to it and run ``nn.Linear`` in it
+(a plain product, as the JAX package leaves it to XLA), the embeddings are
+cast to the bottom's type before the interaction, whose kernels then take
+and write bf16, and the logits come back in f32. The interaction runs on
+the kernels of ops/fused_interaction.py: K3 when the embeddings carry a
+folded one-hot group (forward-only), K2 for other chunked embeddings, K4
+for a stacked ``[B, T, D]`` tensor. Like the Pallas bodies, the kernels round z to bf16
 and sum the products in f32; K2 and K4 are differentiable (their backward
 kernel uses the f32 z, as the JAX package's VJP does), so the training path
 runs on them. ``DotInteraction(self_interaction=True)`` stays plain f32
@@ -50,30 +54,34 @@ class MLP(nn.Module):
     with its activation fused in, as in the JAX package."""
 
     def __init__(self, in_features: int, widths: Sequence[int],
-                 final_activation: bool = True, quant_fmt: Optional[str] = None):
+                 final_activation: bool = True, quant_fmt: Optional[str] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         dims = [in_features, *widths]
         n = len(widths)
         acts = ["relu" if i + 1 < n or final_activation else None for i in range(n)]
         if quant_fmt:
-            self.layers = nn.ModuleList(QuantDense(a, b, quant_fmt, activation=act)
-                                        for a, b, act in zip(dims, dims[1:], acts))
+            self.layers = nn.ModuleList(
+                QuantDense(a, b, quant_fmt, activation=act, compute_dtype=compute_dtype)
+                for a, b, act in zip(dims, dims[1:], acts))
         else:
             self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims, dims[1:]))
         self.acts = acts
         self.quant_fmt = quant_fmt
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor, first_weight: Optional[torch.Tensor] = None,
                 mixed_precision: bool = False) -> torch.Tensor:
         """``first_weight`` replaces layer 0's weight, or its ``kernel_q``
         for a quantized layer (the serving path's column-permuted copy for a
-        reordered interaction)."""
+        reordered interaction). ``x`` is cast to ``compute_dtype`` first."""
+        x = x.to(self.compute_dtype)
         for i, (layer, act) in enumerate(zip(self.layers, self.acts)):
             w = first_weight if i == 0 else None
             if self.quant_fmt:
                 x = layer(x, kernel_q=w, mixed_precision=mixed_precision)
                 continue
-            x = dense(x, layer, mixed_precision, weight=w)
+            x = dense(x, layer, mixed_precision, weight=w, compute_dtype=self.compute_dtype)
             if act:
                 x = F.relu(x)
         return x
@@ -90,10 +98,15 @@ class MLP(nn.Module):
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, mixed_precision: bool = False,
-          weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+          weight: Optional[torch.Tensor] = None,
+          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``layer(x)``, its product under :func:`~hugectr_backend_tpu_torch.models.
-    quant_dense.mixed_operands`; ``weight`` replaces the layer's."""
+    quant_dense.mixed_operands`; ``weight`` replaces the layer's. With a
+    ``compute_dtype`` other than f32, the input, weight and bias in that
+    type (Flax's ``nn.Dense(dtype=...)`` over f32 parameters)."""
     w = layer.weight if weight is None else weight
+    if compute_dtype != torch.float32:
+        return F.linear(x.to(compute_dtype), w.to(compute_dtype), layer.bias.to(compute_dtype))
     if mixed_precision:
         return linear(x, w, mixed_precision=True) + layer.bias
     return F.linear(x, w, layer.bias)
@@ -133,6 +146,8 @@ class DotInteraction(nn.Module):
             r, c = torch.triu_indices(f, f, 0, device=z.device)
             return torch.cat([bottom, zzt[:, r, c]], dim=1)
         if isinstance(emb, EmbParts):
+            if any(p.dtype != bottom.dtype for p in emb.parts):
+                emb = emb.astype(bottom.dtype)
             if emb.oh is not None:
                 values, slots, scales, members = emb.oh
                 return dot_interaction_oh_parts(bottom, values, slots, scales,
@@ -152,19 +167,22 @@ class DLRM(nn.Module):
     def __init__(self, num_dense: int, num_tables: int,
                  bottom_widths: Sequence[int] = (512, 256, 64),
                  top_widths: Sequence[int] = (1024, 1024, 512, 256, 1),
-                 quant_fmt: Optional[str] = None):
+                 quant_fmt: Optional[str] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_dense, self.num_tables = num_dense, num_tables
         self.bottom_widths = tuple(bottom_widths)
         self.top_widths = tuple(top_widths)
         self.quant_fmt = quant_fmt
+        self.compute_dtype = compute_dtype
         dim = self.bottom_widths[-1]
         feats = num_tables + 1
         self.bottom = MLP(num_dense, bottom_widths, final_activation=True,
-                          quant_fmt=quant_fmt)
+                          quant_fmt=quant_fmt, compute_dtype=compute_dtype)
         self.interaction = DotInteraction()
         self.top = MLP(dim + feats * (feats - 1) // 2, top_widths,
-                       final_activation=False, quant_fmt=quant_fmt)
+                       final_activation=False, quant_fmt=quant_fmt,
+                       compute_dtype=compute_dtype)
 
     @torch.no_grad()
     def init_flax_(self, generator: torch.Generator) -> "DLRM":

@@ -11,6 +11,12 @@ layout, the transpose of the Flax kernel):
   the layer runs K5 (:func:`~hugectr_backend_tpu_torch.ops.quant_matmul.w8a8_dense`)
   with the activation fused into its epilogue.
 
+With ``compute_dtype`` bf16, as the JAX layer: the weight-only product
+takes the weights dequantized in bf16 (``bf16(q) * bf16(scale)``, one
+rounding) and the bf16 input, sums in f32, adds the bias and applies the
+activation in f32, then casts to bf16; w8a8 runs K5 on the f32 cast of the
+input and casts its f32 output.
+
 A :class:`QuantDense` is built from carried (:func:`~hugectr_backend_tpu_torch.
 models.dlrm.load_flax_dlrm_params`) or quantized (:func:`quantize_model_params`)
 weights; it has no random init of its own.
@@ -87,13 +93,14 @@ class QuantDense(nn.Module):
     None, "relu", "sigmoid", "tanh" or "gelu", fused into the layer."""
 
     def __init__(self, in_features: int, out_features: int, fmt: str = "int8",
-                 use_bias: bool = True, activation: Optional[str] = None):
+                 use_bias: bool = True, activation: Optional[str] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if fmt not in FORMATS:
             raise ValueError(f"unknown quant format {fmt!r} (one of {FORMATS})")
         if activation not in _ACTS:
             raise ValueError(f"unknown activation {activation!r}")
-        self.fmt, self.activation = fmt, activation
+        self.fmt, self.activation, self.compute_dtype = fmt, activation, compute_dtype
         qdtype = torch.float8_e4m3fn if fmt == "fp8" else torch.int8
         self.register_buffer("kernel_q", torch.zeros(out_features, in_features, dtype=qdtype))
         self.register_buffer("kernel_scale", torch.ones(out_features))
@@ -105,13 +112,22 @@ class QuantDense(nn.Module):
         column-permuted copy). ``mixed_precision`` rounds the weight-only
         product's operands to bf16; w8a8 is int8 either way."""
         wq = self.kernel_q if kernel_q is None else kernel_q
+        cd = self.compute_dtype
         if self.fmt == "w8a8":
-            return w8a8_dense(x.float().contiguous(), wq, self.kernel_scale, self.bias,
-                              self.activation)
-        y = linear(x, wq.float() * self.kernel_scale[:, None], mixed_precision)
+            y = w8a8_dense(x.float().contiguous(), wq, self.kernel_scale, self.bias,
+                           self.activation)
+            return y if cd == torch.float32 else y.to(cd)
+        if cd == torch.float32:
+            y = linear(x, wq.float() * self.kernel_scale[:, None], mixed_precision)
+        else:
+            # The operands rounded to cd and upcast: their f32 product is
+            # exact, so only the sums round (f32 accumulation).
+            w = wq.to(cd) * self.kernel_scale.to(cd)[:, None]
+            y = F.linear(x.to(cd).float(), w.float())
         if self.bias is not None:
             y = y + self.bias
-        return _ACTS[self.activation](y)
+        y = _ACTS[self.activation](y)
+        return y if cd == torch.float32 else y.to(cd)
 
 
 def quantize_dense_params(state: dict, fmt: str = "int8") -> dict:

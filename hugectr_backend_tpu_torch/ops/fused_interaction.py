@@ -3,7 +3,11 @@ and its gradient (``csrc/dot_interaction_bwd.cu``).
 
 ``concat([bottom, triu(z z^T, 1)])`` with ``z = [bottom; features]``, z
 rounded to bf16 and the products summed in f32 — what the JAX package's
-Pallas bodies compute (its ops/fused_interaction.py:65, :298, :322, :620):
+Pallas bodies compute (its ops/fused_interaction.py:65, :298, :322, :620).
+The forward takes f32 or bf16 (the DLRM's ``compute_dtype``): the bottom,
+the fed features and the output share the bottom's type, and on bf16 the
+f32 sums round to bf16 once, as the Pallas bodies write ``bottom.dtype``.
+A one-hot group's arena keeps its storage type.
 
 - K4 :func:`fused_dot_interaction`: the features are a stacked
   ``emb`` [B, T, D] (the training path and the single-table server), passed
@@ -21,7 +25,8 @@ K4 and K2 are ``torch.autograd.Function``s whose backward is the JAX
 package's custom VJP (``_bwd`` :150, ``_bwd_parts`` :536): the pair
 gradients scattered into a symmetric [F, F] matrix times the **f32** z (not
 the forward's bf16 z), summed in f32. Each feature's gradient goes back to
-its (part, sub); unmapped subs and rows past the batch get zero.
+its (part, sub); unmapped subs and rows past the batch get zero. The
+backward kernel takes f32 only: a bf16 forward under autograd raises there.
 
 The wrappers launch the kernels for CUDA tensors and raise if they cannot;
 they take the plain versions (``*_ref``) only for CPU tensors. The launch
@@ -112,6 +117,12 @@ class EmbParts:
         n_oh = 0 if self.oh is None else len(self.oh[3])
         return (self.batch, n_oh + len(self.feature_map), dim)
 
+    def astype(self, dtype) -> "EmbParts":
+        """The parts cast to ``dtype``; the one-hot group keeps its types
+        (quantized values, f32 scales), as the JAX package's ``astype``."""
+        return EmbParts([p.to(dtype) for p in self.parts], self.feature_map, self.batch,
+                        self.oh)
+
 
 def is_part_major(feature_map) -> bool:
     """True when features enumerate parts in order with contiguous subs
@@ -176,13 +187,13 @@ def _full_f32_matmul():
 
 
 def _interaction_ref(bottom: torch.Tensor, feats) -> torch.Tensor:
-    z = torch.stack([bottom] + list(feats), dim=1)  # [B, F, D]
+    z = torch.stack([f.float() for f in [bottom, *feats]], dim=1)  # [B, F, D]
     z = z.to(torch.bfloat16).float()
     with _full_f32_matmul():
         zzt = torch.bmm(z, z.transpose(1, 2))
     f = z.shape[1]
     r, c = torch.triu_indices(f, f, 1, device=z.device)
-    return torch.cat([bottom, zzt[:, r, c]], dim=1)
+    return torch.cat([bottom, zzt[:, r, c].to(bottom.dtype)], dim=1)
 
 
 def _mapped(parts, feature_map, batch):
@@ -217,7 +228,7 @@ def oh_rows_ref(arena, slots, scales, batch, members=None):
 
 def dot_interaction_parts_ref(bottom, parts, feature_map) -> torch.Tensor:
     """Plain version of K2: stack z, round to bf16, f32 batched product with
-    TF32 off, triu extraction."""
+    TF32 off, triu extraction; the pairs rounded to the bottom's type."""
     return _interaction_ref(bottom, _mapped(parts, feature_map, bottom.shape[0]))
 
 
@@ -286,14 +297,15 @@ def _bind(lib) -> None:
         ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
     lib.hps_dot_interaction_wide.restype = ctypes.c_int
     lib.hps_dot_interaction_wide.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int,
     ]
     _bound = True
 
@@ -390,30 +402,35 @@ def k3_plan(batch: int, feats: int, dim: int, sms: int = H100_SMS,
     return K3Plan(warps, smem, max(1, min(-(-batch // warps), per_sm * sms)), per_sm)
 
 
-def _feature_descs(name, bottom, parts, feature_map):
-    """Check the CUDA operands of the interaction kernels. -> (per feature
-    row pointers, per feature batch strides, vec4: every z row 16-byte
-    aligned with D % 4 == 0)."""
+def _feature_descs(name, bottom, parts, feature_map, dtypes=(torch.float32, torch.bfloat16)):
+    """Check the CUDA operands of the interaction kernels: the bottom of one
+    of ``dtypes``, every mapped part of the bottom's. -> (per feature row
+    pointers, per feature batch strides, vec4: every z row starts on a
+    4-value boundary with D % 4 == 0)."""
     dev = bottom.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    if bottom.dtype != torch.float32 or bottom.dim() != 2 or bottom.stride(1) != 1:
-        raise ValueError(f"{name}: bottom must be f32 [B, D] with unit column stride")
+    dt = bottom.dtype
+    kinds = " or ".join(str(x).replace("torch.", "") for x in dtypes)
+    if dt not in dtypes or bottom.dim() != 2 or bottom.stride(1) != 1:
+        raise ValueError(f"{name}: bottom must be {kinds} [B, D] with unit column stride, "
+                         f"got {dt} {tuple(bottom.shape)}")
     b, d = bottom.shape
+    es = bottom.element_size()
     ptrs, strides = [], []
     for p, s in feature_map:
         part = parts[p]
-        if (part.device != dev or part.dtype != torch.float32 or part.dim() != 3
+        if (part.device != dev or part.dtype != dt or part.dim() != 3
                 or part.shape[1] < b or part.shape[2] != d or part.stride(2) != 1
                 or not 0 <= s < part.shape[0]):
             raise ValueError(
-                f"{name}: part {p} must be f32 [n, >= {b}, {d}] on {dev} with "
-                f"unit column stride and hold sub {s}; got {tuple(part.shape)} "
-                f"{part.dtype} strides {part.stride()}")
-        ptrs.append(part.data_ptr() + s * part.stride(0) * 4)
+                f"{name}: part {p} must be {dt} [n, >= {b}, {d}] (the bottom's type) on "
+                f"{dev} with unit column stride and hold sub {s}; got "
+                f"{tuple(part.shape)} {part.dtype} strides {part.stride()}")
+        ptrs.append(part.data_ptr() + s * part.stride(0) * es)
         strides.append(part.stride(1))
-    vec4 = int(d % 4 == 0 and bottom.data_ptr() % 16 == 0 and bottom.stride(0) % 4 == 0
-               and all(x % 16 == 0 for x in ptrs) and all(x % 4 == 0 for x in strides))
+    vec4 = int(d % 4 == 0 and bottom.data_ptr() % (4 * es) == 0 and bottom.stride(0) % 4 == 0
+               and all(x % (4 * es) == 0 for x in ptrs) and all(x % 4 == 0 for x in strides))
     return ptrs, strides, vec4
 
 
@@ -456,7 +473,8 @@ def _launch(name, bottom, parts, feature_map, oh=None, plan=None) -> torch.Tenso
         if scales is not None:
             scales_ptr, scales_ld = scales.data_ptr(), scales.stride(0)
     f = 1 + n_oh + len(feature_map)
-    out = torch.empty((b, d + f * (f - 1) // 2), dtype=torch.float32, device=dev)
+    io_bf16 = int(bottom.dtype == torch.bfloat16)
+    out = torch.empty((b, d + f * (f - 1) // 2), dtype=bottom.dtype, device=dev)
     if b == 0:
         return out
     if plan is None:
@@ -473,7 +491,7 @@ def _launch(name, bottom, parts, feature_map, oh=None, plan=None) -> torch.Tenso
         rc = lib.hps_dot_interaction_wide(
             dev.index, kernels.stream_of(bottom), b, d, n_oh, 1 + len(ptrs), fed.data_ptr(),
             kind, arena_ptr, arena_rows, slots_ptr, slots_ld, scales_ptr, scales_ld,
-            None if mem is None else mem.data_ptr(), out.data_ptr(),
+            None if mem is None else mem.data_ptr(), out.data_ptr(), io_bf16,
             None if scratch is None else scratch.data_ptr(), plan.grid, plan.smem)
         kernels.check(lib, rc, name)
         kernels.count_launch(name)
@@ -484,7 +502,7 @@ def _launch(name, bottom, parts, feature_map, oh=None, plan=None) -> torch.Tenso
         dev.index, kernels.stream_of(bottom), b, d, n_oh, len(ptrs),
         bottom.data_ptr(), bottom.stride(0), arr_t(*ptrs), arr_t(*strides),
         kind, arena_ptr, arena_rows, slots_ptr, slots_ld, scales_ptr,
-        scales_ld, int_t(*offs), int_t(*sizes), out.data_ptr(), vec4, oh_vec,
+        scales_ld, int_t(*offs), int_t(*sizes), out.data_ptr(), io_bf16, vec4, oh_vec,
         plan.warps, plan.grid, plan.smem,
     )
     kernels.check(lib, rc, name)
@@ -594,7 +612,7 @@ def dot_interaction_bwd(bottom, parts, feature_map, g, need_bottom: bool = True,
                 [gp if need else None for gp, need in zip(g_parts, need_parts)])
     name = "dot_interaction_bwd"
     g = g.contiguous()
-    ptrs, strides, vec4 = _feature_descs(name, bottom, parts, feature_map)
+    ptrs, strides, vec4 = _feature_descs(name, bottom, parts, feature_map, (torch.float32,))
     dev = bottom.device
     b, d = bottom.shape
     n = len(feature_map)
@@ -679,8 +697,9 @@ class _Interaction(torch.autograd.Function):
 
 
 def fused_dot_interaction(bottom: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    """K4. bottom [B, D] f32, emb [B, T, D] f32 (unit column stride) ->
-    [B, D + F(F-1)/2] f32 with F = T + 1; differentiable in both inputs."""
+    """K4. bottom [B, D] f32 or bf16, emb [B, T, D] of the same type (unit
+    column stride) -> [B, D + F(F-1)/2] of that type with F = T + 1;
+    differentiable in both inputs (f32 only: the backward kernel is f32)."""
     if emb.dim() != 3 or emb.shape[0] != bottom.shape[0] or emb.shape[2] != bottom.shape[-1]:
         raise ValueError(f"fused_dot_interaction: emb must be [B, T, D] for bottom "
                          f"{tuple(bottom.shape)}, got {tuple(emb.shape)}")
@@ -698,10 +717,10 @@ def fused_dot_interaction_bwd(bottom: torch.Tensor, emb: torch.Tensor, g: torch.
 
 
 def dot_interaction_parts(bottom: torch.Tensor, parts, feature_map) -> torch.Tensor:
-    """K2. bottom [B, D] f32; parts: [n_i, S_i >= B, D] f32 (any strides with
-    a unit column stride); feature_map[t] = (part, sub).
-    -> [B, D + F(F-1)/2] f32 with F = 1 + len(feature_map); differentiable
-    in bottom and the parts."""
+    """K2. bottom [B, D] f32 or bf16; parts: [n_i, S_i >= B, D] of the same
+    type (any strides with a unit column stride); feature_map[t] = (part,
+    sub). -> [B, D + F(F-1)/2] of that type with F = 1 + len(feature_map);
+    differentiable in bottom and the parts (f32 only)."""
     fmap = tuple(tuple(x) for x in feature_map)
     return _Interaction.apply("dot_interaction_parts", fmap, bottom, *parts)
 
@@ -709,9 +728,10 @@ def dot_interaction_parts(bottom: torch.Tensor, parts, feature_map) -> torch.Ten
 def dot_interaction_oh_parts(bottom: torch.Tensor, arena: torch.Tensor,
                              slots: torch.Tensor, scales: Optional[torch.Tensor],
                              parts, feature_map, members=None) -> torch.Tensor:
-    """K3. As K2, with ``n_oh = slots.shape[0]`` features before the
-    ``feature_map`` ones, built from ``arena`` [R, D] (int8, fp8, bf16 or
-    f32): feature j of sample b is ``f32(arena[slots[j, b]]) * scales[j, b]``
+    """K3. As K2 (f32 or bf16 bottom, parts and output), with ``n_oh =
+    slots.shape[0]`` features before the ``feature_map`` ones, built from
+    ``arena`` [R, D] (int8, fp8, bf16 or f32, whatever the bottom's type):
+    feature j of sample b is ``f32(arena[slots[j, b]]) * scales[j, b]``
     (``scales`` None -> 1), rounded to bf16 like every z row, where the slot
     lies inside ``members[j] = (offset, size)``; outside it the row is zero,
     as the JAX package's one-hot mask gives (``members`` None: the whole

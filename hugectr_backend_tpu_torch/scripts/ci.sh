@@ -1,6 +1,6 @@
 #!/bin/bash
 # The port's CI pass: its tests, every example, the entry points, the load
-# generator against a server, and the smoke passes of auc_parity and
+# generator against a server, and the smoke passes of bench, auc_parity and
 # frontend_saturation, all on one device.
 #
 #   hugectr_backend_tpu_torch/scripts/ci.sh [cpu|cuda]    (default: cpu)
@@ -76,6 +76,9 @@ python -m "$PKG.tools.perf_client" --url "http://127.0.0.1:$(cat "$ROOT/port")" 
   --duration 2 --concurrency 2 --binary
 kill "$SERVER"
 SERVER=
+
+echo "== bench smoke on $DEV"
+HPS_BENCH_SMOKE=1 python -m "$PKG.bench" --device "$DEV" > /dev/null
 
 echo "== auc_parity smoke on $DEV"
 HPS_AUC_SMOKE=1 python -m "$PKG.scripts.auc_parity" --device "$DEV" > /dev/null

@@ -1,5 +1,7 @@
-"""Shared pieces of the lookup microbenchmarks: the synthetic tables, the
-Zipf keys, the tile-padded arena of the tiny tables and the CUDA-graph timer.
+"""Shared pieces of the benchmark programs: the synthetic tables, the Zipf
+keys, the tile-padded arena of the tiny tables, the CUDA-graph timers (a
+batch of calls, and the slope over chained iterations), the eager timer,
+the card's name and power limit, and its published peak rates.
 
 The tables and keys are those of the JAX package's ``scripts/microbench_*.py``:
 row ``r`` of a table holds ``(r * 131) % 255 - 127`` in every column (int8)
@@ -11,6 +13,8 @@ batch) % cards``, drawn table after table from one generator.
 from __future__ import annotations
 
 import dataclasses
+import subprocess
+import time
 
 import numpy as np
 import torch
@@ -144,6 +148,117 @@ def graph_us(calls, replays: int = 10) -> float:
     ms = start.elapsed_time(end) / (replays * len(calls))
     del graph
     return ms * 1e3
+
+
+#: Published dense peaks (NVIDIA data sheets, without sparsity, at the full
+#: power limit): memory bytes/s, bf16 tensor FLOP/s, int8 tensor OP/s, f32
+#: FLOP/s outside the tensor cores. Matched by substring, the first hit.
+PEAKS = (
+    ("H200", 4.8e12, 989e12, 1979e12, 67e12),
+    ("H100 NVL", 3.9e12, 835e12, 1671e12, 60e12),
+    ("H100 PCIe", 2.0e12, 756e12, 1513e12, 51e12),
+    ("H100", 3.35e12, 989e12, 1979e12, 67e12),  # SXM
+)
+
+
+def peaks(name: str):
+    """-> (memory bytes/s, bf16 FLOP/s, int8 OP/s, f32 non-tensor FLOP/s) of
+    the card named ``name``."""
+    for key, *rates in PEAKS:
+        if key in name:
+            return rates
+    raise RuntimeError(f"no peak rates known for {name!r}")
+
+
+def card_info(device) -> dict:
+    """What a result line names its device by: the card's name and what
+    ``nvidia-smi --query-gpu=name,power.limit`` says of it, or "cpu"."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"device": "cpu", "card": None}
+    idx = dev.index or 0
+    smi = subprocess.run(["nvidia-smi", "-i", str(idx), "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    name = torch.cuda.get_device_name(idx)
+    return {"device": f"{name} | {smi}", "card": name}
+
+
+def _need_card() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("timing needs a CUDA card")
+
+
+def slope_us(step, it_lo: int = 64, it_hi: int = 320, per_graph: int = 0) -> float:
+    """Device µs of one ``step()`` whose iterations are chained through the
+    device (each reads what the previous wrote): ``per_graph`` steps
+    (default ``it_lo // 4``) captured in one CUDA graph, replayed for
+    ``it_lo`` and for ``it_hi`` steps, each timed with CUDA events; the
+    slope, which leaves out what a replay costs once. Needs a CUDA card."""
+    _need_card()
+    per_graph = per_graph or max(1, it_lo // 4)
+    if it_lo % per_graph or it_hi % per_graph or it_hi <= it_lo:
+        raise ValueError(f"slope_us: {it_lo} and {it_hi} steps in graphs of {per_graph}")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            step()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed(n):
+        start.record()
+        for _ in range(n // per_graph):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    timed(it_lo)
+    lo, hi = timed(it_lo), timed(it_hi)
+    del graph
+    return (hi - lo) / (it_hi - it_lo) * 1e3
+
+
+def eager_us(step, iters: int = 20) -> float:
+    """µs of one ``step()`` launched from Python without a graph: host clock
+    from the call to ``torch.cuda.synchronize()`` (on a card), median over
+    ``iters``. On the CPU it is the CPU's time."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        step()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e6
+
+
+def device_profile(run, n: int):
+    """Device kernel time per unit of work (``torch.profiler``), over
+    ``run()``, which does ``n`` units, and the kernels that take it. -> (ms
+    or None where the profiler saw no device events, [(kernel name, ms per
+    unit)] largest first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        return None, []
+    top = sorted(((k[:80], v / n) for k, v in by_name.items()), key=lambda kv: -kv[1])
+    return sum(by_name.values()) / n, top
 
 
 def timed_line(keys: int, us: float, nbytes: float, **fields) -> dict:

@@ -104,6 +104,14 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.tools.perf_client",
     "hugectr_backend_tpu_torch.scripts.auc_parity",
     "hugectr_backend_tpu_torch.scripts.frontend_saturation",
+    "hugectr_backend_tpu_torch.bench",
+    "hugectr_backend_tpu_torch.scripts.microbench_w8a8_kernel",
+    "hugectr_backend_tpu_torch.scripts.microbench_dense",
+    "hugectr_backend_tpu_torch.scripts.microbench_interaction",
+    "hugectr_backend_tpu_torch.scripts.microbench_int4_gather",
+    "hugectr_backend_tpu_torch.scripts.microbench_overhead",
+    "hugectr_backend_tpu_torch.scripts.microbench_update_storm",
+    "hugectr_backend_tpu_torch.scripts.microbench_scaling",
     "chip_smoke",
 ]
 
@@ -295,3 +303,21 @@ def test_examples_need_a_card_unless_asked_for_cpu(tmp_path, name):
         pytest.skip("a CUDA device is present: the default device is the card")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         load(name).main(root=tmp_path)
+
+
+@pytest.mark.parametrize("name", ["bench", "scripts.microbench_w8a8_kernel",
+                                  "scripts.microbench_dense", "scripts.microbench_interaction",
+                                  "scripts.microbench_int4_gather",
+                                  "scripts.microbench_overhead",
+                                  "scripts.microbench_update_storm",
+                                  "scripts.microbench_scaling"])
+def test_benchmark_programs_need_a_card_unless_asked_for_cpu(name):
+    """The benchmark and each microbenchmark run on the card by default and
+    raise where there is none (``--device cpu`` runs them on the CPU)."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    mod = importlib.import_module(f"hugectr_backend_tpu_torch.{name}")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mod.main([])
