@@ -59,7 +59,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and six with K from 2945 to GEMV_MAX_K (29,056), with the activations
    and the bias cycling over the cases (all of them on one shape per path);
    past N = 8 every other plan the kernel takes for the shape as well
-   (``k5_plans``). Rows of zeros and rows that quantize on half-integers
+   (``k5_plans``). A w8a8 ``QuantDense(479, 1024)`` called directly
+   (``k5_quant_dense_check``) hands K5 the rows behind ``kernel_q``,
+   padded to 16 bytes, its one copy of the weight: the ``wgmma`` plan
+   (``narrow`` on [N, K] rows), bit-equal to the plain version on the
+   unpadded weight, the state_dict still [N, K].
+   Rows of zeros and rows that quantize on half-integers
    among the inputs, junk in the weight rows' padding: bit-exact for act
    None and relu, within rtol 1e-6 and atol 1e-6 for sigmoid, tanh and
    gelu.
@@ -130,7 +135,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    after 2 warm-ups), the device time (profiler) and the idle share. (3)
    WDL, DeepFM, a small DCN-v2, xDeepFM, NCF and MMoE on the deployment and
    at the widths of the JAX package's examples/07_model_zoo.py, at batch 8
-   and 4096.
+   and 4096. Every family runs twice on the same weights: f32, and with
+   ``compute_dtype=torch.bfloat16`` (lines ``<family>_bf16``), the bf16
+   output held to a CPU instance at bf16 within the family's bar
+   (``ZOO_BF16_BAR``, from the card's readings) and closer to it than to
+   the CPU instance's f32 output, the f32 model's own gap printed beside
+   it; the bf16 retrieval
+   keys equal wherever the CPU instance's scores stand further apart than
+   the two instances' queries can move them. DCN-v2, DIN, BST and retrieval
+   print their bf16 wall, device time and idle share beside the f32 ones.
 5e. A Triton model repository (the "ensemble" phase, ``ensemble_phase``),
    laid out as examples/05_triton_repo_ensemble.py lays it out and booted
    with ``serve(model_repository=..., grpc_port=0)``: the HPS model
@@ -288,6 +301,7 @@ import contextlib
 import io
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -366,6 +380,20 @@ ZOO_REF = 256  # samples the CPU instance scores (a sample's logit is its own)
 ZOO_REF_RETRIEVE = 64  # users the CPU instance retrieves for
 ZOO_REL = 1e-3  # logits and retrieval scores vs the CPU instance
 ZOO_SMALL_BATCHES = (8, 4096)
+#: The largest gap of the card's bf16 output to the CPU instance's at bf16
+#: (max |diff| / max |CPU|) in four runs of the zoo phase on the card (H100
+#: 80GB HBM3, 700 W; PERF.md, PR 15), both batches of part 3.
+ZOO_BF16_READ = {"dcn_v2": 0.006410256493836641, "din": 0.0026041667442768812,
+                 "bst": 0.0028248587623238564, "retrieval": 2.7333568141330034e-05,
+                 "wdl": 1.0096783853441593e-07, "deepfm": 1.0401090122513779e-07,
+                 "dcn_v2_small": 0.0028409091755747795, "xdeepfm": 0.0, "ncf": 0.0,
+                 "mmoe": 0.0013736264081671834}
+#: The bar: twice the reading, and no less than 2^-20 (the CPU tests' bar).
+#: Where the card rounds an output one bf16 ulp away from the CPU (DCN-v2,
+#: DIN, BST, the small DCN-v2) it lies above the f32 model's own gap; there
+#: the rule that the output be closer to the CPU's bf16 output than to its
+#: f32 one tells the precisions apart (``zoo_phase``'s ``held``).
+ZOO_BF16_BAR = {fam: max(2 * r, 2.0 ** -20) for fam, r in ZOO_BF16_READ.items()}
 # A Triton model repository (the "ensemble" phase), laid out as in
 # examples/05_triton_repo_ensemble.py: the 26 tables as one table (key
 # ENS_KEY_STRIDE * t + row) behind a dense model in each format.
@@ -921,6 +949,47 @@ def k5_edge_checks(dev) -> dict:
             key = f"{p.variant} {p.bm}x{p.bn}/{p.stages}"
             counts[key] = counts.get(key, 0) + 1
     return counts
+
+
+def k5_quant_dense_check(dev) -> str:
+    """Queue C: a w8a8 ``QuantDense(479, 1024)`` called directly hands K5 the
+    rows behind ``kernel_q``, padded to 16 bytes (after ``.to(dev)`` too,
+    and the layer's one copy of its weight). Its plan is ``wgmma``
+    (``narrow`` on [N, K] rows), its output bit-equal to the plain version
+    on the unpadded weight at batch BATCH, its state_dict [N, K]. -> the
+    plan's variant."""
+    from hugectr_backend_tpu_torch.models.quant_dense import QuantDense, quantize_weight
+    from hugectr_backend_tpu_torch.ops.quant_matmul import (
+        H100_SMS,
+        _wvec,
+        k5_plan,
+        w8a8_dense_plain,
+    )
+
+    g = torch.Generator().manual_seed(SEED + 60)
+    layer = QuantDense(479, 1024, "w8a8", activation="relu")
+    q, sc = quantize_weight(torch.randn(1024, 479, generator=g) / 479 ** 0.5, "w8a8")
+    layer.load_state_dict({"kernel_q": q, "kernel_scale": sc,
+                           "bias": torch.randn(1024, generator=g) * 0.1})
+    layer = layer.to(dev)
+    x = torch.randn(BATCH, 479, generator=g).to(dev)
+    # launch_plan's choice, on the CPU too (there with the H100's SM count).
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    plan, stored = (k5_plan(BATCH, 1024, 479, sms, _wvec(w)).variant
+                    for w in (layer.k5_weight(), layer.kernel_q))
+    if (plan, stored) != ("wgmma", "narrow"):
+        raise AssertionError(f"QuantDense(479, 1024) w8a8: plan {plan} (rows as stored: "
+                             f"{stored}), expected wgmma (narrow)")
+    if layer.k5_weight().data_ptr() != layer.kernel_q.data_ptr():
+        raise AssertionError("QuantDense(479, 1024) w8a8 holds a second copy of its weight")
+    got = layer(x)
+    want = w8a8_dense_plain(x, layer.kernel_q, layer.kernel_scale, layer.bias, "relu")
+    if not torch.equal(got, want):
+        raise AssertionError("QuantDense(479, 1024) w8a8 on its padded rows != plain")
+    if tuple(layer.state_dict()["kernel_q"].shape) != (1024, 479):
+        raise AssertionError("QuantDense's state_dict lost its [N, K] kernel_q")
+    return plan
 
 
 def bwd_err(got, want, feats: int, gmax: float, zm: float, what: str) -> float:
@@ -2757,15 +2826,27 @@ def zoo_pair(model_fn, seed: int):
     return model, copy.deepcopy(model)
 
 
-def retrieval_check(keys, scores, ref_keys, ref_scores) -> tuple:
+def rms_rel(got, want) -> float:
+    """sqrt(mean (got - want)^2 / mean want^2) over two tensors."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float(((got - want).pow(2).mean() / (want.pow(2).mean() + 1e-30)).sqrt())
+
+
+def retrieval_check(keys, scores, ref_keys, ref_scores, rel_bar=ZOO_REL, move=None) -> tuple:
     """The card's top-k against the CPU instance's top-(k+1) on the same
-    users: scores rel < ZOO_REL, and the keys equal at every position whose
-    score is more than ZOO_REL * max|score| from both neighbours (the k+1-th
-    included). -> (rel, positions compared, positions)."""
+    users: scores within ``rel_bar`` (rel), and the keys equal at every
+    position whose score is more than ZOO_REL * max|score| from both
+    neighbours (the k+1-th included), plus 2 * ``move`` [n] where given (how
+    far the two instances' queries can move a user's scores). -> (rel,
+    positions compared, positions)."""
     k = keys.shape[1]
-    rel = check_rel("retrieval scores", rel_err(torch.from_numpy(scores),
-                                                torch.from_numpy(ref_scores[:, :k])))
+    rel = rel_err(torch.from_numpy(scores), torch.from_numpy(ref_scores[:, :k]))
+    if not rel < rel_bar:
+        raise AssertionError(f"zoo retrieval scores: rel {rel} vs the CPU instance "
+                             f"(bar {rel_bar})")
     gap = ZOO_REL * float(np.abs(ref_scores).max())
+    if move is not None:
+        gap = gap + 2 * np.asarray(move)[:, None]
     d = np.abs(np.diff(ref_scores, axis=1)) > gap  # [n, k]: position j vs j + 1
     sep = d[:, :k].copy()
     sep[:, 1:] &= d[:, : k - 1]
@@ -2774,6 +2855,17 @@ def retrieval_check(keys, scores, ref_keys, ref_scores) -> tuple:
         raise AssertionError(f"zoo retrieval: {int(bad.sum())} separated positions hold "
                              "other keys than the CPU instance's")
     return rel, int(sep.sum()), int(sep.size)
+
+
+def bst_sqrt_dk_check(dev) -> None:
+    """BST divides its attention logits by sqrt(dk) taken in compute_dtype,
+    a 0-dim host tensor: in f32 that must divide on ``dev`` as the Python
+    number it replaced (the f32 model's bits unchanged), bit for bit."""
+    x = torch.randn(ZOO_BATCH, ZOO_SEQ + 1, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    for dk in (16, 32):
+        if not torch.equal(x / math.sqrt(dk), x / torch.tensor(dk, dtype=torch.float32).sqrt()):
+            raise AssertionError(f"sqrt({dk}) as a 0-dim host tensor divides otherwise than "
+                                 f"the Python number on {dev}")
 
 
 def din_deployment(root: str, seed: int):
@@ -2880,35 +2972,71 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
         return (HierParameterServer.create(cfg_, device=dev),
                 HierParameterServer.create(cfg_, device=cpu))
 
-    # Part 1: DCN-v2 over the 26 Criteo tables.
+    dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+
+    failed = []
+
+    def held(fam, got, want, f32=None):
+        """The card's output against the CPU instance's: rel < ZOO_REL at
+        f32. At bf16 (``f32``: the card's and the CPU instance's f32 outputs
+        on the same weights and inputs): within the family's ZOO_BF16_BAR,
+        and closer to the CPU's bf16 output than to its f32 one, so that a
+        card computing in f32 fails; the f32 output's own gap to the CPU's
+        bf16 output is printed beside. A bf16 failure is raised at the end
+        of the phase, after every line."""
+        rel = rel_err(got, want)
+        if f32 is None:
+            return {"rel_vs_cpu": check_rel(fam, rel)}
+        card_f32, cpu_f32 = f32
+        line = {"rel_vs_cpu": rel, "bar": ZOO_BF16_BAR[fam],
+                "rel_vs_cpu_f32": rel_err(got, cpu_f32),
+                "f32_rel_vs_cpu": rel_err(card_f32, want),
+                "rms_vs_cpu": rms_rel(got, want), "rms_vs_cpu_f32": rms_rel(got, cpu_f32),
+                "f32_rms_vs_cpu": rms_rel(card_f32, want), "rel_vs_f32": rel_err(got, card_f32)}
+        if not rel < ZOO_BF16_BAR[fam]:
+            failed.append(f"zoo {fam} at bf16: rel {rel} vs the CPU instance "
+                          f"(bar {ZOO_BF16_BAR[fam]})")
+        if not line["rel_vs_cpu"] < line["rel_vs_cpu_f32"]:
+            failed.append(f"zoo {fam} at bf16: no closer to the CPU's bf16 output "
+                          f"({rel}) than to its f32 one ({line['rel_vs_cpu_f32']})")
+        return line
+
+    # Part 1: DCN-v2 over the 26 Criteo tables, f32 then bf16.
     t0 = time.perf_counter()
     ps_cpu = HierParameterServer.create(cfg, device=cpu)
     try:
         name = cfg["models"][0]["model"]
         n_tables = len(cfg["models"][0]["sparse_files"])
-        card_m, cpu_m = zoo_pair(lambda: DCNv2(NUM_DENSE, n_tables, DIM), SEED + 20)
-        srv = program.make_dcn_server(ps.get_model_params(name), ps.get_embedding_cache(name, 0),
-                                      card_m)
-        ref_srv = program.make_dcn_server(ps_cpu.get_model_params(name),
-                                          ps_cpu.get_embedding_cache(name, 0), cpu_m)
-        k1 += zoo_launches(lambda: srv.predict(*batches[0]), len(batches), 1, dev, "dcn")
         keys, dense = batches[0]
-        got = srv.predict(keys, dense)
-        rel = check_rel("dcn", rel_err(got[:ZOO_REF], ref_srv.predict(
-            [k[:ZOO_REF] for k in keys], dense[:ZOO_REF])))
-        out({"zoo": "dcn_v2", "deployment": f"{n_tables} Criteo tables x {DIM} int8",
-             "bytes_on_card": ps.get_embedding_cache(name, 0).nbytes(),
-             "model_bytes": model_bytes(card_m),
-             "batch": int(dense.shape[0]), "width": NUM_DENSE + n_tables * DIM,
-             "rel_vs_cpu": rel, "k1_per_predict": 1 if dev.type == "cuda" else 0,
-             **zoo_timing(lambda: srv.predict(*batches[1]))})
-        del srv, ref_srv, card_m, cpu_m
+        f32 = None
+        for dt_name, cd in dtypes:
+            card_m, cpu_m = zoo_pair(
+                lambda: DCNv2(NUM_DENSE, n_tables, DIM, compute_dtype=cd), SEED + 20)
+            srv = program.make_dcn_server(ps.get_model_params(name),
+                                          ps.get_embedding_cache(name, 0), card_m)
+            ref_srv = program.make_dcn_server(ps_cpu.get_model_params(name),
+                                              ps_cpu.get_embedding_cache(name, 0), cpu_m)
+            k1 += zoo_launches(lambda: srv.predict(*batches[0]), len(batches), 1, dev, "dcn")
+            got = srv.predict(keys, dense)[:ZOO_REF]
+            want = ref_srv.predict([k[:ZOO_REF] for k in keys], dense[:ZOO_REF])
+            check = held("dcn_v2", got, want, f32)
+            out({"zoo": "dcn_v2" + ("" if f32 is None else "_bf16"),
+                 "compute_dtype": dt_name,
+                 "deployment": f"{n_tables} Criteo tables x {DIM} int8",
+                 "bytes_on_card": ps.get_embedding_cache(name, 0).nbytes(),
+                 "model_bytes": model_bytes(card_m),
+                 "batch": int(dense.shape[0]), "width": NUM_DENSE + n_tables * DIM, **check,
+                 "k1_per_predict": 1 if dev.type == "cuda" else 0,
+                 **zoo_timing(lambda: srv.predict(*batches[1]))})
+            f32 = (got, want)
+            del srv, ref_srv, card_m, cpu_m
     finally:
         ps_cpu.shutdown()
-    print(f"zoo part 1 (DCN-v2): {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"zoo part 1 (DCN-v2, f32 and bf16): {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Part 2: DIN, BST and two-tower retrieval on two 1,000,000-row tables.
     t0 = time.perf_counter()
+    bst_sqrt_dk_check(dev)
     with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_zoo_") as root:
         tbl, din_cfg = din_deployment(root, SEED + 21)
         ps, ps_cpu = deploy(din_cfg)
@@ -2922,47 +3050,84 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
             traffic = [din_traffic(tbl, ZOO_BATCH, SEED + 22 + i) for i in range(2)]
             ref = [x[:ZOO_REF] for x in traffic[0]]
             for fam, make in (
-                    ("din", lambda: DIN(NUM_DENSE, DIM, (200, 80, 1), att_hidden=64)),
-                    ("bst", lambda: BST(NUM_DENSE, DIM, ZOO_SEQ, num_heads=4, num_layers=1,
-                                        head_widths=(256, 64, 1)))):
-                card_m, cpu_m = zoo_pair(make, SEED + 23)
-                srv = FusedDinServer(params, cache, card_m)
-                k1 += zoo_launches(lambda: srv.predict(*traffic[0]), 2, 2, dev, fam)
-                rel = check_rel(fam, rel_err(srv.predict(*traffic[0])[:ZOO_REF],
-                                             FusedDinServer(params_cpu, cache_cpu,
-                                                            cpu_m).predict(*ref)))
-                out({"zoo": fam, "batch": ZOO_BATCH, "seq": ZOO_SEQ, "rel_vs_cpu": rel,
-                     "model_bytes": model_bytes(card_m),
-                     "k1_per_predict": 2 if dev.type == "cuda" else 0,
-                     **zoo_timing(lambda: srv.predict(*traffic[1]))})
-                del srv, card_m, cpu_m
-            card_m, cpu_m = zoo_pair(lambda: TwoTowerUser(NUM_DENSE, 1, DIM, (256, DIM)),
-                                     SEED + 24)
-            srv = RetrievalServer(params, cache, card_m, k=ZOO_K)
+                    ("din", lambda cd: DIN(NUM_DENSE, DIM, (200, 80, 1), att_hidden=64,
+                                           compute_dtype=cd)),
+                    ("bst", lambda cd: BST(NUM_DENSE, DIM, ZOO_SEQ, num_heads=4, num_layers=1,
+                                           head_widths=(256, 64, 1), compute_dtype=cd))):
+                f32 = None
+                for dt_name, cd in dtypes:
+                    card_m, cpu_m = zoo_pair(lambda: make(cd), SEED + 23)
+                    srv = FusedDinServer(params, cache, card_m)
+                    k1 += zoo_launches(lambda: srv.predict(*traffic[0]), 2, 2, dev, fam)
+                    got = srv.predict(*traffic[0])[:ZOO_REF]
+                    want = FusedDinServer(params_cpu, cache_cpu, cpu_m).predict(*ref)
+                    check = held(fam, got, want, f32)
+                    out({"zoo": fam + ("" if f32 is None else "_bf16"),
+                         "compute_dtype": dt_name, "batch": ZOO_BATCH, "seq": ZOO_SEQ,
+                         **check, "model_bytes": model_bytes(card_m),
+                         "k1_per_predict": 2 if dev.type == "cuda" else 0,
+                         **zoo_timing(lambda: srv.predict(*traffic[1]))})
+                    f32 = (got, want)
+                    del srv, card_m, cpu_m
             tkeys, _, _, dense = traffic[0]
-            k1 += zoo_launches(lambda: srv.retrieve(tkeys, dense), 2, 1, dev, "retrieval")
-            keys, scores = srv.retrieve(tkeys, dense)
-            ref_keys, ref_scores = RetrievalServer(params_cpu, cache_cpu, cpu_m,
-                                                   k=ZOO_K).retrieve(
-                tkeys[:ZOO_REF_RETRIEVE], dense[:ZOO_REF_RETRIEVE], k=ZOO_K + 1)
-            rel, compared, positions = retrieval_check(
-                keys[:ZOO_REF_RETRIEVE], scores[:ZOO_REF_RETRIEVE], ref_keys, ref_scores)
             ut, _, _, udense = traffic[1]
-            out({"zoo": "retrieval", "batch": ZOO_BATCH, "corpus": ZOO_ROWS, "k": ZOO_K,
-                 "score_matrix_bytes": ZOO_BATCH * ZOO_ROWS * 4,
-                 "corpus_f32_bytes": ZOO_ROWS * DIM * 4, "model_bytes": model_bytes(card_m),
-                 "rel_vs_cpu": rel,
-                 "keys_compared": compared, "positions": positions,
-                 "k1_per_retrieve": 1 if dev.type == "cuda" else 0,
-                 **zoo_timing(lambda: srv.retrieve(ut, udense))})
-            del srv, card_m, cpu_m
+            n_ref = ZOO_REF_RETRIEVE
+            f32_top = None
+            for dt_name, cd in dtypes:
+                card_m, cpu_m = zoo_pair(lambda: TwoTowerUser(NUM_DENSE, 1, DIM, (256, DIM),
+                                                              compute_dtype=cd), SEED + 24)
+                srv = RetrievalServer(params, cache, card_m, k=ZOO_K)
+                k1 += zoo_launches(lambda: srv.retrieve(tkeys, dense), 2, 1, dev, "retrieval")
+                keys, scores = srv.retrieve(tkeys, dense)
+                ref_keys, ref_scores = RetrievalServer(params_cpu, cache_cpu, cpu_m,
+                                                       k=ZOO_K).retrieve(
+                    tkeys[:n_ref], dense[:n_ref], k=ZOO_K + 1)
+                if f32_top is None:
+                    rel, compared, positions = retrieval_check(
+                        keys[:n_ref], scores[:n_ref], ref_keys, ref_scores)
+                    extra = {"rel_vs_cpu": rel}
+                else:
+                    # How far the two instances' queries move each user's
+                    # scores: max over the items of |dq . item| (its scale
+                    # applied), on top of the f32 rule's gap.
+                    empty = np.zeros(0, np.int64)
+                    with torch.inference_mode():
+                        qs = [m(torch.from_numpy(dense[:n_ref]).to(c.device),
+                                c.lookup([tkeys[:n_ref], empty])[0].view(n_ref, 1, DIM))
+                              .float().cpu() for m, c in ((card_m, cache), (cpu_m, cache_cpu))]
+                        corpus, iscales = srv._corpus()[:2]
+                        moved = ((qs[0] - qs[1]).to(corpus.device) @ corpus.T).abs()
+                        if iscales is not None:
+                            moved *= iscales[None, :]
+                        move = moved.amax(dim=1).cpu().numpy()
+                        del moved
+                    rel, compared, positions = retrieval_check(
+                        keys[:n_ref], scores[:n_ref], ref_keys, ref_scores,
+                        rel_bar=ZOO_BF16_BAR["retrieval"], move=move)
+                    extra = {**held("retrieval", torch.from_numpy(scores[:n_ref]),
+                                    torch.from_numpy(ref_scores[:, :ZOO_K]),
+                                    (torch.from_numpy(f32_top[1][:n_ref]),
+                                     torch.from_numpy(f32_top[2]))),
+                             "topk_overlap_vs_f32": float(np.mean(
+                                 [len(set(a) & set(b)) / ZOO_K
+                                  for a, b in zip(keys, f32_top[0])]))}
+                out({"zoo": "retrieval" + ("" if f32_top is None else "_bf16"),
+                     "compute_dtype": dt_name, "batch": ZOO_BATCH, "corpus": ZOO_ROWS,
+                     "k": ZOO_K, "score_matrix_bytes": ZOO_BATCH * ZOO_ROWS * 4,
+                     "corpus_f32_bytes": ZOO_ROWS * DIM * 4, "model_bytes": model_bytes(card_m),
+                     **extra, "keys_compared": compared, "positions": positions,
+                     "k1_per_retrieve": 1 if dev.type == "cuda" else 0,
+                     **zoo_timing(lambda: srv.retrieve(ut, udense))})
+                f32_top = (keys, scores, ref_scores[:, :ZOO_K])
+                del srv, card_m, cpu_m
         finally:
             ps.shutdown()
             ps_cpu.shutdown()
     torch.cuda.empty_cache()
-    print(f"zoo part 2 (DIN, BST, retrieval): {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"zoo part 2 (DIN, BST, retrieval; f32 and bf16): {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
-    # Part 3: the small families of examples/07_model_zoo.py.
+    # Part 3: the small families of examples/07_model_zoo.py, f32 and bf16.
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_zoo_") as root:
         tbls, ex_cfg = zoo_example_deployment(root)
@@ -2970,46 +3135,58 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
         try:
             families = (
                 ("wdl", "pair", program.make_wdl_server,
-                 lambda: WideAndDeep(NUM_DENSE, 4, 16, (64, 1))),
+                 lambda cd: WideAndDeep(NUM_DENSE, 4, 16, (64, 1), compute_dtype=cd)),
                 ("deepfm", "pair", program.make_deepfm_server,
-                 lambda: DeepFM(NUM_DENSE, 4, 16, (64, 1))),
+                 lambda cd: DeepFM(NUM_DENSE, 4, 16, (64, 1), compute_dtype=cd)),
                 ("dcn_v2_small", "stack", program.make_dcn_server,
-                 lambda: DCNv2(NUM_DENSE, 5, 16, num_cross_layers=2, cross_rank=16,
-                               deep_widths=(64,), head_widths=(32, 1))),
+                 lambda cd: DCNv2(NUM_DENSE, 5, 16, num_cross_layers=2, cross_rank=16,
+                                  deep_widths=(64,), head_widths=(32, 1), compute_dtype=cd)),
                 ("xdeepfm", "stack", program.make_xdeepfm_server,
-                 lambda: XDeepFM(NUM_DENSE, 5, 16, (16, 8), (64, 1))),
-                ("ncf", "two_tower", program.make_ncf_server, lambda: NCF(0, 16, (64, 32))),
-                ("mmoe", "stack", program.make_mmoe_server, lambda: MMoE(NUM_DENSE, 5, 16)),
+                 lambda cd: XDeepFM(NUM_DENSE, 5, 16, (16, 8), (64, 1), compute_dtype=cd)),
+                ("ncf", "two_tower", program.make_ncf_server,
+                 lambda cd: NCF(0, 16, (64, 32), compute_dtype=cd)),
+                ("mmoe", "stack", program.make_mmoe_server,
+                 lambda cd: MMoE(NUM_DENSE, 5, 16, compute_dtype=cd)),
             )
             rng = np.random.default_rng(SEED + 25)
             for i, (fam, model_name, make_server, make) in enumerate(families):
-                card_m, cpu_m = zoo_pair(make, SEED + 26 + i)
-                srv = make_server(ps.get_model_params(model_name),
-                                  ps.get_embedding_cache(model_name, 0), card_m)
-                ref_srv = make_server(ps_cpu.get_model_params(model_name),
-                                      ps_cpu.get_embedding_cache(model_name, 0), cpu_m)
                 files = [os.path.basename(f) for f in
                          next(m for m in ex_cfg["models"]
                               if m["model"] == model_name)["sparse_files"]]
-                kps = srv.keys_per_sample
-                for b in ZOO_SMALL_BATCHES:
-                    keys = [tbls[f].keys[rng.integers(0, tbls[f].num_rows, (b, k))]
-                            for f, k in zip(files, kps)]
-                    dense = rng.standard_normal((b, 0 if fam == "ncf" else NUM_DENSE)).astype(
-                        np.float32)
-                    k1 += zoo_launches(lambda: srv.predict(keys, dense), 1, 1, dev, fam)
-                    rel = check_rel(fam, rel_err(srv.predict(keys, dense),
-                                                 ref_srv.predict(keys, dense)))
-                    out({"zoo": fam, "model": model_name, "batch": b, "rel_vs_cpu": rel,
-                         "bytes_on_card": ps.get_embedding_cache(model_name, 0).nbytes(),
-                         "model_bytes": model_bytes(card_m),
-                         "k1_per_predict": 1 if dev.type == "cuda" else 0})
-                del srv, ref_srv, card_m, cpu_m
+                kps = ps.get_model_params(model_name).maxnum_catfeature_query_per_table_per_sample
+                inputs = [([tbls[f].keys[rng.integers(0, tbls[f].num_rows, (b, k))]
+                            for f, k in zip(files, kps)],
+                           rng.standard_normal((b, 0 if fam == "ncf" else NUM_DENSE)).astype(
+                               np.float32)) for b in ZOO_SMALL_BATCHES]
+                f32s = None
+                for dt_name, cd in dtypes:
+                    card_m, cpu_m = zoo_pair(lambda: make(cd), SEED + 26 + i)
+                    srv = make_server(ps.get_model_params(model_name),
+                                      ps.get_embedding_cache(model_name, 0), card_m)
+                    ref_srv = make_server(ps_cpu.get_model_params(model_name),
+                                          ps_cpu.get_embedding_cache(model_name, 0), cpu_m)
+                    outs = []
+                    for j, (keys, dense) in enumerate(inputs):
+                        k1 += zoo_launches(lambda: srv.predict(keys, dense), 1, 1, dev, fam)
+                        got = srv.predict(keys, dense)
+                        want = ref_srv.predict(keys, dense)
+                        check = held(fam, got, want, None if f32s is None else f32s[j])
+                        outs.append((got, want))
+                        out({"zoo": fam + ("" if f32s is None else "_bf16"),
+                             "compute_dtype": dt_name, "model": model_name,
+                             "batch": dense.shape[0], **check,
+                             "bytes_on_card": ps.get_embedding_cache(model_name, 0).nbytes(),
+                             "model_bytes": model_bytes(card_m),
+                             "k1_per_predict": 1 if dev.type == "cuda" else 0})
+                    f32s = outs
+                    del srv, ref_srv, card_m, cpu_m
         finally:
             ps.shutdown()
             ps_cpu.shutdown()
-    print(f"zoo part 3 (the example's six families): {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"zoo part 3 (the example's six families, f32 and bf16): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
     return {"launches": {"gather_dequant": k1} if k1 else {}, "lines": lines}
 
 
@@ -4318,6 +4495,34 @@ def sharded_alone() -> int:
     return 0
 
 
+def zoo_alone() -> int:
+    """The zoo phase alone, on the card (build, phase 3's deployment, the
+    phase, f32 and bf16): ``python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.zoo_alone())"``."""
+    from hugectr_backend_tpu_torch import HierParameterServer
+    from hugectr_backend_tpu_torch.native import kvstore
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kernels.build_all()
+    kvstore.load_lib()
+    with tempfile.TemporaryDirectory(prefix="hps_chip_smoke_") as root:
+        cards = [min(c, ROW_CAP) for c in CRITEO_CARDS]
+        tables, cfg = build_deployment(root, cards, DIM, SEED)
+        ps = HierParameterServer.create(cfg)
+        batches = make_batches(tables, BATCH, N_BATCHES, SEED + 1)
+        t0 = time.perf_counter()
+        res = zoo_phase(dev, ps, cfg, batches)
+        print(f"zoo: launches {res['launches']} ({time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.get_device_name(0)})", flush=True)
+        ps.shutdown()
+    return 0
+
+
 def repository_and_pool_phases() -> int:
     """The ensemble and cluster phases alone, on the card (build, the 26
     capped tables, both phases):
@@ -4568,6 +4773,7 @@ def main() -> int:
     n3w = k3_wide_checks(dev)
     n3b = bf16_interaction_checks(dev)
     n5 = k5_edge_checks(dev)
+    k5_layer = k5_quant_dense_check(dev)
     # Phase 7's checks run here too, before anything long.
     n4 = k4_edge_checks(dev)
     nb = bwd_edge_checks(dev)
@@ -4579,7 +4785,8 @@ def main() -> int:
           f"past 128 features {n3w} within rtol {RTOL}, "
           f"atol 1e-6*max|z|^2, K2/K3/K4 at bf16 {n3b} within 1 bf16 ulp (+ the same "
           f"atol), K5 {n5} (bit-exact for act None / relu, else "
-          f"rtol = atol = {K5_TOL}), K4 and the backward kernel {n4} within rtol "
+          f"rtol = atol = {K5_TOL}), a w8a8 QuantDense(479, 1024) called directly on "
+          f"K5's {k5_layer} plan bit-exact, K4 and the backward kernel {n4} within rtol "
           f"{RTOL} and atol 1e-6*max|z|^2 (forward) / 1e-6*F*max|g|*max|z| "
           f"(backward), the backward kernel at its plan's boundaries {nb}, "
           f"{n_fo} forward-only kernels raise under autograd, K6 {n6} "
@@ -4742,7 +4949,8 @@ def main() -> int:
     print("zoo: " + "; ".join(
         f"{fam} wall {ln['wall_ms_median']:.3f} ms, device {ln['device_kernel_ms']} ms, idle "
         f"{ln['device_idle_share']}" for fam, ln in timed.items())
-        + f"; every output within rel {ZOO_REL} of the CPU instance; K1 launches "
+        + f"; every output within rel {ZOO_REL} of the CPU instance at f32, within its "
+        f"family's bar at bf16; K1 launches "
         f"{zoo['launches']} ({time.perf_counter() - t0:.1f} s; {card} | {smi})", flush=True)
 
     # Phase 5e: a Triton model repository served on the card: the 26 tables

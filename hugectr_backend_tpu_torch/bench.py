@@ -339,10 +339,7 @@ def make_model(num_tables: int, seed: int = 1):
 
 def make_variants(model):
     """The six dense variants of the JAX script (bench.py:809-816) on the
-    f32 model's weights: -> {name: (model, fold)} (models on the CPU). The
-    w8a8 model's first top-layer weight has its rows zero-padded to a
-    multiple of 16 columns (479 -> 480), the layout the serving path hands
-    K5 (``serving/program.py _permute_columns``)."""
+    f32 model's weights: -> {name: (model, fold)} (models on the CPU)."""
     from hugectr_backend_tpu_torch.models.dlrm import DLRM
     from hugectr_backend_tpu_torch.models.quant_dense import quantize_model_params
 
@@ -354,12 +351,6 @@ def make_variants(model):
         q = DLRM(*args, quant_fmt=fmt)
         q.load_state_dict(quantize_model_params(model.state_dict(), fmt))
         out[fmt] = (q.eval(), True)
-    layer = out["w8a8"][0].top.layers[0]
-    n, k = layer.kernel_q.shape
-    if k % 16:
-        padded = torch.zeros(n, -(-k // 16) * 16, dtype=torch.int8)
-        padded[:, :k] = layer.kernel_q
-        layer.kernel_q = padded
     return out
 
 

@@ -20,7 +20,9 @@ as its raw bytes, + ``layers.<i>.wscale``). ``"w8a8"`` runs each layer on K5
 with its activation fused in; weight-only ``"int8"``/``"fp8"`` dequantize
 the weight in bf16 and multiply with bf16 operands and f32 sums, as the JAX
 package does. In memory the port keeps each weight ``[out, in]`` (the
-``nn.Linear`` layout, which K5 reads), the transpose of the file's.
+``nn.Linear`` layout, which K5 reads), the transpose of the file's; a w8a8
+model keeps each weight in rows zero-padded to 16 bytes (``pad_k16``: an
+[out, in] view of them), the layout in which K5 may take its ``wgmma`` plan.
 
 An ensemble (serving/ensemble.py) serves this model behind a lookup; a model
 repository (io/model_repo.py) names its input and output tensors
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 
 from hugectr_backend_tpu_torch.config.params import ConfigError
 from hugectr_backend_tpu_torch.models.quant_dense import quantize_weight
-from hugectr_backend_tpu_torch.ops.quant_matmul import w8a8_dense
+from hugectr_backend_tpu_torch.ops.quant_matmul import k5_rows, pad_k16, w8a8_dense
 from hugectr_backend_tpu_torch.tiers.hbm import default_device
 
 SPEC_FILE = "dense_model.json"
@@ -90,6 +92,8 @@ class DenseModel:
     output_name: str = "output_1"
 
     def __post_init__(self):
+        if self.spec.get("quant") == "w8a8":
+            self.weights = [(pad_k16(w), b) for w, b in self.weights]
         for layer in self.spec.get("layers", []):
             if _act_name(layer) not in _ACTIVATIONS:
                 raise ConfigError(
@@ -145,7 +149,7 @@ class DenseModel:
         for i, ((w, b), layer) in enumerate(zip(self.weights, self.spec["layers"])):
             act = _act_name(layer)
             if quant == "w8a8":
-                x = w8a8_dense(x.float().contiguous(), w, scales[i], b,
+                x = w8a8_dense(x.float().contiguous(), k5_rows(w), scales[i], b,
                                None if act in _IDENTITY else act)
                 continue
             if quant:

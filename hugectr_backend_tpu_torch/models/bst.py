@@ -8,11 +8,21 @@ mean over the live tokens feeds the MLP head. The call signature ``(dense,
 target, seq, seq_len)`` is DIN's, so
 :class:`~hugectr_backend_tpu_torch.serving.pooled.FusedDinServer` serves both.
 Flax's ``LayerNorm`` epsilon (1e-6) is kept.
+
+``compute_dtype`` (f32, or bf16) as in the JAX module: the tokens and the
+positional embeddings are cast to it and added in it; q / k / v, the
+attention logits (divided by ``sqrt`` of ``dk`` taken in ``compute_dtype``:
+5.65625 for dk 32 in bf16), the mask value (-998,244,352 in bf16), the
+softmax (``jax.nn.softmax``'s roundings:
+:func:`~hugectr_backend_tpu_torch.models.dlrm.softmax`), the output and
+feed-forward layers and the masked mean run in it;
+``LayerNorm`` computes in f32 with its f32 scale and bias and returns
+``compute_dtype`` (Flax's ``LayerNorm(dtype=...)``); ``[pooled; dense]`` is
+cast to it for the head, and the logits come back f32.
 """
 
 from __future__ import annotations
 
-import math
 import re
 from typing import Sequence
 
@@ -26,8 +36,10 @@ from hugectr_backend_tpu_torch.models.dlrm import (
     carry_mlp,
     carry_param,
     check_known,
+    dense,
     flax_params,
     init_dense_,
+    softmax,
 )
 
 _NEG = -1e9  # mask value (finite: -inf would NaN a fully-masked row)
@@ -38,9 +50,11 @@ class _EncoderBlock(nn.Module):
     """``forward(x [B, T, D], live [B, T] bool)``: dead tokens never serve
     as keys."""
 
-    def __init__(self, dim: int, num_heads: int, ff_mult: int = 4):
+    def __init__(self, dim: int, num_heads: int, ff_mult: int = 4,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.compute_dtype = compute_dtype
         self.q, self.k, self.v, self.o = (nn.Linear(dim, dim) for _ in range(4))
         self.norm1 = nn.LayerNorm(dim, eps=_LN_EPS)
         self.ff1 = nn.Linear(dim, ff_mult * dim)
@@ -55,16 +69,27 @@ class _EncoderBlock(nn.Module):
             nn.init.ones_(norm.weight)
             nn.init.zeros_(norm.bias)
 
+    def _dense(self, x, layer):
+        return dense(x, layer, compute_dtype=self.compute_dtype)
+
+    def _norm(self, x, norm):
+        return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                            norm.eps).to(self.compute_dtype)
+
     def forward(self, x, live):
         b, t, d = x.shape
         h = self.num_heads
-        q, k, v = (layer(x).view(b, t, h, d // h).transpose(1, 2)
+        q, k, v = (self._dense(x, layer).view(b, t, h, d // h).transpose(1, 2)
                    for layer in (self.q, self.k, self.v))  # [B, h, T, dk]
-        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d // h)
+        # The square root of dk in compute_dtype, as jnp.sqrt takes it; a
+        # 0-dim host tensor divides as a Python number does, also on the card.
+        root = torch.tensor(d // h, dtype=self.compute_dtype).sqrt()
+        logits = torch.matmul(q, k.transpose(-1, -2)) / root
         logits = logits.masked_fill(~live[:, None, None, :], _NEG)
-        ctx = torch.matmul(torch.softmax(logits, dim=-1), v).transpose(1, 2).reshape(b, t, d)
-        x = self.norm1(x + self.o(ctx))
-        return self.norm2(x + self.ff2(F.relu(self.ff1(x))))
+        ctx = torch.matmul(softmax(logits, dim=-1), v).transpose(1, 2).reshape(b, t, d)
+        x = self._norm(x + self._dense(ctx, self.o), self.norm1)
+        return self._norm(x + self._dense(F.relu(self._dense(x, self.ff1)), self.ff2),
+                          self.norm2)
 
 
 class BST(nn.Module):
@@ -74,13 +99,17 @@ class BST(nn.Module):
     infers it at init)."""
 
     def __init__(self, num_dense: int, dim: int, max_len: int, num_heads: int = 4,
-                 num_layers: int = 1, head_widths: Sequence[int] = (256, 64, 1)):
+                 num_layers: int = 1, head_widths: Sequence[int] = (256, 64, 1),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"embedding dim {dim} must divide num_heads {num_heads}")
+        self.compute_dtype = compute_dtype
         self.pos_emb = nn.Parameter(torch.empty(max_len + 1, dim))
-        self.blocks = nn.ModuleList(_EncoderBlock(dim, num_heads) for _ in range(num_layers))
-        self.head = MLP(dim + num_dense, head_widths, final_activation=False)
+        self.blocks = nn.ModuleList(_EncoderBlock(dim, num_heads, compute_dtype=compute_dtype)
+                                    for _ in range(num_layers))
+        self.head = MLP(dim + num_dense, head_widths, final_activation=False,
+                        compute_dtype=compute_dtype)
 
     @torch.no_grad()
     def init_flax_(self, generator: torch.Generator) -> "BST":
@@ -98,7 +127,9 @@ class BST(nn.Module):
         if s + 1 != self.pos_emb.shape[0]:
             raise ValueError(f"sequence length {s}: the positional embeddings were "
                              f"learned for {self.pos_emb.shape[0] - 1}")
-        tokens = torch.cat([seq_emb, target_emb[:, None, :]], dim=1).float() + self.pos_emb[None]
+        cd = self.compute_dtype
+        tokens = torch.cat([seq_emb, target_emb[:, None, :]], dim=1).to(cd)
+        tokens = tokens + self.pos_emb[None].to(cd)
         live = torch.cat([
             torch.arange(s, device=seq_emb.device)[None, :] < seq_len[:, None],
             torch.ones((b, 1), dtype=torch.bool, device=seq_emb.device),  # the target token
@@ -107,9 +138,9 @@ class BST(nn.Module):
             tokens = block(tokens, live)
         # Masked mean over the live tokens (at least the target); dead query
         # rows hold finite values that the mask drops here.
-        m = live.float()[..., None]
+        m = live.to(cd)[..., None]
         pooled = (tokens * m).sum(dim=1) / m.sum(dim=1)
-        return self.head(torch.cat([pooled, dense.float()], dim=1)).float().squeeze(-1)
+        return self.head(torch.cat([pooled, dense.to(cd)], dim=1)).float().squeeze(-1)
 
 
 _BLOCK = re.compile(r"_EncoderBlock_(\d+)$")

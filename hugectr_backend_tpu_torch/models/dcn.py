@@ -6,6 +6,10 @@ with multi-table embeddings). A cross layer is two skinny products,
 ``x0 = [dense; flat embeddings]``, and a head MLP reads their
 concatenation. Served by
 :func:`~hugectr_backend_tpu_torch.serving.program.make_dcn_server`.
+
+``compute_dtype`` (f32, or bf16) is the JAX module's: ``x0`` is cast to it
+after the concat, the cross layers' two products, ``x0 * v + x`` and both
+MLPs run in it, and the logits come back f32.
 """
 
 from __future__ import annotations
@@ -29,16 +33,18 @@ from hugectr_backend_tpu_torch.models.dlrm import (
 
 class CrossLayerV2(nn.Module):
     """``forward(x0, x) = x0 * v(u(x)) + x`` with ``u``: width -> rank and
-    ``v``: rank -> width."""
+    ``v``: rank -> width, in ``compute_dtype``."""
 
-    def __init__(self, width: int, rank: int = 64):
+    def __init__(self, width: int, rank: int = 64, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.u = nn.Linear(width, rank)
         self.v = nn.Linear(rank, width)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x0, x, mixed_precision: bool = False):
-        u = dense(x, self.u, mixed_precision)
-        return x0 * dense(u, self.v, mixed_precision) + x
+        cd = self.compute_dtype
+        u = dense(x, self.u, mixed_precision, compute_dtype=cd)
+        return x0 * dense(u, self.v, mixed_precision, compute_dtype=cd) + x
 
 
 class DCNv2(nn.Module):
@@ -49,13 +55,16 @@ class DCNv2(nn.Module):
     def __init__(self, num_dense: int, num_feats: int, dim: int,
                  num_cross_layers: int = 3, cross_rank: int = 64,
                  deep_widths: Sequence[int] = (1024, 512, 256),
-                 head_widths: Sequence[int] = (128, 1)):
+                 head_widths: Sequence[int] = (128, 1),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         width = num_dense + num_feats * dim
-        self.cross = nn.ModuleList(CrossLayerV2(width, cross_rank)
+        self.compute_dtype = compute_dtype
+        self.cross = nn.ModuleList(CrossLayerV2(width, cross_rank, compute_dtype)
                                    for _ in range(num_cross_layers))
-        self.deep = MLP(width, deep_widths)
-        self.head = MLP(width + deep_widths[-1], head_widths, final_activation=False)
+        self.deep = MLP(width, deep_widths, compute_dtype=compute_dtype)
+        self.head = MLP(width + deep_widths[-1], head_widths, final_activation=False,
+                        compute_dtype=compute_dtype)
 
     @torch.no_grad()
     def init_flax_(self, generator: torch.Generator) -> "DCNv2":
@@ -68,7 +77,8 @@ class DCNv2(nn.Module):
         return self
 
     def forward(self, dense_x, emb, mixed_precision: bool = False):
-        x0 = torch.cat([dense_x.float(), emb.reshape(emb.shape[0], -1)], dim=1)
+        x0 = torch.cat([dense_x.float(), emb.reshape(emb.shape[0], -1)],
+                       dim=1).to(self.compute_dtype)
         x = x0
         for layer in self.cross:
             x = layer(x0, x, mixed_precision)

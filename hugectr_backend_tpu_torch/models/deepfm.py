@@ -9,6 +9,9 @@ Port of the JAX package's models/deepfm.py::
 The FM term is two reductions over the embeddings; the MLP shares them
 (the defining DeepFM weight sharing). Served by
 :func:`~hugectr_backend_tpu_torch.serving.program.make_deepfm_server`.
+``compute_dtype`` (f32, or bf16) is the deep MLP's; the first-order and FM
+terms stay in the embeddings' f32 and the deep logit is cast to f32 before
+the sum, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ class DeepFM(nn.Module):
     table); ``emb``: the second-order vectors, shared with the deep half."""
 
     def __init__(self, num_dense: int, num_feats: int, dim: int,
-                 deep_widths: Sequence[int] = (400, 400, 1)):
+                 deep_widths: Sequence[int] = (400, 400, 1),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.deep = MLP(num_dense + num_feats * dim, deep_widths, final_activation=False)
+        self.deep = MLP(num_dense + num_feats * dim, deep_widths, final_activation=False,
+                        compute_dtype=compute_dtype)
 
     def init_flax_(self, generator: torch.Generator) -> "DeepFM":
         """Flax's initialisation, drawn from ``generator``."""

@@ -4,6 +4,10 @@ Port of the JAX package's models/din.py (BASELINE config 4). The variable
 length arrives as a padded sequence [B, S, D] and a length vector
 ``seq_len`` [B]; masking keeps the shapes static. Served by
 :class:`~hugectr_backend_tpu_torch.serving.pooled.FusedDinServer`.
+``compute_dtype`` (f32, or bf16) is the two MLPs', as in the JAX module: the
+attention MLP casts its f32 features, its score comes back f32 for the mask
+and the softmax, the pooling runs in f32, and the head MLP casts its f32
+input.
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ class DinAttentionPool(nn.Module):
     -1e9 and the softmax alone would average the padding positions
     uniformly, so an empty history pools to zeros instead."""
 
-    def __init__(self, dim: int, hidden: int = 64):
+    def __init__(self, dim: int, hidden: int = 64, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = MLP(4 * dim, (hidden, 1), final_activation=False)
+        self.mlp = MLP(4 * dim, (hidden, 1), final_activation=False,
+                       compute_dtype=compute_dtype)
 
     def forward(self, target, seq, seq_len):
         b, s, d = seq.shape
@@ -45,10 +50,11 @@ class DIN(nn.Module):
     seq_len [B])`` -> logits [B]: the MLP over [dense; target; pooled]."""
 
     def __init__(self, num_dense: int, dim: int, mlp_widths: Sequence[int] = (200, 80, 1),
-                 att_hidden: int = 64):
+                 att_hidden: int = 64, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attention = DinAttentionPool(dim, att_hidden)
-        self.mlp = MLP(num_dense + 2 * dim, mlp_widths, final_activation=False)
+        self.attention = DinAttentionPool(dim, att_hidden, compute_dtype)
+        self.mlp = MLP(num_dense + 2 * dim, mlp_widths, final_activation=False,
+                       compute_dtype=compute_dtype)
 
     def init_flax_(self, generator: torch.Generator) -> "DIN":
         """Flax's initialisation, drawn from ``generator`` (module order)."""

@@ -112,6 +112,28 @@ def dense(x: torch.Tensor, layer: nn.Linear, mixed_precision: bool = False,
     return F.linear(x, w, layer.bias)
 
 
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.softmax`` in f32. Below f32, ``jax.nn.softmax``'s steps, each
+    rounded to ``x``'s type: ``exp(x - max)``, its sum (f32 inside), the
+    quotient; ``torch.softmax`` would round once at the end."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
+
+
+def l2_normalize(q: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """``q / (||q|| + eps)`` over the last axis. Below f32 with the roundings
+    of ``jnp.linalg.norm`` as XLA compiles it: the squares summed in f32, the
+    sum rounded to ``q``'s type, then the root; ``vector_norm`` would round
+    once, after the root."""
+    if q.dtype == torch.float32:
+        norm = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    else:
+        norm = q.float().square().sum(dim=-1, keepdim=True).to(q.dtype).sqrt()
+    return q / (norm + eps)
+
+
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
     """Flax's ``lecun_normal``: a normal truncated at +-2 of its std, scaled
     so that the truncated distribution has variance 1 / fan_in."""

@@ -7,6 +7,13 @@ per-expert kernels [E, H, W] contracted in one einsum. Per-task softmax
 gates over the experts mix them (one einsum), and a tower MLP per task
 gives a [B, num_tasks] logit matrix. Served by
 :func:`~hugectr_backend_tpu_torch.serving.program.make_mmoe_server`.
+
+``compute_dtype`` (f32, or bf16) as in the JAX module: the dense features
+are cast to it and concatenated with the f32 embeddings, which promotes the
+concat to f32 (``jnp.concatenate`` does the same), and the concat is cast to
+it; the experts (kernels and biases cast), the gates with their softmax
+(``jax.nn.softmax``'s roundings: :func:`~hugectr_backend_tpu_torch.models.dlrm.softmax`),
+the mixture and the towers run in it; the logits come back f32.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from hugectr_backend_tpu_torch.models.dlrm import (
     flax_params,
     init_dense_,
     lecun_normal_,
+    softmax,
 )
 from hugectr_backend_tpu_torch.models.quant_dense import mixed_operands
 
@@ -39,9 +47,11 @@ class MMoE(nn.Module):
 
     def __init__(self, num_dense: int, num_feats: int, dim: int, num_experts: int = 4,
                  num_tasks: int = 2, expert_widths: Sequence[int] = (128, 64),
-                 tower_widths: Sequence[int] = (32, 1)):
+                 tower_widths: Sequence[int] = (32, 1),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_experts, self.num_tasks = num_experts, num_tasks
+        self.compute_dtype = compute_dtype
         width = num_feats * dim + num_dense
         self.experts_in = nn.Linear(width, num_experts * expert_widths[0])
         self.expert_kernels = nn.ParameterList(
@@ -51,7 +61,8 @@ class MMoE(nn.Module):
             nn.Parameter(torch.empty(num_experts, w)) for w in expert_widths[1:])
         self.gates = nn.Linear(width, num_tasks * num_experts)
         self.towers = nn.ModuleList(
-            MLP(expert_widths[-1], tower_widths, final_activation=False)
+            MLP(expert_widths[-1], tower_widths, final_activation=False,
+                compute_dtype=compute_dtype)
             for _ in range(num_tasks))
 
     @torch.no_grad()
@@ -70,13 +81,19 @@ class MMoE(nn.Module):
 
     def forward(self, dense_x, emb, mixed_precision: bool = False):
         b = emb.shape[0]
-        x = torch.cat([emb.reshape(b, -1), dense_x.float()], dim=1)
-        h = F.relu(dense(x, self.experts_in, mixed_precision)).view(b, self.num_experts, -1)
+        cd = self.compute_dtype
+        # At bf16 the products take bf16 operands already: mixed_precision
+        # has nothing left to round.
+        mixed_precision = mixed_precision and cd == torch.float32
+        x = torch.cat([emb.reshape(b, -1), dense_x.to(cd)], dim=1).to(cd)
+        h = F.relu(dense(x, self.experts_in, mixed_precision, compute_dtype=cd))
+        h = h.view(b, self.num_experts, -1)
         for k, bias in zip(self.expert_kernels, self.expert_biases):
-            hm, km = mixed_operands(mixed_precision, h, k)
-            h = F.relu(torch.einsum("beh,ehw->bew", hm, km) + bias[None])
-        gates = dense(x, self.gates, mixed_precision).view(b, self.num_tasks, self.num_experts)
-        gates, hm = mixed_operands(mixed_precision, torch.softmax(gates, dim=-1), h)
+            hm, km = mixed_operands(mixed_precision, h, k.to(cd))
+            h = F.relu(torch.einsum("beh,ehw->bew", hm, km) + bias.to(cd)[None])
+        gates = dense(x, self.gates, mixed_precision, compute_dtype=cd)
+        gates = gates.view(b, self.num_tasks, self.num_experts)
+        gates, hm = mixed_operands(mixed_precision, softmax(gates, dim=-1), h)
         mixed = torch.einsum("bke,bew->bkw", gates, hm)  # [B, K, W]
         return torch.cat([tower(mixed[:, t], mixed_precision=mixed_precision)
                           for t, tower in enumerate(self.towers)], dim=1).float()

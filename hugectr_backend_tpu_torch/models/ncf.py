@@ -8,6 +8,9 @@ key each per sample::
     y   = Dense(1)([gmf; mlp])
 
 Served by :func:`~hugectr_backend_tpu_torch.serving.program.make_ncf_server`.
+``compute_dtype`` (f32, or bf16) as in the JAX module: ``gmf`` stays f32,
+the MLP runs in ``compute_dtype`` and is cast to f32 for the concat, and the
+head ``Dense(1)`` runs in ``compute_dtype`` over that f32 concat.
 """
 
 from __future__ import annotations
@@ -32,9 +35,11 @@ class NCF(nn.Module):
     """``forward(dense [B, Nd] (Nd may be 0), user_emb [B, 1, D],
     item_emb [B, 1, D])`` -> logits [B]."""
 
-    def __init__(self, num_dense: int, dim: int, mlp_widths: Sequence[int] = (256, 128, 64)):
+    def __init__(self, num_dense: int, dim: int, mlp_widths: Sequence[int] = (256, 128, 64),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = MLP(num_dense + 2 * dim, mlp_widths)
+        self.compute_dtype = compute_dtype
+        self.mlp = MLP(num_dense + 2 * dim, mlp_widths, compute_dtype=compute_dtype)
         self.head = nn.Linear(dim + mlp_widths[-1], 1)
 
     def init_flax_(self, generator: torch.Generator) -> "NCF":
@@ -51,7 +56,8 @@ class NCF(nn.Module):
         gmf = u * v
         mlp = self.mlp(torch.cat([dense_x.float(), u, v], dim=1),
                        mixed_precision=mixed_precision)
-        y = dense(torch.cat([gmf, mlp.float()], dim=1), self.head, mixed_precision)
+        y = dense(torch.cat([gmf, mlp.float()], dim=1), self.head, mixed_precision,
+                  compute_dtype=self.compute_dtype)
         return y.float().squeeze(-1)
 
 

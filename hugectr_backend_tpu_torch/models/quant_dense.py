@@ -9,7 +9,10 @@ layout, the transpose of the Flax kernel):
   package leaves this product to XLA.
 - ``"w8a8"``: the activations are quantized too, per row, at run time, and
   the layer runs K5 (:func:`~hugectr_backend_tpu_torch.ops.quant_matmul.w8a8_dense`)
-  with the activation fused into its epilogue.
+  with the activation fused into its epilogue. ``kernel_q`` is then the
+  ``[out, in]`` view of rows zero-padded to 16 bytes (479 -> 480 at the
+  DLRM's first top layer), which K5 reads whole (:meth:`QuantDense.k5_weight`),
+  so that it may take its ``wgmma`` plan; the state_dict keeps ``[out, in]``.
 
 With ``compute_dtype`` bf16, as the JAX layer: the weight-only product
 takes the weights dequantized in bf16 (``bf16(q) * bf16(scale)``, one
@@ -34,6 +37,8 @@ from torch import nn
 from hugectr_backend_tpu_torch.ops.quant_matmul import (
     _ACTS,
     INT8_QMAX,
+    k5_rows,
+    pad_k16,
     quantize_activations,
     w8a8_dense,
 )
@@ -102,21 +107,37 @@ class QuantDense(nn.Module):
             raise ValueError(f"unknown activation {activation!r}")
         self.fmt, self.activation, self.compute_dtype = fmt, activation, compute_dtype
         qdtype = torch.float8_e4m3fn if fmt == "fp8" else torch.int8
-        self.register_buffer("kernel_q", torch.zeros(out_features, in_features, dtype=qdtype))
+        kernel_q = torch.zeros(out_features, in_features, dtype=qdtype)
+        self.register_buffer("kernel_q", pad_k16(kernel_q) if fmt == "w8a8" else kernel_q)
         self.register_buffer("kernel_scale", torch.ones(out_features))
         self.register_buffer("bias", torch.zeros(out_features) if use_bias else None)
+
+    def _apply(self, fn, recurse=True):
+        # .to() and the like copy the [out, in] view alone: pad it again.
+        super()._apply(fn, recurse)
+        if self.fmt == "w8a8":
+            self.kernel_q = pad_k16(self.kernel_q)
+        return self
+
+    def k5_weight(self) -> torch.Tensor:
+        """``kernel_q`` as K5 reads it: the padded rows behind it
+        (:func:`~hugectr_backend_tpu_torch.ops.quant_matmul.k5_rows`), no
+        copy. ``load_state_dict`` writes into them in place; a ``kernel_q``
+        assigned in another layout is padded at each call."""
+        return k5_rows(self.kernel_q)
 
     def forward(self, x: torch.Tensor, kernel_q: Optional[torch.Tensor] = None,
                 mixed_precision: bool = False) -> torch.Tensor:
         """``kernel_q`` replaces the stored one (the serving path's
-        column-permuted copy). ``mixed_precision`` rounds the weight-only
-        product's operands to bf16; w8a8 is int8 either way."""
-        wq = self.kernel_q if kernel_q is None else kernel_q
+        column-permuted copy), as given. ``mixed_precision`` rounds the
+        weight-only product's operands to bf16; w8a8 is int8 either way."""
         cd = self.compute_dtype
         if self.fmt == "w8a8":
+            wq = self.k5_weight() if kernel_q is None else kernel_q
             y = w8a8_dense(x.float().contiguous(), wq, self.kernel_scale, self.bias,
                            self.activation)
             return y if cd == torch.float32 else y.to(cd)
+        wq = self.kernel_q if kernel_q is None else kernel_q
         if cd == torch.float32:
             y = linear(x, wq.float() * self.kernel_scale[:, None], mixed_precision)
         else:

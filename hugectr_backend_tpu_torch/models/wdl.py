@@ -4,6 +4,8 @@ Port of the JAX package's models/wdl.py: the wide table (vecsize 1)
 contributes the sum of its scalar weights to the logit; the deep embeddings
 and the dense features feed an MLP. Served by
 :func:`~hugectr_backend_tpu_torch.serving.program.make_wdl_server`.
+``compute_dtype`` (f32, or bf16) is the deep MLP's; its logit is cast to
+f32 before the f32 wide sum is added, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ class WideAndDeep(nn.Module):
     MLP's input (Nd + Kd * D), which Flax infers at init."""
 
     def __init__(self, num_dense: int, deep_keys: int, dim: int,
-                 deep_widths: Sequence[int] = (1024, 512, 256, 1)):
+                 deep_widths: Sequence[int] = (1024, 512, 256, 1),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.deep = MLP(num_dense + deep_keys * dim, deep_widths, final_activation=False)
+        self.deep = MLP(num_dense + deep_keys * dim, deep_widths, final_activation=False,
+                        compute_dtype=compute_dtype)
 
     def init_flax_(self, generator: torch.Generator) -> "WideAndDeep":
         """Flax's initialisation, drawn from ``generator``."""

@@ -10,6 +10,12 @@ is one batched product per layer over H * T. Each layer's maps are
 sum-pooled over D; the pools feed a linear head, added to a deep MLP over
 [dense; flat embeddings]. Served by
 :func:`~hugectr_backend_tpu_torch.serving.program.make_xdeepfm_server`.
+
+``compute_dtype`` (f32, or bf16) as in the JAX module: a CIN layer forms
+its outer product in f32, casts it, contracts it with ``w`` cast to
+``compute_dtype`` and returns f32 (so the next layer's ``x`` is f32); the
+head ``Dense(1)`` over the f32 pools and the deep MLP run in
+``compute_dtype``, and ``cin + deep`` is summed there before the f32 cast.
 """
 
 from __future__ import annotations
@@ -36,18 +42,23 @@ from hugectr_backend_tpu_torch.models.quant_dense import mixed_operands
 
 class CINLayer(nn.Module):
     """One compressed-interaction layer: ``forward(x [B, H, D], x0 [B, T, D])``
-    -> [B, G, D], the H x T pairwise products compressed to ``feature_maps``
-    (G) maps by ``w`` [G, H * T] (the Flax layout)."""
+    -> [B, G, D] f32, the H x T pairwise products compressed to
+    ``feature_maps`` (G) maps by ``w`` [G, H * T] (the Flax layout)."""
 
-    def __init__(self, in_maps: int, num_feats: int, feature_maps: int = 64):
+    def __init__(self, in_maps: int, num_feats: int, feature_maps: int = 64,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.w = nn.Parameter(torch.empty(feature_maps, in_maps * num_feats))
+        self.compute_dtype = compute_dtype
 
     def forward(self, x, x0, mixed_precision: bool = False):
         b, h, d = x.shape
         z = (x[:, :, None, :] * x0[:, None, :, :]).reshape(b, h * x0.shape[1], d)
-        w, z = mixed_operands(mixed_precision, self.w, z)
-        return torch.matmul(w, z)  # [G, HT] @ [B, HT, D] -> [B, G, D]
+        cd = self.compute_dtype
+        # Below f32 the operands are bf16 already: mixed_precision has
+        # nothing left to round.
+        w, z = mixed_operands(mixed_precision and cd == torch.float32, self.w.to(cd), z.to(cd))
+        return torch.matmul(w, z).float()  # [G, HT] @ [B, HT, D] -> [B, G, D]
 
 
 class XDeepFM(nn.Module):
@@ -56,13 +67,16 @@ class XDeepFM(nn.Module):
 
     def __init__(self, num_dense: int, num_feats: int, dim: int,
                  cin_feature_maps: Sequence[int] = (64, 64),
-                 deep_widths: Sequence[int] = (400, 400, 1)):
+                 deep_widths: Sequence[int] = (400, 400, 1),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         ins = [num_feats, *cin_feature_maps[:-1]]
-        self.cin = nn.ModuleList(CINLayer(h, num_feats, g)
+        self.cin = nn.ModuleList(CINLayer(h, num_feats, g, compute_dtype)
                                  for h, g in zip(ins, cin_feature_maps))
         self.cin_head = nn.Linear(sum(cin_feature_maps), 1)
-        self.deep = MLP(num_dense + num_feats * dim, deep_widths, final_activation=False)
+        self.deep = MLP(num_dense + num_feats * dim, deep_widths, final_activation=False,
+                        compute_dtype=compute_dtype)
 
     @torch.no_grad()
     def init_flax_(self, generator: torch.Generator) -> "XDeepFM":
@@ -82,7 +96,8 @@ class XDeepFM(nn.Module):
         for layer in self.cin:
             x = layer(x, emb, mixed_precision)
             pools.append(x.sum(dim=2))  # [B, G]: sum-pool over D
-        cin = dense(torch.cat(pools, dim=1), self.cin_head, mixed_precision)
+        cin = dense(torch.cat(pools, dim=1), self.cin_head, mixed_precision,
+                    compute_dtype=self.compute_dtype)
         deep = self.deep(torch.cat([dense_x.float(), emb.reshape(b, -1)], dim=1),
                          mixed_precision=mixed_precision)
         return (cin + deep).float().squeeze(-1)

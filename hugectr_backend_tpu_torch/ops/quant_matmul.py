@@ -287,13 +287,56 @@ def _wvec(wq: torch.Tensor) -> bool:
     return wq.shape[1] % 16 == 0 and wq.data_ptr() % 16 == 0
 
 
+def _k16(k: int) -> int:
+    return -(-k // 16) * 16
+
+
+def _in_padded_rows(wq: torch.Tensor) -> bool:
+    """Whether ``wq`` [N, K] is the leading columns of rows padded to a
+    multiple of 16 elements, the padding inside its storage."""
+    n, k = wq.shape
+    k16 = _k16(k)
+    return (wq.stride() == (k16, 1)
+            and (wq.storage_offset() + n * k16) * wq.element_size()
+            <= wq.untyped_storage().nbytes())
+
+
+def pad_k16(wq: torch.Tensor) -> torch.Tensor:
+    """``wq`` [N, K] moved into a buffer whose rows are zero-padded to a
+    multiple of 16 columns, and returned as the [N, K] view of that buffer
+    (``wq`` itself where it already lies so). Only the buffer is kept: a
+    weight is held once, with at most 15 bytes a row beside it, and
+    :func:`k5_rows` reads the padded rows through the view without a copy."""
+    if _in_padded_rows(wq):
+        return wq
+    n, k = wq.shape
+    out = wq.new_zeros(n, _k16(k))
+    out[:, :k] = wq
+    return out[:, :k]
+
+
+def k5_rows(wq: torch.Tensor) -> torch.Tensor:
+    """The [N, K rounded up to 16] rows behind a :func:`pad_k16` view: the
+    layout for which :func:`k5_plan` may choose its ``wgmma`` plan. A
+    tensor laid out otherwise is padded here, a copy at each call. The
+    kernel and the plain version ignore the columns past K, so a result is
+    the same bit for bit."""
+    wq = pad_k16(wq)
+    n, k = wq.shape
+    return wq.as_strided((n, _k16(k)), (_k16(k), 1))
+
+
 def w8a8_dense(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
                act: Optional[str] = None) -> torch.Tensor:
     """K5. ``x`` [M, K] f32, ``wq`` [N, >= K] int8, ``wscale`` [N] f32, ``bias``
     [N] f32 or None, ``act`` one of None, "relu", "sigmoid", "tanh", "gelu"
     (fused into the epilogue). -> [M, N] f32. Forward-only, as in the JAX
-    package: raises when autograd would record it."""
+    package: raises when autograd would record it. A caller whose ``wq``
+    rows are not a multiple of 16 bytes (K = 479, say) takes the ``narrow``
+    plan: at 479 -> 1024 6.8x the ``wgmma`` plan's time (H100 80GB HBM3,
+    700 W; PERF.md). ``QuantDense`` and ``DenseModel`` keep their weights in
+    :func:`pad_k16`'s layout and hand over :func:`k5_rows`."""
     kernels.forward_only("w8a8_dense", x, wscale, bias)
     if x.device.type == "cpu":
         return w8a8_dense_plain(x, wq, wscale, bias, act)

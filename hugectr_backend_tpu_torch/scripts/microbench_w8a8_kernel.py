@@ -11,7 +11,10 @@ JAX script's shapes (``SHAPES``) and the fused DLRM's 8 layers
 (``DLRM_LAYERS``, the eligible-layer ladder: every layer of the serving
 DLRM runs K5), the top layer's K = 479 with its weight rows zero-padded to
 480 (the serving path's layout, ``serving/program.py _permute_columns``)
-and, beside it, unpadded (a model called directly). Per shape: K5's launch
+and, beside it, unpadded: the raw weight handed to K5 as it is
+(``dlrm_layer_unpadded``), and a w8a8 ``QuantDense`` holding it as stored,
+called directly (``quant_dense_unpadded``: the layer pads its rows for K5,
+``models/quant_dense.py``). Per shape: K5's launch
 plan, both times (``common.graph_us``, ``N_SETS`` activation sets a graph),
 the bound max(bytes / memory rate, 2MKN / int8 rate) with what bounds it,
 and the ratios. The correctness step: both outputs equal K5's plain
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hugectr_backend_tpu_torch.models.quant_dense import QuantDense
 from hugectr_backend_tpu_torch.ops.quant_matmul import (
     launch_plan,
     quantize_activations,
@@ -107,24 +111,32 @@ def run(device=None, batch: int = BATCH, shapes=None, emit=None) -> list:
     rates = peaks(info["card"]) if timed else None
     rng = np.random.default_rng(0)
     out = []
+    unaligned = [s for s in DLRM_LAYERS if s[0] % 16]
     todo = ([("jax_script", s) for s in SHAPES] + [("dlrm_layer", s) for s in DLRM_LAYERS]
-            + [("dlrm_layer_unpadded", s) for s in DLRM_LAYERS if s[0] % 16])
+            + [("dlrm_layer_unpadded", s) for s in unaligned]
+            + [("quant_dense_unpadded", s) for s in unaligned])
     for kind, (k, n) in (todo if shapes is None else shapes):
         wq, ws, b = weights(rng, k, n, dev, pad16=kind == "dlrm_layer")
         plain = IntMmW8a8(wq, ws, b, k)
         xs = [activations(k, batch, s, dev) for s in range(N_SETS)]
         want = w8a8_dense_plain(xs[0], wq, ws, b, "relu")
-        for name, got in (("k5", w8a8_dense(xs[0], wq, ws, b, "relu")),
-                          ("int_mm", plain(xs[0]))):
+        if kind == "quant_dense_unpadded":
+            layer = QuantDense(k, n, "w8a8", activation="relu")
+            layer.load_state_dict({"kernel_q": wq, "kernel_scale": ws, "bias": b})
+            layer = layer.to(dev)
+            k5_call, k5_wq = layer, layer.k5_weight()
+        else:
+            k5_call, k5_wq = (lambda x: w8a8_dense(x, wq, ws, b, "relu")), wq
+        for name, got in (("k5", k5_call(xs[0])), ("int_mm", plain(xs[0]))):
             if not torch.equal(got, want):
                 raise AssertionError(f"microbench_w8a8_kernel {k}x{n}: {name} != plain")
         line = {"bench": "microbench_w8a8_kernel", "shape": kind, "m": batch, "k": k, "n": n,
-                "weight_row_bytes": wq.shape[1], "plan": None if not timed else
-                launch_plan(xs[0], wq)._asdict(),
+                "weight_row_bytes": wq.shape[1], "k5_weight_row_bytes": k5_wq.shape[1],
+                "plan": None if not timed else launch_plan(xs[0], k5_wq)._asdict(),
                 "check": "K5 and the _int_mm formulation bit-exact vs w8a8_dense_plain",
                 "device": info["device"]}
         if timed:
-            k5 = graph_us([lambda x=x: w8a8_dense(x, wq, ws, b, "relu") for x in xs])
+            k5 = graph_us([lambda x=x: k5_call(x) for x in xs])
             pl = graph_us([lambda x=x: plain(x) for x in xs])
             bnd, by = bound(batch, k, n, rates[0], rates[2])
             line.update({"k5_us": k5, "int_mm_plain_us": pl, "bound_us": bnd, "bound_by": by,

@@ -45,6 +45,7 @@ from hugectr_backend_tpu_torch.ops.fused_interaction import (
     is_part_major,
     part_major_order,
 )
+from hugectr_backend_tpu_torch.ops.quant_matmul import k5_rows
 
 
 def make_dlrm_forward(model, keys_per_sample: int):
@@ -263,12 +264,7 @@ def _permute_columns(w: torch.Tensor, src: torch.Tensor, pad16: bool = False) ->
     reads with 16-byte copies (it ignores the columns past K)."""
     if w.dtype == torch.float8_e4m3fn:
         return w.view(torch.uint8)[:, src].contiguous().view(w.dtype)
-    if not pad16:
-        return w[:, src].contiguous()
-    k = src.shape[0]
-    out = w.new_zeros(w.shape[0], -(-k // 16) * 16)
-    out[:, :k] = w[:, src]
-    return out
+    return k5_rows(w[:, src]) if pad16 else w[:, src].contiguous()
 
 
 def make_dlrm_multi_server(params, cache, model) -> FusedMultiTableServer:

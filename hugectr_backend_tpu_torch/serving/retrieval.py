@@ -13,7 +13,9 @@ exact in bf16, so the corpus is held as f32 (one copy per snapshot of the
 item table) and the queries are rounded to bf16: the f32 product of two
 bf16 values is exact, and only the sums round. (A bf16 ``torch.matmul``
 would round its output to bf16 as well.) TF32 must be off, PyTorch's
-default, for f32 products to be f32.
+default, for f32 products to be f32. A tower with ``compute_dtype`` bf16
+gives bf16 queries: they are upcast exactly, so an f32 corpus scores them
+in f32, as the JAX package's ``dot_general`` of bf16 and f32 operands does.
 
 :func:`top_k` keeps ``lax.top_k``'s order: among equal scores the lower
 corpus index comes first (an int8 corpus with repeated rows gives equal
@@ -126,7 +128,8 @@ class RetrievalServer:
         with torch.inference_mode():
             urows = gather_dequant(uvals, uscales, _to(uslots, np.int32, dev),
                                    _to(uscin, np.float32, dev))
-            q = self.model(_to(dense, np.float32, dev), urows.view(b, -1, urows.shape[-1]))
+            q = self.model(_to(dense, np.float32, dev),
+                           urows.view(b, -1, urows.shape[-1])).float()
             if bf16:
                 q = q.to(torch.bfloat16).float()
             scores = torch.matmul(q, corpus.T)

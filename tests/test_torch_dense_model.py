@@ -124,3 +124,40 @@ def test_load_errors(tmp_path):
         tdm.DenseModel.load(vdir, device="cpu")
     with pytest.raises(ValueError, match="activation"):
         tdm.save_dense_model(tmp_path / "r", _mlp(7), ACTS[:2])
+
+
+def test_w8a8_load_pads_rows_for_k5(tmp_path):
+    """Queue C: a w8a8 model with K = 479 keeps each weight [N, K] (its
+    ``input_dim`` 479) as the view of rows padded to 16 bytes, and hands K5
+    those rows (no second copy), on which ``k5_plan`` picks ``wgmma`` for the
+    479 -> 256 layer; the outputs are bit-equal to the plain version on the
+    unpadded weights. A second model loaded from other files gives its own
+    outputs."""
+    from hugectr_backend_tpu_torch.ops.quant_matmul import (
+        _wvec,
+        k5_plan,
+        k5_rows,
+        w8a8_dense_plain,
+    )
+
+    x = np.random.default_rng(30).standard_normal((16, 479)).astype(np.float32)
+    outs = []
+    for seed in (31, 32):
+        vdir = tdm.save_dense_model(tmp_path / f"m{seed}" / "1",
+                                    _mlp(seed, dims=(479, 256, 1)), ["relu", "identity"],
+                                    quant="w8a8")
+        model = tdm.DenseModel.load(vdir, device="cpu")
+        assert model.input_dim == 479 and tuple(model.weights[0][0].shape) == (256, 479)
+        k5 = [k5_rows(w) for w, _ in model.weights]
+        assert [tuple(w.shape) for w in k5] == [(256, 480), (1, 256)]
+        assert [w.data_ptr() for w in k5] == [w.data_ptr() for w, _ in model.weights]
+        assert _wvec(k5[0]) and k5_plan(4096, 256, 479, wvec=True).variant == "wgmma"
+        unpadded = model.weights[0][0].contiguous()
+        assert k5_plan(4096, 256, 479, wvec=_wvec(unpadded)).variant == "narrow"
+        want = torch.from_numpy(x)
+        for (w, b), s, act in zip(model.weights, model.scales, ["relu", None]):
+            want = w8a8_dense_plain(want, w, s, b, act)
+        got = model.forward(x)
+        np.testing.assert_array_equal(got, want.numpy())
+        outs.append(got)
+    assert not np.array_equal(*outs)

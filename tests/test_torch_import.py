@@ -112,6 +112,7 @@ SLICE_MODULES = [
     "hugectr_backend_tpu_torch.scripts.microbench_overhead",
     "hugectr_backend_tpu_torch.scripts.microbench_update_storm",
     "hugectr_backend_tpu_torch.scripts.microbench_scaling",
+    "hugectr_backend_tpu_torch.scripts.microbench_zoo_dtypes",
     "chip_smoke",
 ]
 
@@ -310,7 +311,8 @@ def test_examples_need_a_card_unless_asked_for_cpu(tmp_path, name):
                                   "scripts.microbench_int4_gather",
                                   "scripts.microbench_overhead",
                                   "scripts.microbench_update_storm",
-                                  "scripts.microbench_scaling"])
+                                  "scripts.microbench_scaling",
+                                  "scripts.microbench_zoo_dtypes"])
 def test_benchmark_programs_need_a_card_unless_asked_for_cpu(name):
     """The benchmark and each microbenchmark run on the card by default and
     raise where there is none (``--device cpu`` runs them on the CPU)."""

@@ -156,8 +156,12 @@ def test_w8a8_formulations_match_xla_w8a8(one_torch_thread, k, n):
 def test_w8a8_run_checks_itself_on_the_cpu(one_torch_thread):
     lines = mw.run("cpu", batch=BATCH, emit=lambda line: None)
     assert [(ln["k"], ln["n"]) for ln in lines] == (mw.SHAPES + mw.DLRM_LAYERS
-                                                     + [(13, 512), (479, 1024)])
-    assert [ln["weight_row_bytes"] for ln in lines if ln["k"] == 479] == [480, 479]
+                                                     + [(13, 512), (479, 1024)] * 2)
+    at_479 = [(ln["shape"], ln["weight_row_bytes"], ln["k5_weight_row_bytes"])
+              for ln in lines if ln["k"] == 479]
+    # The layer keeps its rows as stored and hands K5 the padded copy.
+    assert at_479 == [("dlrm_layer", 480, 480), ("dlrm_layer_unpadded", 479, 479),
+                      ("quant_dense_unpadded", 479, 480)]
     assert all("k5_us" not in ln for ln in lines)
 
 

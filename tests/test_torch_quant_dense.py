@@ -221,3 +221,79 @@ def test_mixed_precision_dlrm_matches_bf16_reference(monkeypatch, fmt):
         f32 = model(torch.from_numpy(dense), torch.from_numpy(emb)).numpy()
     _logits_close(got, want)
     assert not np.array_equal(got, f32)  # the switch does round the operands
+
+
+def _w8a8_479(seed, n=1024):
+    """A w8a8 QuantDense(479, n) on a drawn weight, and its state_dict."""
+    rng = np.random.default_rng(seed)
+    state = _layer_state(_flax_layer(rng, 479, n, "w8a8"))
+    layer = QuantDense(479, n, "w8a8", activation="relu")
+    layer.load_state_dict(state)
+    return layer, state
+
+
+@pytest.mark.parametrize("arrives", ["load_state_dict", "assignment", "to",
+                                     "quantize_model_params"])
+def test_w8a8_rows_padded_for_k5(arrives):
+    """Queue C: the w8a8 layer keeps ``kernel_q`` as the [N, K] view of rows
+    zero-padded to 16 bytes and hands K5 those rows, so that at 479 -> 1024
+    ``k5_plan`` picks ``wgmma`` (``narrow`` for [N, K] rows); the state_dict
+    keeps [N, K]; the output is bit-equal to the plain version on the
+    unpadded weight; the layer holds the weight once (K5's rows are
+    ``kernel_q``'s storage) however it arrives, except a ``kernel_q``
+    assigned in another layout, which is padded at each call."""
+    from hugectr_backend_tpu_torch.ops.quant_matmul import _wvec, k5_plan, w8a8_dense_plain
+
+    layer, state = _w8a8_479(20)
+    if arrives == "assignment":
+        layer.kernel_q = state["kernel_q"].contiguous().clone()
+    elif arrives == "to":  # what .to(device) does: every buffer replaced
+        old = layer.k5_weight()
+        layer = layer._apply(lambda t: t.clone())
+        assert layer.k5_weight().data_ptr() != old.data_ptr()
+    elif arrives == "quantize_model_params":
+        f32 = DLRM(13, 26, bottom_widths=(16, 128), top_widths=(64, 1))
+        f32.init_flax_(torch.Generator().manual_seed(21))
+        model = DLRM(13, 26, bottom_widths=(16, 128), top_widths=(64, 1), quant_fmt="w8a8")
+        model.load_state_dict(quantize_model_params(f32.state_dict(), "w8a8"))
+        layer = model.top.layers[0]
+        state = {k: v for k, v in layer.state_dict().items()}
+    n = layer.kernel_q.shape[0]
+    padded = layer.k5_weight()
+    assert tuple(padded.shape) == (n, 480) and _wvec(padded)
+    assert not padded[:, 479:].any() and torch.equal(padded[:, :479], state["kernel_q"])
+    if n >= 256:
+        assert k5_plan(4096, n, 479, wvec=_wvec(padded)).variant == "wgmma"
+        assert k5_plan(4096, n, 479, wvec=_wvec(layer.kernel_q.contiguous())).variant == "narrow"
+    assert {k: tuple(v.shape) for k, v in layer.state_dict().items()} == {
+        "kernel_q": (n, 479), "kernel_scale": (n,), "bias": (n,)}
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal((32, 479)).astype(np.float32))
+    want = w8a8_dense_plain(x, state["kernel_q"], state["kernel_scale"], state["bias"],
+                            layer.activation)
+    assert torch.equal(layer(x), want)
+    one_copy = padded.data_ptr() == layer.kernel_q.data_ptr()
+    assert one_copy == (arrives != "assignment")
+
+
+@pytest.mark.parametrize("mode", ["autograd", "inference"])
+def test_w8a8_padded_copy_never_stale(mode):
+    """A second ``load_state_dict`` (an in-place copy into ``kernel_q``)
+    changes the output, also for a layer made and reloaded under
+    ``inference_mode`` (its buffers are inference tensors): K5 reads
+    ``kernel_q``'s own storage, so no older copy can be served."""
+    from hugectr_backend_tpu_torch.ops.quant_matmul import w8a8_dense_plain
+
+    x = torch.from_numpy(np.random.default_rng(24).standard_normal((16, 479)).astype(np.float32))
+    _, this = _w8a8_479(23)
+    _, other = _w8a8_479(25)
+    with torch.inference_mode(mode == "inference"):
+        layer = QuantDense(479, 1024, "w8a8", activation="relu")
+        layer.load_state_dict(this)
+        first, rows = layer(x), layer.k5_weight().data_ptr()
+        layer.load_state_dict(other)
+        second = layer(x)
+        assert layer.kernel_q.is_inference() == (mode == "inference")
+    assert layer.k5_weight().data_ptr() == rows
+    assert not torch.equal(first, second)
+    assert torch.equal(second, w8a8_dense_plain(x, other["kernel_q"], other["kernel_scale"],
+                                                other["bias"], "relu"))

@@ -425,10 +425,16 @@ def test_chip_smoke_zoo_rehearsal(tmp_path, monkeypatch):
                        emit_line=lines.append)
     assert out["launches"] == {}
     assert [ln["zoo"] for ln in lines] == [
-        "dcn_v2", "din_deploy", "din", "bst", "retrieval"] + [
-        f for f in ("wdl", "deepfm", "dcn_v2_small", "xdeepfm", "ncf", "mmoe") for _ in (8, 64)]
-    assert lines[1]["kinds"] == ["solo", "solo"]
-    retrieval = lines[4]
-    assert retrieval["keys_compared"] > retrieval["positions"] // 4
+        "dcn_v2", "dcn_v2_bf16", "din_deploy", "din", "din_bf16", "bst", "bst_bf16",
+        "retrieval", "retrieval_bf16"] + [
+        f + dt for f in ("wdl", "deepfm", "dcn_v2_small", "xdeepfm", "ncf", "mmoe")
+        for dt in ("", "_bf16") for _ in (8, 64)]
+    assert lines[2]["kinds"] == ["solo", "solo"]
+    for retrieval in lines[7:9]:
+        assert retrieval["keys_compared"] > retrieval["positions"] // 4
     assert all(ln["rel_vs_cpu"] == 0.0 for ln in lines if "rel_vs_cpu" in ln)
-    assert all(ln["wall_ms_median"] > 0 for ln in lines[:5] if ln["zoo"] != "din_deploy")
+    bf16 = [ln for ln in lines if ln["zoo"].endswith("_bf16")]
+    assert len(bf16) == 4 + 12 and all(ln["compute_dtype"] == "bfloat16" for ln in bf16)
+    assert all(ln["rel_vs_cpu"] < ln["rel_vs_cpu_f32"] and ln["f32_rel_vs_cpu"] > 0
+               for ln in bf16)
+    assert all(ln["wall_ms_median"] > 0 for ln in lines[:9] if ln["zoo"] != "din_deploy")
