@@ -122,7 +122,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the retrieved keys equal at every position more than that from its
    neighbours. K1 must launch exactly once per multi-table predict, twice
    per DIN / BST predict and once per retrieve, no other kernel, and no
-   plain version of K1 may see a CUDA tensor. (1) DCN-v2 (BASELINE config
+   plain version of K1 may see a CUDA tensor. (0) Each bf16 product of
+   the served models (DCN-v2, BST, DIN) and of the bf16 DLRM (13 -> 512,
+   479 -> 1024) at its serving shape, on seeded operands with biases of
+   0.1 N(0, 1), in four forms against the CPU's repaired product
+   (``bf16_product_split``): (a) ``F.linear`` with the bias, (b) without,
+   then the bias, (c) the repaired product (the f32 SGEMM of the bf16
+   operands, rounded once), then the bias, (d) the same on the tensor
+   cores (``out_dtype=torch.float32``), then the bias; one line per
+   product with each form's share of differing
+   outputs and its product's largest gap in bf16 ulps. (c) must stay
+   within 1 ulp with at most 1 % of outputs differing at every product,
+   and (a) must miss that bar somewhere. (1) DCN-v2 (BASELINE config
    3) at the JAX defaults (3 cross layers of rank 64, deep 1024-512-256,
    head 128-1; width 3,341) through ``make_dcn_server`` on phase 3's
    deployment, batch 4096. (2) Two 1,000,000 x 128 int8 tables of random
@@ -135,8 +146,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    after 2 warm-ups), the device time (profiler) and the idle share. (3)
    WDL, DeepFM, a small DCN-v2, xDeepFM, NCF and MMoE on the deployment and
    at the widths of the JAX package's examples/07_model_zoo.py, at batch 8
-   and 4096. Every family runs twice on the same weights: f32, and with
-   ``compute_dtype=torch.bfloat16`` (lines ``<family>_bf16``), the bf16
+   and 4096. Every family runs on two sets of weights, Flax's
+   initialisation (zero biases) and the same with every bias drawn from
+   0.1 N(0, 1) (lines ``<family>_bias``, not timed), each twice: f32, and
+   with ``compute_dtype=torch.bfloat16`` (lines ``<family>[_bias]_bf16``), the bf16
    output held to a CPU instance at bf16 within the family's bar
    (``ZOO_BF16_BAR``, from the card's readings) and closer to it than to
    the CPU instance's f32 output, the f32 model's own gap printed beside
@@ -283,10 +296,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    bf16cast (K3 at bf16), int8, fp8, w8a8 (K5), fold vs two-stage rel <
    5e-3, each variant's first 64 logits against the same model on the CPU,
    each forward's launches; DIN against the host's pool; the tier, host
-   translation and HTTP stages, the latter at 5 s), then the seven
+   translation and HTTP stages, the latter at 5 s), then the eight
    microbenchmarks (``microbench_w8a8_kernel``, ``_dense``,
    ``_interaction``, ``_int4_gather``, ``_overhead``, ``_update_storm`` for
-   5 s, ``_scaling``), each at its card sizes with its own correctness step.
+   5 s, ``_scaling``, ``_zoo_dtypes``), each at its card sizes with its own
+   correctness step; ``_zoo_dtypes`` must time DCN-v2 and BST, and each of
+   their products, at f32, at bf16 as before the repair of the bf16
+   products (with and without cuBLAS's bf16 split-K sums) and as the port
+   computes them now (``bf16_f32_out``).
    K1, K2, K3, K4 and K5 must launch. The phase prints its peak memory and
    seconds; ``bench_alone()`` runs it alone.
 
@@ -381,19 +398,71 @@ ZOO_REF_RETRIEVE = 64  # users the CPU instance retrieves for
 ZOO_REL = 1e-3  # logits and retrieval scores vs the CPU instance
 ZOO_SMALL_BATCHES = (8, 4096)
 #: The largest gap of the card's bf16 output to the CPU instance's at bf16
-#: (max |diff| / max |CPU|) in four runs of the zoo phase on the card (H100
-#: 80GB HBM3, 700 W; PERF.md, PR 15), both batches of part 3.
-ZOO_BF16_READ = {"dcn_v2": 0.006410256493836641, "din": 0.0026041667442768812,
-                 "bst": 0.0028248587623238564, "retrieval": 2.7333568141330034e-05,
-                 "wdl": 1.0096783853441593e-07, "deepfm": 1.0401090122513779e-07,
-                 "dcn_v2_small": 0.0028409091755747795, "xdeepfm": 0.0, "ncf": 0.0,
-                 "mmoe": 0.0013736264081671834}
-#: The bar: twice the reading, and no less than 2^-20 (the CPU tests' bar).
-#: Where the card rounds an output one bf16 ulp away from the CPU (DCN-v2,
-#: DIN, BST, the small DCN-v2) it lies above the f32 model's own gap; there
-#: the rule that the output be closer to the CPU's bf16 output than to its
-#: f32 one tells the precisions apart (``zoo_phase``'s ``held``).
-ZOO_BF16_BAR = {fam: max(2 * r, 2.0 ** -20) for fam, r in ZOO_BF16_READ.items()}
+#: (max |diff| / max |CPU|) in the runs of the zoo phase on the card (H100
+#: 80GB HBM3, 700 W; PERF.md), both batches of part 3; ``*_bias``:
+#: the same family with every bias drawn. The bf16 products are f32 SGEMMs
+#: of the bf16 operands, which add as the CPU's do: most families equal the
+#: CPU instance bit for bit.
+ZOO_BF16_READ = {"dcn_v2": 0.0016025641234591603, "dcn_v2_bias": 0.0,
+                 "din": 0.0, "din_bias": 0.0, "bst": 0.0, "bst_bias": 0.0007861634949222207,
+                 "retrieval": 2.7333568141330034e-05, "retrieval_bias": 0.0,
+                 "wdl": 1.0096783853441593e-07, "wdl_bias": 1.0215072165919992e-07,
+                 "deepfm": 1.0401090122513779e-07, "deepfm_bias": 1.0409328154992181e-07,
+                 "dcn_v2_small": 0.0, "dcn_v2_small_bias": 0.0, "xdeepfm": 0.0,
+                 "xdeepfm_bias": 0.0, "ncf": 0.0, "ncf_bias": 0.0, "mmoe": 0.0,
+                 "mmoe_bias": 0.0}
+#: The bars from the readings before the bf16 products were repaired
+#: (twice them; the products then on the tensor cores, the bias before the
+#: rounding): no bar may rise above its family's.
+ZOO_BF16_BAR_CAP = {"dcn_v2": 0.012820512987673283, "din": 0.0052083334885537624,
+                     "bst": 0.005649717524647713, "retrieval": 5.466713628266007e-05,
+                     "wdl": 2.0 ** -20, "deepfm": 2.0 ** -20,
+                     "dcn_v2_small": 0.005681818351149559, "xdeepfm": 2.0 ** -20,
+                     "ncf": 2.0 ** -20, "mmoe": 0.002747252816334367}
+#: The bar: twice the reading, no less than 2^-20 (the CPU tests' bar), no
+#: more than the family's ``ZOO_BF16_BAR_CAP``. Where the card rounds an
+#: output one bf16 ulp away from the CPU (DCN-v2), the rule that the output
+#: be closer to the CPU's bf16 output than to its f32 one tells the
+#: precisions apart (``zoo_phase``'s ``held``).
+ZOO_BF16_BAR = {leg: min(max(2 * r, 2.0 ** -20), ZOO_BF16_BAR_CAP[leg.removesuffix("_bias")])
+                for leg, r in ZOO_BF16_READ.items()}
+#: Biases of the zoo's second set of weights (the ``*_bias`` legs) and of the
+#: per-product split: 0.1 N(0, 1), as a trained checkpoint holds them (Flax
+#: initialises every bias to zero).
+ZOO_BIAS_STD = 0.1
+_DCN_W = NUM_DENSE + len(CRITEO_CARDS) * DIM  # x0 of DCN-v2: 3,341
+_BST_T = ZOO_SEQ + 1  # the behaviour sequence and the target token
+#: The bf16 products of the zoo's served models and of the bf16 DLRM at their
+#: serving shapes (``bf16_product_split``): (name, "linear" (M, K, N), with a
+#: bias) or (name, "bmm" (batches, M, K, N), none).
+BF16_PRODUCTS = (
+    ("dcn_v2 cross u", "linear", (BATCH, _DCN_W, 64)),
+    ("dcn_v2 cross v", "linear", (BATCH, 64, _DCN_W)),
+    ("dcn_v2 deep 0", "linear", (BATCH, _DCN_W, 1024)),
+    ("dcn_v2 deep 1", "linear", (BATCH, 1024, 512)),
+    ("dcn_v2 deep 2", "linear", (BATCH, 512, 256)),
+    ("dcn_v2 head 0", "linear", (BATCH, _DCN_W + 256, 128)),
+    ("dcn_v2 head 1", "linear", (BATCH, 128, 1)),
+    ("bst q/k/v/o", "linear", (ZOO_BATCH * _BST_T, DIM, DIM)),
+    ("bst ff 0", "linear", (ZOO_BATCH * _BST_T, DIM, 4 * DIM)),
+    ("bst ff 1", "linear", (ZOO_BATCH * _BST_T, 4 * DIM, DIM)),
+    ("bst q k^T", "bmm", (ZOO_BATCH * 4, _BST_T, DIM // 4, _BST_T)),
+    ("bst attention v", "bmm", (ZOO_BATCH * 4, _BST_T, _BST_T, DIM // 4)),
+    ("bst head 0", "linear", (ZOO_BATCH, DIM + NUM_DENSE, 256)),
+    ("bst head 1", "linear", (ZOO_BATCH, 256, 64)),
+    ("bst head 2", "linear", (ZOO_BATCH, 64, 1)),
+    ("din attention 0", "linear", (ZOO_BATCH * ZOO_SEQ, 4 * DIM, 64)),
+    ("din attention 1", "linear", (ZOO_BATCH * ZOO_SEQ, 64, 1)),
+    ("din head 0", "linear", (ZOO_BATCH, NUM_DENSE + 2 * DIM, 200)),
+    ("din head 1", "linear", (ZOO_BATCH, 200, 80)),
+    ("din head 2", "linear", (ZOO_BATCH, 80, 1)),
+    ("dlrm bottom 0", "linear", (BATCH, NUM_DENSE, BOTTOM[0])),
+    ("dlrm top 0", "linear", (BATCH, DIM + 27 * 26 // 2, TOP[0])),
+)
+#: The repaired form's bar against the CPU: its rounded product within 1 bf16
+#: ulp, and at most this share of outputs differing (the CPU's own f32
+#: sum-order residue against float64 is 0.001-0.02 %).
+BF16_SPLIT_SHARE = 0.01
 # A Triton model repository (the "ensemble" phase), laid out as in
 # examples/05_triton_repo_ensemble.py: the 26 tables as one table (key
 # ENS_KEY_STRIDE * t + row) behind a dense model in each format.
@@ -2817,12 +2886,15 @@ def model_bytes(model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def zoo_pair(model_fn, seed: int):
+def zoo_pair(model_fn, seed: int, biased: bool = False):
     """(the card's model, the CPU instance's), one set of weights: Flax's
-    initialisation from a seeded generator."""
+    initialisation from a seeded generator, with ``biased`` every bias
+    then drawn from ZOO_BIAS_STD N(0, 1) (``draw_biases_``)."""
     import copy
 
     model = model_fn().init_flax_(torch.Generator().manual_seed(seed))
+    if biased:
+        draw_biases_(model, seed + 1000)
     return model, copy.deepcopy(model)
 
 
@@ -2928,6 +3000,124 @@ def zoo_example_deployment(root: str):
     return tbls, cfg
 
 
+def bf16_product_split(dev, emit_line=emit) -> list:
+    """Each product of ``BF16_PRODUCTS`` on the card in three forms, against
+    the CPU's repaired product of the same operands (x N(0, 1), weights
+    N(0, 1) / sqrt(K), biases ZOO_BIAS_STD N(0, 1), all bf16, from SEED):
+    (a) ``F.linear`` with its bias (the port before the repair: the bias
+    added to the sum before the one rounding), (b) ``F.linear`` without it,
+    then the bias in bf16, (c) the repaired product
+    (``models.dlrm.matmul_f32_sums``: the f32 SGEMM of the bf16 operands,
+    one rounding), then the bias in bf16, (d) the same arithmetic on the
+    tensor cores (``torch.mm`` / ``torch.bmm`` with
+    ``out_dtype=torch.float32``, ``microbench_zoo_dtypes.mm_out_dtype``;
+    measured, not used by the port), then the bias; a batched product has
+    no bias, so (a) and (b) are its bf16 ``torch.matmul``. All four run
+    under PyTorch's default
+    ``allow_bf16_reduced_precision_reduction``. Printed per form: the share
+    of outputs that differ from the CPU's, and where the form has a rounded
+    product of its own ((b), (c), every batched form), the largest
+    difference of that product from the CPU's in bf16 ulps, twice: in ulps
+    of the CPU's value (``*_max_ulps_at_cpu``, printed only), and as the
+    bar reads it (``*_max_ulps``): the ulp taken at the larger of the two
+    values, and never below the one at sqrt(K) 2^-16 of the sum of
+    |a_i b_i|, where the sum cancels to near zero: two orders of a K-term
+    f32 sum part by about sqrt(K) 2^-24 of that sum, which is a bf16 ulp of
+    values 2^8 times as large. Without that floor the outputs where a sum
+    cancels read as many ulps for every order but the CPU's own (on an H100,
+    up to 740 ulps of the CPU's value for (d) and 230 for (c); PERF.md), so
+    no second correct order of the same sums could pass. The output
+    after the bias is not
+    measured in ulps, because one ulp flipped in the product at a tie of
+    the bias add's rounding moves it by two. Fails unless (c) is within 1
+    ulp with at most BF16_SPLIT_SHARE of outputs differing at every
+    product, and unless (a) misses that bar at one product at least."""
+    import torch.nn.functional as F
+
+    from hugectr_backend_tpu_torch.models.dlrm import matmul_f32_sums
+    from hugectr_backend_tpu_torch.scripts.microbench_zoo_dtypes import mm_out_dtype
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(SEED + 30)
+    lines, failed, a_within = [], [], 0
+    for name, kind, dims in BF16_PRODUCTS:
+        t0 = time.perf_counter()
+        if kind == "linear":
+            m, k, n = dims
+            a = torch.randn(m, k, generator=g).to(bf)
+            b = (torch.randn(n, k, generator=g) / math.sqrt(k)).to(bf).T
+            bias = (ZOO_BIAS_STD * torch.randn(n, generator=g)).to(bf)
+        else:
+            _, m, k, n = dims
+            a = torch.randn(*dims[:3], generator=g).to(bf)
+            b = (torch.randn(dims[0], k, n, generator=g) / math.sqrt(k)).to(bf)
+            bias = None
+        prod = matmul_f32_sums(a, b)  # the CPU's repaired product
+        want = prod if bias is None else prod + bias
+        floor = torch.matmul(a.float().abs(), b.float().abs()) * (math.sqrt(k) * 2.0 ** -16)
+        ad, bd = a.to(dev), b.to(dev)
+        biasd = None if bias is None else bias.to(dev)
+        if bias is None:
+            forms = {"a": (lambda: torch.matmul(ad, bd), True),
+                     "b": (lambda: torch.matmul(ad, bd), True),
+                     "c": (lambda: matmul_f32_sums(ad, bd), True),
+                     "d": (lambda: mm_out_dtype(ad, bd), True)}
+        else:
+            forms = {"a": (lambda: F.linear(ad, bd.T, biasd), False),
+                     "b": (lambda: F.linear(ad, bd.T), True),
+                     "c": (lambda: matmul_f32_sums(ad, bd), True),
+                     "d": (lambda: mm_out_dtype(ad, bd), True)}
+        if dev.type != "cuda":
+            del forms["d"]  # no CPU kernel
+        line = {"bf16_product": name, "kind": kind, "shape": list(dims),
+                "bias": bias is not None, "outputs": want.numel()}
+        for form, (call, own_product) in forms.items():
+            with torch.inference_mode():
+                got_prod = call().cpu()
+            got = got_prod if bias is None or not own_product else got_prod + bias
+            if got.dtype != bf or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"bf16 product {name} ({form}): {got.dtype}, finite "
+                                     f"{bool(torch.isfinite(got).all())}")
+            share = float((got != want).float().mean())
+            ulps = ulps_at_cpu = None
+            if own_product:
+                diff = (got_prod.float() - prod.float()).abs()
+                ulps_at_cpu = float((diff / bf16_ulp(prod)).max())
+                scale = torch.maximum(torch.maximum(prod.float().abs(),
+                                                    got_prod.float().abs()), floor)
+                ulps = float((diff / bf16_ulp(scale)).max())
+            within = share <= BF16_SPLIT_SHARE and ulps is not None and ulps <= 1.0
+            line.update({f"{form}_share_differing": share, f"{form}_max_ulps": ulps,
+                         f"{form}_max_ulps_at_cpu": ulps_at_cpu, f"{form}_within": within})
+            if form == "a":
+                a_within += within
+            if form == "c" and not within:
+                failed.append(f"{name}: share {share}, {ulps} ulps")
+        line["seconds"] = time.perf_counter() - t0
+        lines.append(line)
+        emit_line(line)
+        del a, b, prod, want, floor, ad, bd
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("the repaired bf16 product misses its bar against the CPU: "
+                             + "; ".join(failed))
+    if a_within == len(BF16_PRODUCTS):
+        raise AssertionError("the bias-before-rounding form (a) met the repaired form's bar "
+                             "at every product: the split cannot tell them apart")
+    return lines
+
+
+def draw_biases_(model, seed: int):
+    """Every bias of ``model`` (``*.bias``, MMoE's ``expert_biases``;
+    LayerNorm's too) drawn from ZOO_BIAS_STD N(0, 1). -> model."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "bias" in name:
+                p.copy_(ZOO_BIAS_STD * torch.randn(p.shape, generator=g))
+    return model
+
+
 def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
     """The model zoo on the card, each output against a CPU instance of the
     port (its own parameter server, ``device="cpu"``) on the same weights
@@ -2973,6 +3163,9 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
                 HierParameterServer.create(cfg_, device=cpu))
 
     dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    # Each family on Flax's initial weights (zero biases), then with every
+    # bias drawn (``*_bias`` lines; not timed): f32, then bf16 on each.
+    legs = [(biased, dt) for biased in (False, True) for dt in dtypes]
 
     failed = []
 
@@ -3001,6 +3194,12 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
                           f"({rel}) than to its f32 one ({line['rel_vs_cpu_f32']})")
         return line
 
+    # Part 0: the bf16 products one at a time, three forms against the CPU.
+    t0 = time.perf_counter()
+    split = bf16_product_split(dev, out)
+    print(f"zoo part 0 (the bf16 products one at a time): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # Part 1: DCN-v2 over the 26 Criteo tables, f32 then bf16.
     t0 = time.perf_counter()
     ps_cpu = HierParameterServer.create(cfg, device=cpu)
@@ -3008,10 +3207,12 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
         name = cfg["models"][0]["model"]
         n_tables = len(cfg["models"][0]["sparse_files"])
         keys, dense = batches[0]
-        f32 = None
-        for dt_name, cd in dtypes:
+        for biased, (dt_name, cd) in legs:
+            if dt_name == "float32":
+                f32 = None
+            fam = "dcn_v2" + ("_bias" if biased else "")
             card_m, cpu_m = zoo_pair(
-                lambda: DCNv2(NUM_DENSE, n_tables, DIM, compute_dtype=cd), SEED + 20)
+                lambda: DCNv2(NUM_DENSE, n_tables, DIM, compute_dtype=cd), SEED + 20, biased)
             srv = program.make_dcn_server(ps.get_model_params(name),
                                           ps.get_embedding_cache(name, 0), card_m)
             ref_srv = program.make_dcn_server(ps_cpu.get_model_params(name),
@@ -3019,15 +3220,15 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
             k1 += zoo_launches(lambda: srv.predict(*batches[0]), len(batches), 1, dev, "dcn")
             got = srv.predict(keys, dense)[:ZOO_REF]
             want = ref_srv.predict([k[:ZOO_REF] for k in keys], dense[:ZOO_REF])
-            check = held("dcn_v2", got, want, f32)
-            out({"zoo": "dcn_v2" + ("" if f32 is None else "_bf16"),
-                 "compute_dtype": dt_name,
+            check = held(fam, got, want, f32)
+            out({"zoo": fam + ("" if f32 is None else "_bf16"),
+                 "compute_dtype": dt_name, "biases": biased,
                  "deployment": f"{n_tables} Criteo tables x {DIM} int8",
                  "bytes_on_card": ps.get_embedding_cache(name, 0).nbytes(),
                  "model_bytes": model_bytes(card_m),
                  "batch": int(dense.shape[0]), "width": NUM_DENSE + n_tables * DIM, **check,
                  "k1_per_predict": 1 if dev.type == "cuda" else 0,
-                 **zoo_timing(lambda: srv.predict(*batches[1]))})
+                 **({} if biased else zoo_timing(lambda: srv.predict(*batches[1])))})
             f32 = (got, want)
             del srv, ref_srv, card_m, cpu_m
     finally:
@@ -3054,28 +3255,33 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
                                            compute_dtype=cd)),
                     ("bst", lambda cd: BST(NUM_DENSE, DIM, ZOO_SEQ, num_heads=4, num_layers=1,
                                            head_widths=(256, 64, 1), compute_dtype=cd))):
-                f32 = None
-                for dt_name, cd in dtypes:
-                    card_m, cpu_m = zoo_pair(lambda: make(cd), SEED + 23)
+                for biased, (dt_name, cd) in legs:
+                    if dt_name == "float32":
+                        f32 = None
+                    leg = fam + ("_bias" if biased else "")
+                    card_m, cpu_m = zoo_pair(lambda: make(cd), SEED + 23, biased)
                     srv = FusedDinServer(params, cache, card_m)
                     k1 += zoo_launches(lambda: srv.predict(*traffic[0]), 2, 2, dev, fam)
                     got = srv.predict(*traffic[0])[:ZOO_REF]
                     want = FusedDinServer(params_cpu, cache_cpu, cpu_m).predict(*ref)
-                    check = held(fam, got, want, f32)
-                    out({"zoo": fam + ("" if f32 is None else "_bf16"),
-                         "compute_dtype": dt_name, "batch": ZOO_BATCH, "seq": ZOO_SEQ,
-                         **check, "model_bytes": model_bytes(card_m),
+                    check = held(leg, got, want, f32)
+                    out({"zoo": leg + ("" if f32 is None else "_bf16"),
+                         "compute_dtype": dt_name, "biases": biased, "batch": ZOO_BATCH,
+                         "seq": ZOO_SEQ, **check, "model_bytes": model_bytes(card_m),
                          "k1_per_predict": 2 if dev.type == "cuda" else 0,
-                         **zoo_timing(lambda: srv.predict(*traffic[1]))})
+                         **({} if biased else zoo_timing(lambda: srv.predict(*traffic[1])))})
                     f32 = (got, want)
                     del srv, card_m, cpu_m
             tkeys, _, _, dense = traffic[0]
             ut, _, _, udense = traffic[1]
             n_ref = ZOO_REF_RETRIEVE
-            f32_top = None
-            for dt_name, cd in dtypes:
+            for biased, (dt_name, cd) in legs:
+                if dt_name == "float32":
+                    f32_top = None
+                leg = "retrieval" + ("_bias" if biased else "")
                 card_m, cpu_m = zoo_pair(lambda: TwoTowerUser(NUM_DENSE, 1, DIM, (256, DIM),
-                                                              compute_dtype=cd), SEED + 24)
+                                                              compute_dtype=cd), SEED + 24,
+                                         biased)
                 srv = RetrievalServer(params, cache, card_m, k=ZOO_K)
                 k1 += zoo_launches(lambda: srv.retrieve(tkeys, dense), 2, 1, dev, "retrieval")
                 keys, scores = srv.retrieve(tkeys, dense)
@@ -3103,21 +3309,22 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
                         del moved
                     rel, compared, positions = retrieval_check(
                         keys[:n_ref], scores[:n_ref], ref_keys, ref_scores,
-                        rel_bar=ZOO_BF16_BAR["retrieval"], move=move)
-                    extra = {**held("retrieval", torch.from_numpy(scores[:n_ref]),
+                        rel_bar=ZOO_BF16_BAR[leg], move=move)
+                    extra = {**held(leg, torch.from_numpy(scores[:n_ref]),
                                     torch.from_numpy(ref_scores[:, :ZOO_K]),
                                     (torch.from_numpy(f32_top[1][:n_ref]),
                                      torch.from_numpy(f32_top[2]))),
                              "topk_overlap_vs_f32": float(np.mean(
                                  [len(set(a) & set(b)) / ZOO_K
                                   for a, b in zip(keys, f32_top[0])]))}
-                out({"zoo": "retrieval" + ("" if f32_top is None else "_bf16"),
-                     "compute_dtype": dt_name, "batch": ZOO_BATCH, "corpus": ZOO_ROWS,
+                out({"zoo": leg + ("" if f32_top is None else "_bf16"),
+                     "compute_dtype": dt_name, "biases": biased, "batch": ZOO_BATCH,
+                     "corpus": ZOO_ROWS,
                      "k": ZOO_K, "score_matrix_bytes": ZOO_BATCH * ZOO_ROWS * 4,
                      "corpus_f32_bytes": ZOO_ROWS * DIM * 4, "model_bytes": model_bytes(card_m),
                      **extra, "keys_compared": compared, "positions": positions,
                      "k1_per_retrieve": 1 if dev.type == "cuda" else 0,
-                     **zoo_timing(lambda: srv.retrieve(ut, udense))})
+                     **({} if biased else zoo_timing(lambda: srv.retrieve(ut, udense)))})
                 f32_top = (keys, scores, ref_scores[:, :ZOO_K])
                 del srv, card_m, cpu_m
         finally:
@@ -3158,9 +3365,11 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
                             for f, k in zip(files, kps)],
                            rng.standard_normal((b, 0 if fam == "ncf" else NUM_DENSE)).astype(
                                np.float32)) for b in ZOO_SMALL_BATCHES]
-                f32s = None
-                for dt_name, cd in dtypes:
-                    card_m, cpu_m = zoo_pair(lambda: make(cd), SEED + 26 + i)
+                for biased, (dt_name, cd) in legs:
+                    if dt_name == "float32":
+                        f32s = None
+                    leg = fam + ("_bias" if biased else "")
+                    card_m, cpu_m = zoo_pair(lambda: make(cd), SEED + 26 + i, biased)
                     srv = make_server(ps.get_model_params(model_name),
                                       ps.get_embedding_cache(model_name, 0), card_m)
                     ref_srv = make_server(ps_cpu.get_model_params(model_name),
@@ -3170,10 +3379,10 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
                         k1 += zoo_launches(lambda: srv.predict(keys, dense), 1, 1, dev, fam)
                         got = srv.predict(keys, dense)
                         want = ref_srv.predict(keys, dense)
-                        check = held(fam, got, want, None if f32s is None else f32s[j])
+                        check = held(leg, got, want, None if f32s is None else f32s[j])
                         outs.append((got, want))
-                        out({"zoo": fam + ("" if f32s is None else "_bf16"),
-                             "compute_dtype": dt_name, "model": model_name,
+                        out({"zoo": leg + ("" if f32s is None else "_bf16"),
+                             "compute_dtype": dt_name, "biases": biased, "model": model_name,
                              "batch": dense.shape[0], **check,
                              "bytes_on_card": ps.get_embedding_cache(model_name, 0).nbytes(),
                              "model_bytes": model_bytes(card_m),
@@ -3187,7 +3396,7 @@ def zoo_phase(dev, ps, cfg, batches, emit_line=emit) -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if failed:
         raise AssertionError("; ".join(failed))
-    return {"launches": {"gather_dequant": k1} if k1 else {}, "lines": lines}
+    return {"launches": {"gather_dequant": k1} if k1 else {}, "lines": lines, "split": split}
 
 
 # ------------------------------------------------------------ the ensemble phase
@@ -4378,7 +4587,9 @@ BENCH_KERNELS = ("gather_dequant", "dot_interaction_oh_parts", "dot_interaction_
 
 def bench_phase(dev, emit_line=emit) -> dict:
     """The JAX package's benchmark programs, ported (``bench``, the seven
-    ``scripts/microbench_*``), each at its card sizes and checking itself:
+    ``scripts/microbench_*``), and ``microbench_zoo_dtypes`` (each variant
+    of both models and of every product timed), each at its card sizes and
+    checking itself:
     the headline lookup's first rows bit-exact against the closed form at
     batch 4096 and 1024 with one K1 launch an iteration; the six fused
     variants (fold vs two-stage rel < 5e-3; each variant's first 64 logits
@@ -4397,6 +4608,7 @@ def bench_phase(dev, emit_line=emit) -> dict:
         microbench_scaling,
         microbench_update_storm,
         microbench_w8a8_kernel,
+        microbench_zoo_dtypes,
     )
 
     t0 = time.perf_counter()
@@ -4411,11 +4623,21 @@ def bench_phase(dev, emit_line=emit) -> dict:
                     (microbench_interaction, {}), (microbench_int4_gather, {}),
                     (microbench_overhead, {}), (microbench_update_storm,
                                                 {"seconds": BENCH_STORM_S}),
-                    (microbench_scaling, {})):
+                    (microbench_scaling, {}), (microbench_zoo_dtypes, {})):
         t1 = time.perf_counter()
         lines[mod.__name__.rsplit(".", 1)[1]] = mod.run(dev, emit=emit_line, **kw)
         torch.cuda.synchronize(dev)
         print(f"{mod.__name__.rsplit('.', 1)[1]}: {time.perf_counter() - t1:.1f} s", flush=True)
+    # The dtype microbenchmark times the repaired bf16 products beside the
+    # forms before the repair: every variant of both models and products.
+    zoo = lines["microbench_zoo_dtypes"]
+    for model in ("dcn_v2", "bst"):
+        variants = [ln["variant"] for ln in zoo if ln["model"] == model and "variant" in ln]
+        if variants != [v[0] for v in microbench_zoo_dtypes.VARIANTS]:
+            raise AssertionError(f"microbench_zoo_dtypes {model}: variants {variants}")
+    if not all(ln.get(f"{v[0]}_us", 0) > 0 for ln in zoo if "product" in ln
+               for v in microbench_zoo_dtypes.VARIANTS):
+        raise AssertionError("microbench_zoo_dtypes: a product without a time")
     launches = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
                 if v - before.get(k, 0)}
     for name in BENCH_KERNELS:
@@ -5243,13 +5465,13 @@ def main() -> int:
           "allocated", flush=True)
 
     # Phase 12: the benchmark programs (slice 14's path), counted: the
-    # uncapped tables, the fused variants, DIN, the HTTP stages and the seven
+    # uncapped tables, the fused variants, DIN, the HTTP stages and the eight
     # microbenchmarks, every earlier phase's state freed.
     print(f"card memory before the benchmark programs: "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated", flush=True)
     kernels.launches.clear()
     bph = bench_phase(dev, emit_line=mb_emit)
-    print(f"bench phase: the benchmark and the seven microbenchmarks passed their checks; "
+    print(f"bench phase: the benchmark and the eight microbenchmarks passed their checks; "
           f"launches {bph['launches']}; peak {bph['peak_gb']:.3f} GB allocated; "
           f"{bph['seconds']:.1f} s ({card} | {smi})", flush=True)
     for name, n in (list(shd["launches"].items()) + list(exa["launches"].items())

@@ -1,3 +1,3 @@
-from hugectr_backend_tpu_torch.cache.embedding_cache import EmbeddingCache
+from hugectr_backend_tpu_torch.cache.embedding_cache import CacheConfig, EmbeddingCache
 
-__all__ = ["EmbeddingCache"]
+__all__ = ["EmbeddingCache", "CacheConfig"]

@@ -30,6 +30,7 @@ device's default stream, as the lookups do: writes and reads stay ordered.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from collections import deque
@@ -84,6 +85,17 @@ def _bucket(n: int, minimum: int = 8) -> int:
     return b
 
 
+@dataclasses.dataclass
+class CacheConfig:
+    """The reference's cache config surface (``get_cache_config().num_emb_table_``,
+    reference model_instance_state.cpp:169), as the JAX package has it."""
+
+    num_emb_table: int
+    embedding_vec_size: list[int]
+    capacity_per_table: list[int]
+    cache_type: EmbeddingCacheType
+
+
 class EmbeddingCache:
     """One model's embedding cache on one device (the static flavour)."""
 
@@ -119,6 +131,15 @@ class EmbeddingCache:
                 seen[gkey] = len(self._groups)
                 self._groups.append((arena, kind, []))
             self._groups[seen[gkey]][2].append(t)
+
+    def get_cache_config(self) -> CacheConfig:
+        """The tables' count, widths and capacities, and the cache type."""
+        return CacheConfig(
+            num_emb_table=len(self.tables),
+            embedding_vec_size=[t.dim for t in self.tables],
+            capacity_per_table=[t.capacity for t in self.tables],
+            cache_type=self.params.embedding_cache_type,
+        )
 
     @property
     def num_tables(self) -> int:

@@ -94,3 +94,13 @@ class LookupSession:
         vecsize_t floats)."""
         out = self.cache.lookup_flat(self.split_request(flat_keys, num_keys))
         return out.cpu().numpy()
+
+    def num_samples_of(self, flat_keys: np.ndarray) -> int:
+        """num_of_samples = len(KEYS) / cat_num (reference hps.cc:573-582);
+        a length that is not a multiple of ``cat_num`` (or ``cat_num`` 0)
+        raises ``ValueError``."""
+        cat = self.params.cat_num
+        n = np.asarray(flat_keys).reshape(-1).shape[0]
+        if cat == 0 or n % cat:
+            raise ValueError(f"KEYS length {n} is not a multiple of cat_num {cat}")
+        return n // cat

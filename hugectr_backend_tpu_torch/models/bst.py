@@ -39,6 +39,7 @@ from hugectr_backend_tpu_torch.models.dlrm import (
     dense,
     flax_params,
     init_dense_,
+    matmul_f32_sums,
     softmax,
 )
 
@@ -84,9 +85,9 @@ class _EncoderBlock(nn.Module):
         # The square root of dk in compute_dtype, as jnp.sqrt takes it; a
         # 0-dim host tensor divides as a Python number does, also on the card.
         root = torch.tensor(d // h, dtype=self.compute_dtype).sqrt()
-        logits = torch.matmul(q, k.transpose(-1, -2)) / root
+        logits = matmul_f32_sums(q, k.transpose(-1, -2)) / root
         logits = logits.masked_fill(~live[:, None, None, :], _NEG)
-        ctx = torch.matmul(softmax(logits, dim=-1), v).transpose(1, 2).reshape(b, t, d)
+        ctx = matmul_f32_sums(softmax(logits, dim=-1), v).transpose(1, 2).reshape(b, t, d)
         x = self._norm(x + self._dense(ctx, self.o), self.norm1)
         return self._norm(x + self._dense(F.relu(self._dense(x, self.ff1)), self.ff2),
                           self.norm2)

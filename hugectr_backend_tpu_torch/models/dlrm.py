@@ -6,8 +6,9 @@ with ``quant_fmt`` set, :class:`~hugectr_backend_tpu_torch.models.quant_dense.Qu
 layers with the activation fused in (w8a8 runs K5). With
 ``mixed_precision`` the f32 and weight-only products take bf16 operands and
 accumulate in f32. ``compute_dtype`` (f32 by default, or bf16) is the JAX
-modules' own: the MLPs cast their input to it and run ``nn.Linear`` in it
-(a plain product, as the JAX package leaves it to XLA), the embeddings are
+modules' own: the MLPs cast their input to it and compute each layer as
+Flax's ``nn.Dense`` does in it (:func:`dense`: the product summed in f32
+and rounded once, then the bias added in that type), the embeddings are
 cast to the bottom's type before the interaction, whose kernels then take
 and write bf16, and the logits come back in f32. The interaction runs on
 the kernels of ops/fused_interaction.py: K3 when the embeddings carry a
@@ -39,6 +40,7 @@ from hugectr_backend_tpu_torch.ops.fused_interaction import (
     dot_interaction_oh_parts,
     dot_interaction_parts,
     fused_dot_interaction,
+    full_f32_matmul,
 )
 
 # Flax's lecun_normal: a normal truncated at +-2 std, scaled so that the
@@ -102,14 +104,32 @@ def dense(x: torch.Tensor, layer: nn.Linear, mixed_precision: bool = False,
           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``layer(x)``, its product under :func:`~hugectr_backend_tpu_torch.models.
     quant_dense.mixed_operands`; ``weight`` replaces the layer's. With a
-    ``compute_dtype`` other than f32, the input, weight and bias in that
-    type (Flax's ``nn.Dense(dtype=...)`` over f32 parameters)."""
+    ``compute_dtype`` other than f32, Flax's ``nn.Dense(dtype=...)`` over f32
+    parameters: the input and weight cast to that type, their product summed
+    in f32 and rounded once (:func:`matmul_f32_sums`), then the bias, cast
+    too, added in that type."""
     w = layer.weight if weight is None else weight
     if compute_dtype != torch.float32:
-        return F.linear(x.to(compute_dtype), w.to(compute_dtype), layer.bias.to(compute_dtype))
+        y = matmul_f32_sums(x.to(compute_dtype), w.to(compute_dtype).T)
+        return y + layer.bias.to(compute_dtype)
     if mixed_precision:
         return linear(x, w, mixed_precision=True) + layer.bias
     return F.linear(x, w, layer.bias)
+
+
+def matmul_f32_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two tensors of one type below f32 (2-D, or batched over
+    leading axes as ``torch.matmul`` takes them) as the JAX package computes
+    a product in that type: the products exact, summed in f32, the sum
+    rounded once to the operands' type. The operands are exact in f32, so
+    this is their f32 product (an SGEMM on the card, TF32 held off whatever
+    the caller set), whose fused multiply-adds round as the CPU's do. On f32
+    operands it is ``torch.matmul`` in full f32.
+    ``torch.mm(..., out_dtype=torch.float32)`` on the tensor cores also sums
+    in f32 and is faster, but its results part from the CPU's several times
+    as often (PERF.md)."""
+    with full_f32_matmul():
+        return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
 def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -163,7 +183,7 @@ class DotInteraction(nn.Module):
             if isinstance(emb, EmbParts):
                 raise ValueError("self_interaction takes a stacked [B, T, D] tensor")
             z = torch.cat([bottom[:, None, :], emb.to(bottom.dtype)], dim=1)
-            zzt = torch.bmm(z, z.transpose(1, 2))
+            zzt = matmul_f32_sums(z, z.transpose(1, 2))  # below f32: f32 sums, one rounding
             f = z.shape[1]
             r, c = torch.triu_indices(f, f, 0, device=z.device)
             return torch.cat([bottom, zzt[:, r, c]], dim=1)

@@ -35,6 +35,7 @@ from hugectr_backend_tpu_torch.models.dlrm import (
     flax_params,
     init_dense_,
     lecun_normal_,
+    matmul_f32_sums,
     softmax,
 )
 from hugectr_backend_tpu_torch.models.quant_dense import mixed_operands
@@ -89,12 +90,17 @@ class MMoE(nn.Module):
         h = F.relu(dense(x, self.experts_in, mixed_precision, compute_dtype=cd))
         h = h.view(b, self.num_experts, -1)
         for k, bias in zip(self.expert_kernels, self.expert_biases):
-            hm, km = mixed_operands(mixed_precision, h, k.to(cd))
-            h = F.relu(torch.einsum("beh,ehw->bew", hm, km) + bias.to(cd)[None])
+            if cd == torch.float32:
+                hk = torch.einsum("beh,ehw->bew", *mixed_operands(mixed_precision, h, k))
+            else:  # [E, B, H] @ [E, H, W], f32 sums
+                hk = matmul_f32_sums(h.transpose(0, 1), k.to(cd)).transpose(0, 1)
+            h = F.relu(hk + bias.to(cd)[None])
         gates = dense(x, self.gates, mixed_precision, compute_dtype=cd)
-        gates = gates.view(b, self.num_tasks, self.num_experts)
-        gates, hm = mixed_operands(mixed_precision, softmax(gates, dim=-1), h)
-        mixed = torch.einsum("bke,bew->bkw", gates, hm)  # [B, K, W]
+        gates = softmax(gates.view(b, self.num_tasks, self.num_experts), dim=-1)
+        if cd == torch.float32:
+            mixed = torch.einsum("bke,bew->bkw", *mixed_operands(mixed_precision, gates, h))
+        else:
+            mixed = matmul_f32_sums(gates, h)  # [B, K, W]
         return torch.cat([tower(mixed[:, t], mixed_precision=mixed_precision)
                           for t, tower in enumerate(self.towers)], dim=1).float()
 

@@ -36,6 +36,7 @@ from hugectr_backend_tpu_torch.models.dlrm import (
     flax_params,
     init_dense_,
     lecun_normal_,
+    matmul_f32_sums,
 )
 from hugectr_backend_tpu_torch.models.quant_dense import mixed_operands
 
@@ -55,10 +56,12 @@ class CINLayer(nn.Module):
         b, h, d = x.shape
         z = (x[:, :, None, :] * x0[:, None, :, :]).reshape(b, h * x0.shape[1], d)
         cd = self.compute_dtype
-        # Below f32 the operands are bf16 already: mixed_precision has
-        # nothing left to round.
-        w, z = mixed_operands(mixed_precision and cd == torch.float32, self.w.to(cd), z.to(cd))
-        return torch.matmul(w, z).float()  # [G, HT] @ [B, HT, D] -> [B, G, D]
+        if cd == torch.float32:
+            w, z = mixed_operands(mixed_precision, self.w, z)
+            return torch.matmul(w, z)  # [G, HT] @ [B, HT, D] -> [B, G, D]
+        # Below f32 the operands are bf16 already (mixed_precision has
+        # nothing left to round); f32 sums, rounded once, returned f32.
+        return matmul_f32_sums(self.w.to(cd), z.to(cd)).float()
 
 
 class XDeepFM(nn.Module):

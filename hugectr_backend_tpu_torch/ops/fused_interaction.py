@@ -177,7 +177,9 @@ def permute_top_mlp_kernel(kernel: np.ndarray, order, dim: int):
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
+def full_f32_matmul():
+    """f32 products in full f32 for the block: TF32 off, whatever the caller
+    set (restored after)."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -189,7 +191,7 @@ def _full_f32_matmul():
 def _interaction_ref(bottom: torch.Tensor, feats) -> torch.Tensor:
     z = torch.stack([f.float() for f in [bottom, *feats]], dim=1)  # [B, F, D]
     z = z.to(torch.bfloat16).float()
-    with _full_f32_matmul():
+    with full_f32_matmul():
         zzt = torch.bmm(z, z.transpose(1, 2))
     f = z.shape[1]
     r, c = torch.triu_indices(f, f, 1, device=z.device)
@@ -251,7 +253,7 @@ def fused_dot_interaction_bwd_ref(bottom, emb, g):
     dzzt[:, rows, cols] = g_pairs
     dzzt = dzzt + dzzt.transpose(1, 2)
     z = torch.cat([bottom[:, None, :], emb], dim=1).float()
-    with _full_f32_matmul():
+    with full_f32_matmul():
         dz = torch.bmm(dzzt, z)
     g_bot = g_bot_direct + dz[:, 0, :].to(bottom.dtype)
     g_emb = dz[:, 1:, :].to(emb.dtype)

@@ -9,7 +9,9 @@ Symmetric per-row absmax, as in the JAX package (its ops/quantize.py):
 int8 and int4 run on the native single-pass quantizer
 (``native/kvstore.cpp hps_quantize_rows``, parallel over row chunks), as in
 the JAX package; the numpy chains beside them (``quantize_rows_int8_ref``,
-``quantize_rows_int4_ref``) are their plain versions, bit-identical. The fp8
+``quantize_rows_int4_ref``) are their plain versions, bit-identical, and
+serve instead when ``HPS_TPU_NATIVE_QUANTIZE`` is "0" (read at each call;
+any other value keeps the native quantizer, whose library must load). The fp8
 cast goes through ``torch.float8_e4m3fn`` (round to nearest even, like
 ``ml_dtypes``), so fp8 rows come back as a CPU ``torch.Tensor``: numpy has no
 8-bit float type.
@@ -18,6 +20,7 @@ cast goes through ``torch.float8_e4m3fn`` (round to nearest even, like
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -32,6 +35,12 @@ def _row_scales(vectors: np.ndarray, qmax: float) -> np.ndarray:
     # Avoid zero scales for all-zero rows; any finite scale dequantizes 0 -> 0.
     absmax = np.where(absmax == 0.0, 1.0, absmax)
     return (absmax / qmax).astype(np.float32)
+
+
+def _native_quantizer() -> bool:
+    """``HPS_TPU_NATIVE_QUANTIZE`` (the JAX package's switch), read per call:
+    "0" takes the numpy chains."""
+    return os.environ.get("HPS_TPU_NATIVE_QUANTIZE", "1") != "0"
 
 
 def _native_quantize(vectors: np.ndarray, order, mode: int):
@@ -65,6 +74,8 @@ def quantize_rows_int8(vectors: np.ndarray, order: np.ndarray | None = None):
     quantizer.
 
     ``order`` (optional): output row i quantizes source row ``order[i]``."""
+    if not _native_quantizer():
+        return quantize_rows_int8_ref(vectors, order)
     return _native_quantize(np.asarray(vectors, dtype=np.float32), order, mode=8)
 
 
@@ -97,6 +108,8 @@ def quantize_rows_int4(vectors: np.ndarray, order: np.ndarray | None = None):
     vectors = np.asarray(vectors, dtype=np.float32)
     if vectors.shape[1] % 2:
         raise ValueError("int4 quantization requires an even embedding dim")
+    if not _native_quantizer():
+        return quantize_rows_int4_ref(vectors, order)
     return _native_quantize(vectors, order, mode=4)
 
 
@@ -110,6 +123,11 @@ def quantize_rows_int4_ref(vectors: np.ndarray, order: np.ndarray | None = None)
     scales = _row_scales(vectors, INT4_QMAX)
     q = np.clip(np.rint(vectors / scales[:, None]), -7, 7).astype(np.int8)
     return pack_int4(q), scales
+
+
+def dequantize_rows(q: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Host-side reference dequant: q * scale[:, None] -> float32."""
+    return q.astype(np.float32) * np.asarray(scales, dtype=np.float32)[:, None]
 
 
 def pack_int4(q: np.ndarray) -> np.ndarray:
@@ -128,3 +146,8 @@ def unpack_int4(p: np.ndarray) -> np.ndarray:
     out[:, 0::2] = lo
     out[:, 1::2] = hi
     return out
+
+
+def dequantize_rows_int4(p: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Host-side reference dequant of packed int4 rows -> float32."""
+    return dequantize_rows(unpack_int4(p), scales)

@@ -131,10 +131,9 @@ class ContinuousBatcher:
                 f"KEYS holds {keys.shape[0]} keys but NUMKEYS sums to "
                 f"{int(num_keys.sum())}"
             )
-        cat = self.params.cat_num
-        if cat and keys.shape[0] % cat == 0:
-            num_samples = keys.shape[0] // cat
-        else:
+        try:
+            num_samples = self.session.num_samples_of(keys)
+        except ValueError:
             # Variable-length requests: size by the largest per-table ratio
             # (bounded by maxnum_catfeature_query_per_table_per_sample).
             ratios = [

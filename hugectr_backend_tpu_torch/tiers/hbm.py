@@ -54,9 +54,30 @@ def default_device(device=None) -> torch.device:
 
 #: Past this many rows a table's index searches its sorted keys instead of
 #: building the native hash (~16 B of host RAM per bucket at load <= 0.75,
-#: pow2-rounded): the JAX package's cap (its HPS_TPU_NATIVE_INDEX_MAX_ROWS
-#: default).
+#: pow2-rounded): the JAX package's cap, the default of
+#: ``HPS_TPU_NATIVE_INDEX_MAX_ROWS``.
 NATIVE_INDEX_MAX_ROWS = 64_000_000
+
+
+def _native_index_rows(capacity: int) -> bool:
+    """Whether an index of ``capacity`` rows builds the native hash, by the
+    JAX package's switches, read when the index is built:
+    ``HPS_TPU_NATIVE_INDEX`` ("1", or unset, builds the hash; any other
+    value searches the sorted keys), ``HPS_TPU_NATIVE_INDEX_MIN_ROWS``
+    (default 1; a malformed value reads as 1) and
+    ``HPS_TPU_NATIVE_INDEX_MAX_ROWS`` (default ``NATIVE_INDEX_MAX_ROWS``; a
+    malformed value raises, as in the JAX package). The slots are the same
+    either way."""
+    import os
+
+    if os.environ.get("HPS_TPU_NATIVE_INDEX", "1") != "1":
+        return False
+    try:
+        lo = int(os.environ.get("HPS_TPU_NATIVE_INDEX_MIN_ROWS", "1"))
+    except ValueError:  # as the JAX package reads it
+        lo = 1
+    hi = int(os.environ.get("HPS_TPU_NATIVE_INDEX_MAX_ROWS", str(NATIVE_INDEX_MAX_ROWS)))
+    return max(lo, 1) <= capacity <= hi
 
 
 class _NativeStaticIndex:
@@ -166,6 +187,9 @@ class KeyIndex:
     - ``np.searchsorted`` over the sorted keys past ``NATIVE_INDEX_MAX_ROWS``
       rows (and for an empty table). ``search`` is this path for any table:
       the plain version that tests hold the native index against.
+
+    The JAX package's switches move a table between the last two when its
+    index is built (:func:`_native_index_rows`).
     """
 
     def __init__(self, sorted_keys: np.ndarray, direct: bool):
@@ -174,7 +198,7 @@ class KeyIndex:
         self.capacity = int(sorted_keys.shape[0])
         self.miss_slot = self.capacity
         self._native = None
-        if not direct and 1 <= self.capacity <= NATIVE_INDEX_MAX_ROWS:
+        if not direct and _native_index_rows(self.capacity):
             self._native = _make_native_statmap(sorted_keys)
 
     @classmethod
@@ -198,6 +222,10 @@ class KeyIndex:
         if self._native is not None:
             return self._native.translate(q).reshape(q.shape)
         return self.search(q)
+
+    def contains(self, query_keys: np.ndarray) -> np.ndarray:
+        """-> bool per key: whether it has a slot (is not a miss)."""
+        return self.lookup(query_keys) != self.miss_slot
 
     def search(self, query_keys: np.ndarray) -> np.ndarray:
         """The searchsorted lookup (any non-direct table): the native

@@ -139,6 +139,38 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+# package: the names its __init__ exports, as the JAX package's does
+EXPORTS = {
+    "hugectr_backend_tpu_torch.ops": ["dequantize_rows", "quantize_rows_fp8",
+                                      "quantize_rows_int8"],
+    "hugectr_backend_tpu_torch.cache": ["EmbeddingCache", "CacheConfig"],
+    "hugectr_backend_tpu_torch.utils": ["Timer", "get_logger"],
+}
+
+
+def test_exports_load_no_jax_and_no_native_library():
+    """The packages export what the JAX package's export (the lists here are
+    checked against them in ``test_torch_public_surface.py``), and importing
+    them loads neither JAX nor the JAX package nor the native library (it
+    loads at the first call that needs it)."""
+    code = (
+        "import importlib, sys\n"
+        f"for pkg, names in {EXPORTS!r}.items():\n"
+        "    m = importlib.import_module(pkg)\n"
+        "    assert sorted(m.__all__) == sorted(names), (pkg, m.__all__)\n"
+        "    assert all(callable(getattr(m, n)) for n in names), pkg\n"
+        "from hugectr_backend_tpu_torch.native import kvstore\n"
+        "assert kvstore._lib is None\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'ml_dtypes', 'optax')\n"
+        "             or m.startswith(('jax.', 'flax.', 'jaxlib', 'optax.'))\n"
+        "             or m == 'hugectr_backend_tpu' or m.startswith('hugectr_backend_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(?:from|import)\s+(?:jax|flax|ml_dtypes|jaxlib|optax)\b"
     r"|^\s*(?:from|import)\s+hugectr_backend_tpu(?:\.|\s|$)",

@@ -401,9 +401,11 @@ def test_load_refuses_unknown_module(family):
 
 def test_chip_smoke_zoo_rehearsal(tmp_path, monkeypatch):
     """chip_smoke's zoo phase on the CPU at a small size (4 Criteo tables
-    capped at 4,096 rows, D 16; DIN tables of 5,000 rows, batch 64, S 8):
-    every part's checks run against the CPU instance (the "card" instance
-    is a second CPU instance, and K1 is not launched)."""
+    capped at 4,096 rows, D 16; DIN tables of 5,000 rows, batch 64, S 8;
+    the per-product split at two small shapes): every part's checks run
+    against the CPU instance (the "card" instance is a second CPU instance,
+    and K1 is not launched). Each family runs on Flax's initial weights and
+    again with its biases drawn (``*_bias``)."""
     from pathlib import Path
 
     monkeypatch.syspath_prepend(str(Path(__file__).resolve().parent.parent))
@@ -413,7 +415,9 @@ def test_chip_smoke_zoo_rehearsal(tmp_path, monkeypatch):
     monkeypatch.setattr(cs, "device_profile", lambda run, n: (run(), (None, []))[1])
     for name, value in (("ROW_CAP", 4096), ("DIM", 16), ("ZOO_ROWS", 5000),
                         ("ZOO_BATCH", 64), ("ZOO_SEQ", 8), ("ZOO_K", 10), ("ZOO_REF", 32),
-                        ("ZOO_REF_RETRIEVE", 16), ("ZOO_SMALL_BATCHES", (8, 64))):
+                        ("ZOO_REF_RETRIEVE", 16), ("ZOO_SMALL_BATCHES", (8, 64)),
+                        ("BF16_PRODUCTS", (("linear", "linear", (64, 205, 64)),
+                                           ("bmm", "bmm", (8, 9, 8, 9))))):
         monkeypatch.setattr(cs, name, value)
     # On the card the 1,000,000-row tables are "solo" (host-gathered scales).
     monkeypatch.setenv("HPS_TPU_ARENA_MEMBER_MAX_ROWS", "4096")
@@ -424,17 +428,30 @@ def test_chip_smoke_zoo_rehearsal(tmp_path, monkeypatch):
     out = cs.zoo_phase(torch.device("cpu"), ps, cfg, cs.make_batches(tables, 64, 2, cs.SEED),
                        emit_line=lines.append)
     assert out["launches"] == {}
-    assert [ln["zoo"] for ln in lines] == [
-        "dcn_v2", "dcn_v2_bf16", "din_deploy", "din", "din_bf16", "bst", "bst_bf16",
-        "retrieval", "retrieval_bf16"] + [
-        f + dt for f in ("wdl", "deepfm", "dcn_v2_small", "xdeepfm", "ncf", "mmoe")
-        for dt in ("", "_bf16") for _ in (8, 64)]
-    assert lines[2]["kinds"] == ["solo", "solo"]
-    for retrieval in lines[7:9]:
+    split = [ln for ln in lines if "bf16_product" in ln]
+    assert [ln["bf16_product"] for ln in split] == ["linear", "bmm"] and split == out["split"]
+    for ln in split:  # the CPU's repaired product is the reference itself
+        assert ln["c_within"] and ln["c_share_differing"] == 0.0 and ln["c_max_ulps"] == 0.0
+        assert ln["c_max_ulps_at_cpu"] == 0.0
+    assert split[0]["a_share_differing"] > cs.BF16_SPLIT_SHARE and not split[0]["a_within"]
+    assert split[0]["a_max_ulps"] is None and split[1]["a_max_ulps"] == 0.0
+    assert split[0]["a_max_ulps_at_cpu"] is None and split[1]["a_max_ulps_at_cpu"] == 0.0
+    lines = [ln for ln in lines if "zoo" in ln]
+    legs = ("", "_bf16", "_bias", "_bias_bf16")
+    assert [ln["zoo"] for ln in lines] == (
+        [f"dcn_v2{leg}" for leg in legs] + ["din_deploy"]
+        + [f + leg for f in ("din", "bst", "retrieval") for leg in legs]
+        + [f + leg for f in ("wdl", "deepfm", "dcn_v2_small", "xdeepfm", "ncf", "mmoe")
+           for leg in legs for _ in (8, 64)])
+    assert lines[4]["kinds"] == ["solo", "solo"]
+    for retrieval in [ln for ln in lines if ln["zoo"].startswith("retrieval")]:
         assert retrieval["keys_compared"] > retrieval["positions"] // 4
     assert all(ln["rel_vs_cpu"] == 0.0 for ln in lines if "rel_vs_cpu" in ln)
     bf16 = [ln for ln in lines if ln["zoo"].endswith("_bf16")]
-    assert len(bf16) == 4 + 12 and all(ln["compute_dtype"] == "bfloat16" for ln in bf16)
+    assert len(bf16) == 2 * (4 + 12) and all(ln["compute_dtype"] == "bfloat16" for ln in bf16)
     assert all(ln["rel_vs_cpu"] < ln["rel_vs_cpu_f32"] and ln["f32_rel_vs_cpu"] > 0
                for ln in bf16)
-    assert all(ln["wall_ms_median"] > 0 for ln in lines[:9] if ln["zoo"] != "din_deploy")
+    assert all(ln["biases"] == ("_bias" in ln["zoo"]) for ln in lines if "biases" in ln)
+    timed = [ln for ln in lines[:17] if ln["zoo"] != "din_deploy" and not ln["biases"]]
+    assert len(timed) == 8 and all(ln["wall_ms_median"] > 0 for ln in timed)
+    assert not any("wall_ms_median" in ln for ln in lines if ln.get("biases"))

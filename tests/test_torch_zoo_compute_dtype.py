@@ -699,13 +699,28 @@ def test_sharded_stacked_server_bf16_matches_unsharded(one_torch_thread, deploye
 def test_microbench_zoo_dtypes_runs_on_the_cpu(one_torch_thread):
     """The dtype microbenchmark at a small size: every model and variant, no
     device time on the CPU; the bf16 forwards part from the f32 one (the
-    same weights), and cuBLAS's switch changes nothing here."""
+    same weights), and cuBLAS's switch changes nothing here. The pre-repair
+    forms it swaps in for ``bf16`` and ``bf16_f32_sums`` are put back after
+    each variant: ``bf16_f32_out`` is the model as it serves. The tensor
+    cores' ``bf16_mm_out_dtype`` has no CPU kernel and runs on the card only."""
+    from hugectr_backend_tpu_torch.models import DCNv2
     from hugectr_backend_tpu_torch.scripts import microbench_zoo_dtypes as mz
 
     lines = mz.run("cpu", dcn_batch=16, bst_batch=8, seq=4, emit=lambda line: None)
     assert [(ln["model"], ln["variant"]) for ln in lines] == [
-        (m, v) for m in ("dcn_v2", "bst") for v in ("f32", "bf16", "bf16_f32_sums")]
+        (m, v) for m in ("dcn_v2", "bst")
+        for v in ("f32", "bf16", "bf16_f32_sums", "bf16_f32_out")]
     assert all("us" not in ln and ln["device"] == "cpu" for ln in lines)
     for model in ("dcn_v2", "bst"):
         rel = {ln["variant"]: ln["rel_vs_f32"] for ln in lines if ln["model"] == model}
         assert rel["f32"] == 0.0 and 0.0 < rel["bf16"] == rel["bf16_f32_sums"]
+        assert 0.0 < rel["bf16_f32_out"]
+    _, sets = mz.models(16, 8, 4, "cpu")[0][1:]
+    f32 = DCNv2(13, 26, 128).init_flax_(torch.Generator().manual_seed(mz.SEED))
+    bf16 = DCNv2(13, 26, 128, compute_dtype=BF16)
+    bf16.load_state_dict(f32.state_dict())
+    with torch.no_grad():
+        want = f32(*sets[0])
+        got = bf16(*sets[0])
+    rel = {ln["variant"]: ln["rel_vs_f32"] for ln in lines if ln["model"] == "dcn_v2"}
+    assert float((got.float() - want).abs().max() / want.abs().max()) == rel["bf16_f32_out"]
