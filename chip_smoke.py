@@ -307,6 +307,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    K1, K2, K3, K4 and K5 must launch. The phase prints its peak memory and
    seconds; ``bench_alone()`` runs it alone.
 
+13. The TPU-layout microbenchmarks (``microbench_layouts_phase``; this
+   slice's path), launch counts set to 0 just before and read just after:
+   the nine ported ``scripts/microbench_*`` that tuned TPU layouts, each
+   asking the card's version of its question at the JAX script's shapes and
+   checking itself: ``_pallas_interaction`` (K4 at B 4096, F 27, D 128 at
+   every warp-per-sample launch plan, bit for bit the default plan's
+   output; the default within rtol 1e-5, atol 1e-6 max|z|^2 of the plain
+   formulation; the ``bmm`` yardstick), ``_pallas_parts`` and
+   ``_parts_fm`` (the DLRM forward at batch 4096 on oh [14 B, D] and ar
+   [12 B, D]: stacked + plain, stacked + K4 and parts + K2, K4 == K2 bit
+   for bit, plain within the interaction's bar and rel 5e-3 at the logits;
+   the part-major map with the first top layer permuted within rtol 1e-4,
+   atol 1e-5 of the interleaved one; 3 rounds), ``_oh_fused`` (K1 + K2
+   against K3 on the 14 one-hot members, within the interaction's bar; 3
+   rounds), ``_fold_ab`` (the whole fused forward at the uncapped
+   cardinalities, fold against two-stage rel < 5e-3; 9 rounds),
+   ``_full_ab`` (the 26-table lookup, one-hot members int8 against bf16,
+   bit for bit against the host truth), ``_int8_onehot`` (the one-hot
+   products bf16 / int8 / one fat member, K1's one-hot group and K6 v2,
+   the stored values exactly; K1 with per-key scales == K6 v1 == the host
+   truth), ``_geometry`` (K1 on tables of 4,096 to 10,137,600 rows at
+   1,024 / 4,096 / 26,624 slots by group kind, bit for bit) and
+   ``_overlap`` (one K1 launch against one a group, sorted slots, the
+   Criteo-26 layout, bit for bit). Each script's graph replays and rounds
+   are its own defaults; no shape is cut. K1, K2, K3, K4 and K6 (both
+   bodies) must launch. The phase prints its peak memory and seconds;
+   ``microbench_layouts_alone()`` runs it alone.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -4666,6 +4694,115 @@ def bench_alone() -> int:
     return 0
 
 
+#: What the TPU-layout microbenchmarks must launch (the geometry, grouping,
+#: full_ab and fold_ab lookups: K1; oh_fused and fold_ab: K3 and K2;
+#: pallas_interaction and pallas_parts: K4; int8_onehot: K6 v1 and v2).
+LAYOUT_KERNELS = ("gather_dequant", "dot_interaction_parts", "dot_interaction_oh_parts",
+                  "fused_dot_interaction", "onehot_gather", "onehot_gather_rows")
+#: The phase's rehearsal on the CPU (``smoke=True``): each script's
+#: correctness step at a test's sizes.
+_CAPPED = [min(c, 70_000) for c in CRITEO_CARDS]
+LAYOUT_SMOKE = {
+    "microbench_pallas_interaction": {"batch": 64, "n_sets": 1},
+    "microbench_pallas_parts": {"batch": 64, "n_sets": 1, "bottom": (16, 16), "top": (32, 1)},
+    "microbench_parts_fm": {"batch": 64, "n_sets": 1, "bottom": (16, 16), "top": (32, 1)},
+    "microbench_oh_fused": {"batch": 64, "n_sets": 1, "dim": 16},
+    "microbench_fold_ab": {"batch": 64, "n_sets": 1},
+    "microbench_full_ab": {"cards": _CAPPED, "batch": 64, "n_sets": 1},
+    "microbench_int8_onehot": {"batch": 64, "n_sets": 1, "m_tile": 64},
+    "microbench_geometry": {"rows": (4096, 16_384), "slot_counts": (64, 256), "n_sets": 1},
+    "microbench_overlap": {"batch": 64, "n_sets": 1,
+                           "big_cards": [c for c in _CAPPED if c > 65_536]},
+}
+
+
+def microbench_layouts_phase(dev, emit_line=emit, smoke: bool = False) -> dict:
+    """The nine TPU-layout microbenchmarks, ported, each at its card sizes
+    with its own correctness step (``hugectr_backend_tpu_torch.scripts``):
+    ``microbench_pallas_interaction`` (K4 at every launch plan, bit for bit
+    the default's, the default within rtol 1e-5 / atol 1e-6 max|z|^2 of the
+    plain formulation), ``_pallas_parts`` (the DLRM forward stacked + plain,
+    stacked + K4, parts + K2: K4 == K2 bit for bit, the plain one within the
+    interaction's bar and rel 5e-3 at the logits), ``_parts_fm`` (the
+    part-major map with the permuted top layer within rtol 1e-4 / atol 1e-5
+    of the interleaved one), ``_oh_fused`` (K1 + K2 against K3 within the
+    interaction's bar), ``_fold_ab`` (the whole forward, fold against
+    two-stage rel < 5e-3), ``_full_ab`` (int8 and bf16 one-hot members, bit
+    for bit), ``_int8_onehot`` (every product, K1 and K6 bit for bit),
+    ``_geometry`` and ``_overlap`` (K1 by table size, slot count, group kind
+    and launch grouping, bit for bit). One build of the uncapped Criteo
+    tables (4.32 GB) serves fold_ab, and its 8 solo tables full_ab and
+    overlap. ``smoke``: each script at ``LAYOUT_SMOKE``'s sizes and the
+    tables capped, the phase's rehearsal on the CPU. -> the result lines,
+    the launches, the peak memory and the seconds."""
+    from hugectr_backend_tpu_torch import bench
+    from hugectr_backend_tpu_torch.ops import kernels
+    from hugectr_backend_tpu_torch.scripts import (
+        microbench_fold_ab,
+        microbench_full_ab,
+        microbench_geometry,
+        microbench_int8_onehot,
+        microbench_oh_fused,
+        microbench_overlap,
+        microbench_pallas_interaction,
+        microbench_pallas_parts,
+        microbench_parts_fm,
+    )
+
+    t0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.empty(1, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(kernels.launches)
+    tables = bench.CriteoTables(_CAPPED if smoke else CRITEO_CARDS, dev)
+    big = dict(zip(tables.big_cards, tables.big_vals))
+    lines = {}
+    for mod, kw in ((microbench_pallas_interaction, {}), (microbench_pallas_parts, {}),
+                    (microbench_parts_fm, {}), (microbench_oh_fused, {}),
+                    (microbench_fold_ab, {"cards": tables.cards, "tables": tables}),
+                    (microbench_full_ab, {"big": big}), (microbench_int8_onehot, {}),
+                    (microbench_geometry, {}), (microbench_overlap, {"big": big})):
+        t1 = time.perf_counter()
+        name = mod.__name__.rsplit(".", 1)[1]
+        lines[name] = mod.run(dev, emit=emit_line, **kw, **(LAYOUT_SMOKE[name] if smoke else {}))
+        if cuda:
+            torch.cuda.synchronize(dev)
+        print(f"{name}: {time.perf_counter() - t1:.1f} s", flush=True)
+    del tables, big
+    launches = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v - before.get(k, 0)}
+    if cuda:
+        torch.cuda.empty_cache()
+        plans = [ln for ln in lines["microbench_pallas_interaction"] if ln["leg"] == "K4 plan"]
+        if not any(ln["default"] and ln.get("us", 0) > 0 for ln in plans):
+            raise AssertionError("microbench_pallas_interaction: the default plan was not timed")
+        for name in LAYOUT_KERNELS:
+            if launches.get(name, 0) < 1:
+                raise AssertionError(f"the TPU-layout microbenchmarks never launched {name}")
+    return {"lines": lines, "launches": launches, "seconds": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None}
+
+
+def microbench_layouts_alone() -> int:
+    """The TPU-layout microbenchmarks' phase alone, on the card (build, the
+    phase): ``python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.microbench_layouts_alone())"``."""
+    from hugectr_backend_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kernels.build_all()
+    res = microbench_layouts_phase(dev)
+    print(f"microbench_layouts phase: launches {res['launches']} ({res['seconds']:.1f} s, "
+          f"peak {res['peak_gb']:.3f} GB; {torch.cuda.get_device_name(0)})", flush=True)
+    return 0
+
+
 def examples_alone() -> int:
     """The examples phase alone, on the card (build, the phase):
     ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.examples_alone())"``."""
@@ -5474,8 +5611,16 @@ def main() -> int:
     print(f"bench phase: the benchmark and the eight microbenchmarks passed their checks; "
           f"launches {bph['launches']}; peak {bph['peak_gb']:.3f} GB allocated; "
           f"{bph['seconds']:.1f} s ({card} | {smi})", flush=True)
+
+    # Phase 13: the TPU-layout microbenchmarks (slice 17's path), counted:
+    # the uncapped tables built once for fold_ab, full_ab and overlap.
+    kernels.launches.clear()
+    lph = microbench_layouts_phase(dev, emit_line=mb_emit)
+    print(f"microbench_layouts phase: the nine microbenchmarks passed their checks; "
+          f"launches {lph['launches']}; peak {lph['peak_gb']:.3f} GB allocated; "
+          f"{lph['seconds']:.1f} s ({card} | {smi})", flush=True)
     for name, n in (list(shd["launches"].items()) + list(exa["launches"].items())
-                    + list(bph["launches"].items())):
+                    + list(bph["launches"].items()) + list(lph["launches"].items())):
         launches[name] = launches.get(name, 0) + n
     print(smi)
     emit({"kernels": [

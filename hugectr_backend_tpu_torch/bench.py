@@ -84,20 +84,19 @@ import numpy as np
 import torch
 
 from hugectr_backend_tpu_torch.scripts.common import (
+    CRITEO_CARDS,
+    arena_layout,
     card_info,
     eager_us,
     flat_truth,
     gen_flat,
+    grouping,
+    host_scale,
+    rel_err,
     slope_us,
 )
 from hugectr_backend_tpu_torch.tiers.hbm import default_device
 
-# The 26 Criteo-Kaggle categorical cardinalities (C1..C26).
-CRITEO_CARDS = [
-    1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
-    8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
-    286181, 105, 142572,
-]
 DIM = 128
 NUM_DENSE = 13
 BOTTOM = (512, 256, DIM)
@@ -144,37 +143,7 @@ def smoke() -> bool:
     return bool(os.environ.get("HPS_BENCH_SMOKE"))
 
 
-def host_scale(i):
-    """The synthetic per-row scale formula (the host mirror of ``gen_flat``'s
-    device scales)."""
-    return np.float32(0.01) + (np.asarray(i) % 50).astype(np.float32) * np.float32(0.001)
-
-
 # --------------------------------------------------------------- the lookup
-
-
-def grouping(cards):
-    """The production grouping policy, verbatim: -> (one-hot, arena, solo)
-    table indices."""
-    from hugectr_backend_tpu_torch.ps.parameter_server import (
-        arena_member_max_rows,
-        onehot_member_max_rows,
-    )
-
-    oh = [t for t, c in enumerate(cards) if c + 1 <= onehot_member_max_rows()]
-    ar = [t for t, c in enumerate(cards)
-          if c + 1 > onehot_member_max_rows() and c <= arena_member_max_rows()]
-    big = [t for t, c in enumerate(cards) if c > arena_member_max_rows()]
-    return oh, ar, big
-
-
-def arena_layout(cards, align: int = 1):
-    """Member blocks of ``card + 1`` rows padded to ``align``-row multiples
-    (one-hot members to 128 rows, as production's arena views). -> (offsets
-    [n + 1], total rows)."""
-    blocks = [-(-(c + 1) // align) * align for c in cards]
-    off = np.concatenate([[0], np.cumsum(blocks)]).astype(np.int64)
-    return off, int(off[-1])
 
 
 class CriteoTables:
@@ -373,11 +342,6 @@ def _counted(fn, dev):
                  if v - before.get(k, 0)}
 
 
-def _rel(got, want) -> float:
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12))
-
-
 #: The kernels one forward of each variant launches on the card.
 VARIANT_LAUNCHES = {
     "f32": {"gather_dequant": 1, "dot_interaction_oh_parts": 1},
@@ -447,12 +411,12 @@ def fused_stage(tables: CriteoTables, sz: Sizes, dev) -> dict:
             logits[name] = got
             cpu_model = variants[name][0] if dev.type == "cpu" else _cpu_copy(m)
             want = cpu_model(ref_dense, ref_emb).float().numpy()
-            rel = _rel(got[:N_REF], want)
+            rel = rel_err(got[:N_REF], want)
             if rel > VARIANT_TOL[name]:
                 raise AssertionError(f"fused {name}: first {N_REF} logits vs the CPU "
                                      f"|delta|/max|logit| {rel} > {VARIANT_TOL[name]}")
             checks[name] = rel
-        fold_rel = _rel(logits["f32"], logits["f32_twostage"])
+        fold_rel = rel_err(logits["f32"], logits["f32_twostage"])
         if fold_rel >= REL_FOLD:
             raise AssertionError(f"fold vs two-stage logits rel {fold_rel}")
 
@@ -509,7 +473,7 @@ def din_stage(sz: Sizes, dev) -> dict:
     truth = flat_truth(slots_np, "device").reshape(b, s, DIM)
     mask = (np.arange(s)[None, :] < seq_np[:, None]).astype(np.float32)
     want = (truth * mask[..., None]).sum(1) / np.maximum(seq_np, 1)[:, None].astype(np.float32)
-    rel = _rel(got, want)
+    rel = rel_err(got, want)
     if rel > 1e-5:
         raise AssertionError(f"DIN pooled lookup vs the host's pool: rel {rel}")
 

@@ -395,13 +395,46 @@ def k3_plan(batch: int, feats: int, dim: int, sms: int = H100_SMS,
                   else _WIDE_CTAS_PER_SM)
         return K3WidePlan(max(1, min(batch, per_sm * sms)), _WIDE_THREADS, f_pad, d_pad, smem)
     best = None
+    for p in k3_plans(batch, feats, dim, sms):
+        if best is None or p.ctas_per_sm * p.warps >= best.ctas_per_sm * best.warps:
+            best = p
+    return best
+
+
+def k3_plans(batch: int, feats: int, dim: int, sms: int = H100_SMS) -> "list[K3Plan]":
+    """Every warp-per-sample plan of the shape, one per warps per CTA from 1
+    to 8 (as many as fit a block's shared memory), each with the CTAs per
+    SM that shared memory and 16 warps an SM allow and a persistent grid:
+    what :func:`k3_plan` picks from, and what a timing sweep takes."""
+    per_warp = k3_warp_bytes(feats, dim)
+    plans = []
     for warps in range(1, min(_K3_MAX_WARPS, MAX_SMEM // per_warp) + 1):
         smem = warps * per_warp
         per_sm = min(_K3_SM_WARPS // warps, SM_SMEM // (smem + 1024))
-        if best is None or per_sm * warps >= best[0]:
-            best = (per_sm * warps, warps, smem, per_sm)
-    _, warps, smem, per_sm = best
-    return K3Plan(warps, smem, max(1, min(-(-batch // warps), per_sm * sms)), per_sm)
+        plans.append(K3Plan(warps, smem, max(1, min(-(-batch // warps), per_sm * sms)), per_sm))
+    return plans
+
+
+def check_k3_plan(name: str, plan, feats: int, dim: int) -> None:
+    """Raise unless ``plan`` is one the forward kernel takes for F =
+    ``feats``, D = ``dim``: a :class:`K3Plan` of 1 to 8 warps, a grid of at
+    least one CTA and ``smem`` = warps x one warp's tile and stage, within
+    a block's shared memory (the kernel's own check, made on the host so
+    that a CPU call refuses the same plans); or a :class:`K3WidePlan` with
+    the shape's padded tile."""
+    if isinstance(plan, K3WidePlan):
+        f_pad, d_pad = -(-feats // 16) * 16, -(-dim // 16) * 16
+        tile = 2 * f_pad * (d_pad + 8)
+        ok = (plan.grid >= 1 and plan.threads == _WIDE_THREADS and plan.f_pad == f_pad
+              and plan.d_pad == d_pad and plan.smem in (0, tile)
+              and plan.smem <= MAX_SMEM - _WIDE_STAGE)
+    elif isinstance(plan, K3Plan):
+        ok = (1 <= plan.warps <= _K3_MAX_WARPS and plan.grid >= 1
+              and plan.smem == plan.warps * k3_warp_bytes(feats, dim) and plan.smem <= MAX_SMEM)
+    else:
+        ok = False
+    if not ok:
+        raise ValueError(f"{name}: the kernel takes no plan {plan!r} for F {feats}, D {dim}")
 
 
 def _feature_descs(name, bottom, parts, feature_map, dtypes=(torch.float32, torch.bfloat16)):
@@ -439,7 +472,7 @@ def _feature_descs(name, bottom, parts, feature_map, dtypes=(torch.float32, torc
 def _launch(name, bottom, parts, feature_map, oh=None, plan=None) -> torch.Tensor:
     """The forward kernel on CUDA operands; ``oh`` = (arena, slots, scales,
     members or None) for K3. ``plan``: :func:`k3_plan`'s, or a timing
-    sweep's (the kernel checks it)."""
+    sweep's (checked by :func:`check_k3_plan`, and by the kernel)."""
     dev = bottom.device
     ptrs, strides, vec4 = _feature_descs(name, bottom, parts, feature_map)
     b, d = bottom.shape
@@ -482,6 +515,8 @@ def _launch(name, bottom, parts, feature_map, oh=None, plan=None) -> torch.Tenso
     if plan is None:
         plan = k3_plan(b, f, d, torch.cuda.get_device_properties(dev).multi_processor_count,
                        max(len(ptrs), n_oh))
+    else:
+        check_k3_plan(name, plan, f, d)
     lib = kernels.library("dot_interaction")
     _bind(lib)
     if isinstance(plan, K3WidePlan):
@@ -682,31 +717,36 @@ class _Interaction(torch.autograd.Function):
     ``dot_interaction_bwd``."""
 
     @staticmethod
-    def forward(ctx, name, feature_map, bottom, *parts):
+    def forward(ctx, name, feature_map, plan, bottom, *parts):
         ctx.feature_map = feature_map
         ctx.save_for_backward(bottom, *parts)
         if bottom.device.type == "cpu":
+            if plan is not None:
+                check_k3_plan(name, plan, 1 + len(feature_map), bottom.shape[-1])
             return dot_interaction_parts_ref(bottom, parts, feature_map)
-        return _launch(name, bottom, parts, feature_map)
+        return _launch(name, bottom, parts, feature_map, plan=plan)
 
     @staticmethod
     def backward(ctx, g):
         bottom, *parts = ctx.saved_tensors
         g_bottom, g_parts = dot_interaction_bwd(bottom, parts, ctx.feature_map, g,
-                                                ctx.needs_input_grad[2],
-                                                ctx.needs_input_grad[3:])
-        return (None, None, g_bottom, *g_parts)
+                                                ctx.needs_input_grad[3],
+                                                ctx.needs_input_grad[4:])
+        return (None, None, None, g_bottom, *g_parts)
 
 
-def fused_dot_interaction(bottom: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+def fused_dot_interaction(bottom: torch.Tensor, emb: torch.Tensor, plan=None) -> torch.Tensor:
     """K4. bottom [B, D] f32 or bf16, emb [B, T, D] of the same type (unit
     column stride) -> [B, D + F(F-1)/2] of that type with F = T + 1;
-    differentiable in both inputs (f32 only: the backward kernel is f32)."""
+    differentiable in both inputs (f32 only: the backward kernel is f32).
+    ``plan``: the launch plan, :func:`k3_plan`'s when None; another (a
+    timing sweep's) must pass :func:`check_k3_plan`, on the CPU too, where
+    the plain version runs whatever the plan."""
     if emb.dim() != 3 or emb.shape[0] != bottom.shape[0] or emb.shape[2] != bottom.shape[-1]:
         raise ValueError(f"fused_dot_interaction: emb must be [B, T, D] for bottom "
                          f"{tuple(bottom.shape)}, got {tuple(emb.shape)}")
     fmap = tuple((0, t) for t in range(emb.shape[1]))
-    return _Interaction.apply("fused_dot_interaction", fmap, bottom, emb.transpose(0, 1))
+    return _Interaction.apply("fused_dot_interaction", fmap, plan, bottom, emb.transpose(0, 1))
 
 
 def fused_dot_interaction_bwd(bottom: torch.Tensor, emb: torch.Tensor, g: torch.Tensor):
@@ -718,18 +758,19 @@ def fused_dot_interaction_bwd(bottom: torch.Tensor, emb: torch.Tensor, g: torch.
     return g_bottom, g_emb.transpose(0, 1)
 
 
-def dot_interaction_parts(bottom: torch.Tensor, parts, feature_map) -> torch.Tensor:
+def dot_interaction_parts(bottom: torch.Tensor, parts, feature_map, plan=None) -> torch.Tensor:
     """K2. bottom [B, D] f32 or bf16; parts: [n_i, S_i >= B, D] of the same
     type (any strides with a unit column stride); feature_map[t] = (part,
     sub). -> [B, D + F(F-1)/2] of that type with F = 1 + len(feature_map);
-    differentiable in bottom and the parts (f32 only)."""
+    differentiable in bottom and the parts (f32 only). ``plan`` as
+    :func:`fused_dot_interaction`'s."""
     fmap = tuple(tuple(x) for x in feature_map)
-    return _Interaction.apply("dot_interaction_parts", fmap, bottom, *parts)
+    return _Interaction.apply("dot_interaction_parts", fmap, plan, bottom, *parts)
 
 
 def dot_interaction_oh_parts(bottom: torch.Tensor, arena: torch.Tensor,
                              slots: torch.Tensor, scales: Optional[torch.Tensor],
-                             parts, feature_map, members=None) -> torch.Tensor:
+                             parts, feature_map, members=None, plan=None) -> torch.Tensor:
     """K3. As K2 (f32 or bf16 bottom, parts and output), with ``n_oh =
     slots.shape[0]`` features before the ``feature_map`` ones, built from
     ``arena`` [R, D] (int8, fp8, bf16 or f32, whatever the bottom's type):
@@ -738,10 +779,13 @@ def dot_interaction_oh_parts(bottom: torch.Tensor, arena: torch.Tensor,
     lies inside ``members[j] = (offset, size)``; outside it the row is zero,
     as the JAX package's one-hot mask gives (``members`` None: the whole
     arena), and outside the arena NaN. Forward-only: raises when autograd
-    would record it."""
-    kernels.forward_only("dot_interaction_oh_parts", bottom, arena, scales, *parts)
+    would record it. ``plan`` as :func:`fused_dot_interaction`'s."""
+    name = "dot_interaction_oh_parts"
+    kernels.forward_only(name, bottom, arena, scales, *parts)
     if bottom.device.type == "cpu":
+        if plan is not None:
+            check_k3_plan(name, plan, 1 + slots.shape[0] + len(feature_map), bottom.shape[-1])
         return dot_interaction_oh_parts_ref(bottom, arena, slots, scales, parts,
                                             feature_map, members)
-    return _launch("dot_interaction_oh_parts", bottom, parts, feature_map,
-                   oh=(arena, slots, scales, members))
+    return _launch(name, bottom, parts, feature_map, oh=(arena, slots, scales, members),
+                   plan=plan)

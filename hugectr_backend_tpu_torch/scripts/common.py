@@ -1,7 +1,9 @@
-"""Shared pieces of the benchmark programs: the synthetic tables, the Zipf
+"""Shared pieces of the benchmark programs: the Criteo-Kaggle cardinalities
+and their split into the three lookup kinds, the synthetic tables, the Zipf
 keys, the tile-padded arena of the tiny tables, the CUDA-graph timers (a
 batch of calls, and the slope over chained iterations), the eager timer,
-the card's name and power limit, and its published peak rates.
+the card's name and power limit, its published peak rates, and the
+interaction kernels' bar against their plain versions.
 
 The tables and keys are those of the JAX package's ``scripts/microbench_*.py``:
 row ``r`` of a table holds ``(r * 131) % 255 - 127`` in every column (int8)
@@ -29,10 +31,62 @@ DIM = 128
 BATCH = 4096
 N_SETS = 20  # distinct slot sets per timed graph
 ZIPF_A = 1.05
+# The 26 Criteo-Kaggle categorical cardinalities (C1..C26), uncapped.
+CRITEO_CARDS = [
+    1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+    8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
+    286181, 105, 142572,
+]
+# The same tables split as the JAX package's scripts/microbench_true.py and
+# microbench_overlap.py split them: the 8 past 65,536 rows (BIG_CARDS, the
+# solo group) and the 18 others (SMALL_CARDS); and the 14 one-hot members,
+# the tables of at most 4,096 rows with their default row (OH_CARDS, as
+# scripts/microbench_oh_fused.py and microbench_int8_onehot.py list them).
+BIG_CARDS = [10131227, 2202608, 8351593, 5461306, 7046547, 286181, 142572,
+             93145]
+SMALL_CARDS = [1460, 583, 305, 24, 12517, 633, 3, 5683, 3194, 27, 14992, 10,
+               5652, 2173, 4, 18, 15, 105]
+OH_CARDS = [1460, 583, 305, 24, 633, 3, 3194, 27, 10, 2173, 4, 18, 15, 105]
 # The 16 Criteo-Kaggle tables under 6k rows, the one-hot group of both
 # microbenchmarks.
 TINY_CARDS = [1460, 583, 305, 24, 633, 3, 5683, 3194, 27, 10, 5652, 2173, 4,
               18, 15, 105]
+#: The interaction kernels (K2, K3, K4) against their plain versions: both
+#: round z to bf16 and differ only in the order of the f32 sums, so rtol
+#: RTOL with atol 1e-6 * max|z|^2 (where a sum cancels).
+RTOL = 1e-5
+
+
+def grouping(cards):
+    """The production grouping policy (``ps/parameter_server.py``): ->
+    (one-hot, arena, solo) table indices: tables of at most
+    ``onehot_member_max_rows()`` rows with the default row, then those of at
+    most ``arena_member_max_rows()`` rows, then the rest."""
+    from hugectr_backend_tpu_torch.ps.parameter_server import (
+        arena_member_max_rows,
+        onehot_member_max_rows,
+    )
+
+    oh = [t for t, c in enumerate(cards) if c + 1 <= onehot_member_max_rows()]
+    ar = [t for t, c in enumerate(cards)
+          if c + 1 > onehot_member_max_rows() and c <= arena_member_max_rows()]
+    big = [t for t, c in enumerate(cards) if c > arena_member_max_rows()]
+    return oh, ar, big
+
+
+def arena_layout(cards, align: int = 1):
+    """Member blocks of ``card + 1`` rows padded to ``align``-row multiples
+    (one-hot members to 128 rows, as production's arena views). -> (offsets
+    [n + 1], total rows)."""
+    blocks = [-(-(c + 1) // align) * align for c in cards]
+    off = np.concatenate([[0], np.cumsum(blocks)]).astype(np.int64)
+    return off, int(off[-1])
+
+
+def gen_scales(rows: int, device) -> torch.Tensor:
+    """The device scales of :func:`gen_flat`'s rows: [rows] f32."""
+    i = torch.arange(rows, dtype=torch.int32, device=device)
+    return 0.01 + (i % 50).float() * 0.001
 
 
 def gen_flat(rows: int, device) -> "tuple[torch.Tensor, torch.Tensor]":
@@ -41,8 +95,20 @@ def gen_flat(rows: int, device) -> "tuple[torch.Tensor, torch.Tensor]":
     i = torch.arange(rows, dtype=torch.int32, device=device)
     v = ((i * 131) % 255 - 127).to(torch.int8)
     values = v[:, None].expand(rows, DIM).contiguous()
-    scales = 0.01 + (i % 50).float() * 0.001
-    return values, scales
+    return values, gen_scales(rows, device)
+
+
+def host_scale(i):
+    """The host mirror of :func:`gen_scales` at rows ``i`` (f32, one
+    multiply then one add)."""
+    return np.float32(0.01) + (np.asarray(i) % 50).astype(np.float32) * np.float32(0.001)
+
+
+def bf16_round(x) -> np.ndarray:
+    """f32 values rounded to the nearest bf16 (ties to even), as f32: what a
+    bf16 cast on the card stores. Finite inputs."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(np.float32)
 
 
 def flat_truth(slots: np.ndarray, scales: "str | float | None") -> np.ndarray:
@@ -259,6 +325,27 @@ def device_profile(run, n: int):
         return None, []
     top = sorted(((k[:80], v / n) for k, v in by_name.items()), key=lambda kv: -kv[1])
     return sum(by_name.values()) / n, top
+
+
+def zmax(feats) -> float:
+    """max |z| over the interaction's rows, z rounded to bf16."""
+    return max(float(f.to(torch.bfloat16).float().abs().max()) for f in feats if f.numel())
+
+
+def interaction_within(got, want, zm: float) -> "tuple[bool, float]":
+    """An interaction kernel's output against its plain version's: -> (every
+    value within rtol RTOL and atol 1e-6 * zm^2, the largest |difference|)."""
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= 1e-6 * zm * zm + RTOL * want.float().abs()).all())
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| in f64, of arrays or tensors (on any
+    device)."""
+    got = np.asarray(torch.as_tensor(got).detach().float().cpu(), np.float64)
+    want = np.asarray(torch.as_tensor(want).detach().float().cpu(), np.float64)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12))
 
 
 def timed_line(keys: int, us: float, nbytes: float, **fields) -> dict:

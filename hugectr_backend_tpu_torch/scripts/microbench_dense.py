@@ -155,7 +155,7 @@ def run(device=None, batch: int = BATCH, emit=None) -> list:
             want = model(ref_in.dense[:n_ref].cpu(), ref_in.stacked[:n_ref].cpu()).float().numpy()
             m = model.to(dev)
             got = m(ref_in.dense, ref_in.emb()).float()[:n_ref].cpu().numpy()
-            rel = bench._rel(got, want)
+            rel = bench.rel_err(got, want)
             if rel > bench.VARIANT_TOL[variant]:
                 raise AssertionError(f"microbench_dense {name}: vs the CPU {rel}")
             stage(name, [lambda s=s, m=m: m(s.dense, s.emb()) for s in sets],

@@ -42,9 +42,11 @@ from hugectr_backend_tpu_torch.ops.dequant_gather import gather_dequant, gather_
 from hugectr_backend_tpu_torch.ops.onehot_gather import onehot_gather
 from hugectr_backend_tpu_torch.scripts.common import (
     BATCH,
+    BIG_CARDS,
     DIM,
     N_SETS,
     R_TILE,
+    SMALL_CARDS,
     TINY_CARDS,
     build_arena,
     flat_truth,
@@ -56,10 +58,6 @@ from hugectr_backend_tpu_torch.scripts.common import (
 )
 from hugectr_backend_tpu_torch.tiers.hbm import default_device
 
-BIG_CARDS = [10131227, 2202608, 8351593, 5461306, 7046547, 286181, 142572,
-             93145]
-SMALL_CARDS = [1460, 583, 305, 24, 12517, 633, 3, 5683, 3194, 27, 14992, 10,
-               5652, 2173, 4, 18, 15, 105]
 PER_KEY_SCALE = 0.013
 ONEHOT_M_TILE = 4096  # config J's m_tile (its r_tile is R_TILE, 512)
 

@@ -164,7 +164,7 @@ def test_fused_variants_match_jax(one_torch_thread, monkeypatch, small_state):
             fm, fp = flax[name]
             want = np.asarray(fm.apply(fp, jnp.asarray(dense), _jax_emb(st, outs, fold)))
             assert got.shape == want.shape == (st.batch,)
-            assert bench._rel(got, want) <= TOL[name], (name, bench._rel(got, want))
+            assert bench.rel_err(got, want) <= TOL[name], (name, bench.rel_err(got, want))
 
 
 def _jax_line_keys(jax_bench) -> set:

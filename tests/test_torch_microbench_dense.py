@@ -105,7 +105,7 @@ def test_dense_stages_match_flax(one_torch_thread, monkeypatch):
                 fp = jqd.quantize_model_params(params, variant)
             want = np.asarray(fm.apply(fp, dense, jemb))
             got = variants[variant][0](inp.dense, inp.emb()).float().numpy()
-            assert bench._rel(got, want) <= tol[variant], (stage, bench._rel(got, want))
+            assert bench.rel_err(got, want) <= tol[variant], (stage, bench.rel_err(got, want))
         p = params["params"]
         for name, mlp, fmlp, x in (
                 ("E", model.bottom, FlaxMLP(bench.BOTTOM), inp.dense),
