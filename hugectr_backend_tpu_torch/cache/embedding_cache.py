@@ -42,12 +42,14 @@ import torch
 from hugectr_backend_tpu_torch.cache import lookup_program
 from hugectr_backend_tpu_torch.cache.slotmap import make_slotmap, translate_slotmaps_batch
 from hugectr_backend_tpu_torch.config.params import EmbeddingCacheType, InferenceParams
+from hugectr_backend_tpu_torch.serving import metrics
 from hugectr_backend_tpu_torch.tiers.hbm import (
     DeviceTable,
     scatter_rows,
     translate_indexes_batch,
 )
 from hugectr_backend_tpu_torch.utils.logging import get_logger
+from hugectr_backend_tpu_torch.utils.tracing import span
 
 log = get_logger("hps_tpu.cache")
 
@@ -276,52 +278,62 @@ class EmbeddingCache:
         ``pad_counts[t]`` (optional, >= len(keys_per_table[t])) pads table t's
         run to that many rows with default-row slots, which never count as
         misses."""
-        with self._lock:
-            local_slots, counts, miss_info = self._translate_all(keys_per_table)
-            need_merge = self.tier_query is not None and any(
-                m.any() for _, m in miss_info)
-            if pad_counts is not None:
-                for t, pc in enumerate(pad_counts):
+        counts, miss_info, args, table_pos = self._dispatch_args(keys_per_table, pad_counts)
+        with span("hps.dispatch.launch", metrics.DISPATCH_LAUNCH_SECONDS,
+                  self.params.model_name):
+            if self.tier_query is None or not any(m.any() for _, m in miss_info):
+                slices = tuple((table_pos[t][0], table_pos[t][1], counts[t])
+                               for t in range(len(self.tables)))
+                return lookup_program.lookup_flat(*args, slices)
+            outs = self._lookup_prepared(counts, miss_info, args, table_pos)
+            if not outs:
+                return torch.zeros((0,), dtype=torch.float32, device=self.device)
+            return torch.cat([o.reshape(-1) for o in outs])
+
+    def lookup(self, keys_per_table: Sequence[np.ndarray]) -> list[torch.Tensor]:
+        """Full lookup with miss-merge. -> per-table f32 [n_t, dim_t] device
+        tensors (views of the group outputs)."""
+        counts, miss_info, args, table_pos = self._dispatch_args(keys_per_table)
+        with span("hps.dispatch.launch", metrics.DISPATCH_LAUNCH_SECONDS,
+                  self.params.model_name):
+            return self._lookup_prepared(counts, miss_info, args, table_pos)
+
+    def _dispatch_args(self, keys_per_table, pad_counts=None):
+        """Translate and assemble under ONE hold of the lock, then upload.
+        -> (counts, miss_info, args, table_pos); ``args`` the device
+        program's arguments (lookup_program.lookup_groups). ``pad_counts``:
+        as in :meth:`lookup_flat`. Spans ``hps.dispatch.lock_wait``,
+        ``.translate`` and ``.assemble`` (utils/tracing.py)."""
+        model = self.params.model_name
+        with span("hps.dispatch.lock_wait", metrics.DISPATCH_LOCK_WAIT_SECONDS, model):
+            self._lock.acquire()
+        locked = True
+        try:
+            with span("hps.dispatch.translate", metrics.DISPATCH_TRANSLATE_SECONDS, model):
+                local_slots, counts, miss_info = self._translate_all(keys_per_table)
+                for t, pc in enumerate(() if pad_counts is None else pad_counts):
                     pc = int(pc)
                     if pc > counts[t]:
                         pad = np.full(pc - counts[t], self.tables[t].index.miss_slot,
                                       dtype=local_slots[t].dtype)
                         local_slots[t] = np.concatenate([local_slots[t], pad])
                         counts[t] = pc
-            vals_l, dscales_l, slots_l, scin_l, metas, table_pos = (
-                self.prepare_lookup(counts, local_slots, bucket=False))
-        if not need_merge:
-            slices = tuple(
-                (table_pos[t][0], table_pos[t][1], counts[t])
-                for t in range(len(self.tables))
-            )
-            slots_cat, sb, scin_cat, cb = lookup_program.upload_host_args(
-                vals_l, slots_l, scin_l, self.device)
-            return lookup_program.lookup_flat(
-                vals_l, dscales_l, slots_cat, scin_cat, metas, sb, cb, slices)
-        outs = self._lookup_prepared(
-            counts, miss_info, vals_l, dscales_l, slots_l, scin_l, metas, table_pos)
-        if not outs:
-            return torch.zeros((0,), dtype=torch.float32, device=self.device)
-        return torch.cat([o.reshape(-1) for o in outs])
+            with span("hps.dispatch.assemble", metrics.DISPATCH_ASSEMBLE_SECONDS, model):
+                vals_l, dscales_l, slots_l, scin_l, metas, table_pos = (
+                    self.prepare_lookup(counts, local_slots, bucket=False))
+                self._lock.release()
+                locked = False
+                slots_cat, sb, scin_cat, cb = lookup_program.upload_host_args(
+                    vals_l, slots_l, scin_l, self.device)
+        finally:
+            if locked:
+                self._lock.release()
+        return (counts, miss_info,
+                (vals_l, dscales_l, slots_cat, scin_cat, metas, sb, cb), table_pos)
 
-    def lookup(self, keys_per_table: Sequence[np.ndarray]) -> list[torch.Tensor]:
-        """Full lookup with miss-merge. -> per-table f32 [n_t, dim_t] device
-        tensors (views of the group outputs)."""
-        with self._lock:
-            local_slots, counts, miss_info = self._translate_all(keys_per_table)
-            vals_l, dscales_l, slots_l, scin_l, metas, table_pos = (
-                self.prepare_lookup(counts, local_slots, bucket=False))
-        return self._lookup_prepared(
-            counts, miss_info, vals_l, dscales_l, slots_l, scin_l, metas, table_pos)
-
-    def _lookup_prepared(self, counts, miss_info, vals_l, dscales_l, slots_l,
-                         scin_l, metas, table_pos) -> list[torch.Tensor]:
-        """Gather + tier miss-merge over an already-translated snapshot."""
-        slots_cat, sb, scin_cat, cb = lookup_program.upload_host_args(
-            vals_l, slots_l, scin_l, self.device)
-        gouts = lookup_program.lookup_groups(
-            vals_l, dscales_l, slots_cat, scin_cat, metas, sb, cb)
+    def _lookup_prepared(self, counts, miss_info, args, table_pos) -> list[torch.Tensor]:
+        """Gather + tier miss-merge over :meth:`_dispatch_args`' snapshot."""
+        gouts = lookup_program.lookup_groups(*args)
         # Miss merge: rows the device tier does not hold come from the DRAM /
         # SSD tiers, scattered into the group outputs.
         if self.tier_query is not None:

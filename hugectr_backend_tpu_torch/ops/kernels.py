@@ -13,6 +13,7 @@ and a stale library is never loaded. All sources compile in parallel (one
 ``launches[name]`` counts the launches of each kernel: a wrapper adds one
 (``count_launch``, under a lock: the front end's batcher threads launch K1
 concurrently) where it launches its kernel, and nowhere else.
+``thread_launches(name)`` is the same count, of the calling thread alone.
 """
 
 from __future__ import annotations
@@ -43,10 +44,24 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 
 
+class _Tally(threading.local):
+    def __init__(self):
+        self.launches = collections.Counter()
+
+
+_tally = _Tally()
+
+
 def count_launch(name: str) -> None:
     """Add one launch of kernel ``name`` (thread-safe)."""
     with _count_lock:
         launches[name] += 1
+    _tally.launches[name] += 1
+
+
+def thread_launches(name: str) -> int:
+    """Launches of kernel ``name`` made on the calling thread so far."""
+    return _tally.launches[name]
 
 
 def _nvcc() -> str:

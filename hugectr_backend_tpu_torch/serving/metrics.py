@@ -226,6 +226,55 @@ BATCH_DISPATCH_SECONDS = REGISTRY.histogram(
     "device->host transfer (includes interconnect RTT on remote-attached "
     "setups)",
 )
+# The stages of a request and of a merged batch (``utils/tracing.py`` spans
+# of the same names): each is observed on the ``model`` label alone. The
+# five dispatch stages tile BATCH_DISPATCH_SECONDS's interval, less the
+# Python that joins them. A merged batch's histograms count it once it is
+# answered (``tracing.held``): a failed attempt counts in none of them.
+STAGE_BUCKETS = (10e-6, 25e-6) + Histogram.DEFAULT_BUCKETS
+HTTP_READ_SECONDS = REGISTRY.histogram(
+    "hps_http_read_seconds",
+    "Per HTTP infer request: body read off the socket, JSON header, tensor "
+    "views (span hps.http.read)", buckets=STAGE_BUCKETS,
+)
+HTTP_WRITE_SECONDS = REGISTRY.histogram(
+    "hps_http_write_seconds",
+    "Per HTTP infer request: response header and OUTPUT0 written to the "
+    "socket (span hps.http.write)", buckets=STAGE_BUCKETS,
+)
+DISPATCH_LOCK_WAIT_SECONDS = REGISTRY.histogram(
+    "hps_dispatch_lock_wait_seconds",
+    "Per lookup: waiting for the embedding cache's lock "
+    "(span hps.dispatch.lock_wait)", buckets=STAGE_BUCKETS,
+)
+DISPATCH_TRANSLATE_SECONDS = REGISTRY.histogram(
+    "hps_dispatch_translate_seconds",
+    "Per lookup: key -> slot translation and slot padding, under the cache "
+    "lock (span hps.dispatch.translate)", buckets=STAGE_BUCKETS,
+)
+DISPATCH_ASSEMBLE_SECONDS = REGISTRY.histogram(
+    "hps_dispatch_assemble_seconds",
+    "Per lookup: the kernel's arguments assembled (under the cache lock), "
+    "checked, packed and copied to the device (span hps.dispatch.assemble)",
+    buckets=STAGE_BUCKETS,
+)
+DISPATCH_LAUNCH_SECONDS = REGISTRY.histogram(
+    "hps_dispatch_launch_seconds",
+    "Per lookup: K1's launch and the output's slices and concatenation, "
+    "enqueued (span hps.dispatch.launch; with a tier miss merge, the merge "
+    "too)", buckets=STAGE_BUCKETS,
+)
+DISPATCH_COPY_BACK_SECONDS = REGISTRY.histogram(
+    "hps_dispatch_copy_back_seconds",
+    "Per merged batch: waiting for the device, then its flat output copied "
+    "to the host (span hps.dispatch.copy_back)", buckets=STAGE_BUCKETS,
+)
+K1_LAUNCHES_PER_BATCH = REGISTRY.histogram(
+    "hps_k1_launches_per_batch",
+    "Per merged batch: launches of K1 (gather_dequant_groups) in its "
+    "dispatch, from the batcher thread's launch tally (0 on the CPU)",
+    buckets=(1, 2, 4, 8, 16, 32, 64),
+)
 TIER_HIT = REGISTRY.counter(
     "hps_tier_hit", "Key lookups served by a storage tier (tier=dram|ssd)"
 )

@@ -46,7 +46,9 @@ from hugectr_backend_tpu_torch.serving import metrics
 from hugectr_backend_tpu_torch.serving.model_manager import ModelManager
 from hugectr_backend_tpu_torch.serving.pb_wire import NP_TO_DT, WIRE_DT
 from hugectr_backend_tpu_torch.serving.scheduler import RequestError
+from hugectr_backend_tpu_torch.utils import tracing
 from hugectr_backend_tpu_torch.utils.logging import get_logger
+from hugectr_backend_tpu_torch.utils.tracing import span
 
 log = get_logger("hps_tpu.http")
 
@@ -388,6 +390,23 @@ class _Handler(BaseHTTPRequestHandler):
         return self._json(200, header)
 
     def _infer(self, model_name: str):
+        # Spans (utils/tracing.py): the handler's read, its wait for the
+        # batcher's answer and its write, under one request id. The read is
+        # observed only for a served model: a name from outside never
+        # becomes a label.
+        read_hist = metrics.HTTP_READ_SECONDS if self.manager.is_loaded(model_name) else None
+        with span("hps.http.request", request=tracing.new_id()):
+            with span("hps.http.read", read_hist, model_name):
+                keys, numkeys, want_binary = self._read_infer()
+            with span("hps.http.wait"):
+                resp = self.manager.infer(model_name, keys, numkeys)
+            with span("hps.http.write", metrics.HTTP_WRITE_SECONDS, model_name):
+                self._write_infer(model_name, resp, want_binary)
+
+    def _read_infer(self):
+        """The infer request's body off the socket, its JSON header and its
+        KEYS / NUMKEYS views. -> (keys, numkeys, want_binary); raises
+        RequestError on a malformed request."""
         body = self._read_body()
         # KServe binary-tensor extension (what tritonclient/perf_analyzer use
         # in practice): JSON header of Inference-Header-Content-Length bytes,
@@ -398,18 +417,17 @@ class _Handler(BaseHTTPRequestHandler):
             try:
                 h = int(header_len)
             except ValueError:
-                return self._error(400, "bad Inference-Header-Content-Length")
+                raise RequestError("bad Inference-Header-Content-Length") from None
             body, raw_tail = body[:h], body[h:]
         try:
             req = json.loads(body)
         except json.JSONDecodeError as e:
-            return self._error(400, f"bad JSON: {e}")
+            raise RequestError(f"bad JSON: {e}") from None
         tensors = {t.get("name"): t for t in req.get("inputs", [])}
         if "KEYS" not in tensors or "NUMKEYS" not in tensors:
-            return self._error(
-                400,
+            raise RequestError(
                 "inputs KEYS (INT64) and NUMKEYS (INT32) are required "
-                "(reference model_state.cpp:180-261)",
+                "(reference model_state.cpp:180-261)"
             )
 
         def tensor_data(order, name, dtype):
@@ -464,16 +482,15 @@ class _Handler(BaseHTTPRequestHandler):
             keys = tensor_data(0, "KEYS", np.int64)
             numkeys = tensor_data(1, "NUMKEYS", np.int64)
         except (TypeError, ValueError, KeyError) as e:
-            return self._error(400, f"bad tensor data: {e}")
-        try:
-            resp = self.manager.infer(model_name, keys, numkeys)
-        except RequestError as e:
-            return self._error(400, str(e))
-
+            raise RequestError(f"bad tensor data: {e}") from None
         want_binary = any(
             o.get("parameters", {}).get("binary_data")
             for o in req.get("outputs", [])
         )
+        return keys, numkeys, want_binary
+
+    def _write_infer(self, model_name: str, resp, want_binary: bool):
+        """The answer's header and OUTPUT0 to the socket."""
         out_t = {
             "name": "OUTPUT0",
             "datatype": "FP32",
