@@ -13,8 +13,10 @@ lasts ``--seconds``; requests still open at its close are waited for, and
 count. With ``--trace 1`` a ``torch.profiler`` slice of the window's middle
 and the program's histograms over the window give the per-layer metrics
 instead of the end-to-end ones; what the host clock and the histograms give
-leaves out the slice, so that the profiler's cost is not read into them. Then the program's state is freed and every
-answer is judged against the plain reference (``deploy/<kind>.py judge``).
+leaves out the slice until the profiler has stopped, so that the profiler's
+cost is not read into them, and the slice's events are read once the window
+has closed. Then the program's state is freed and every answer is judged
+against the plain reference (``deploy/<kind>.py judge``).
 
 The last line of standard output is the result (JSON); the numbers compared
 for ``correct`` are also the last lines of standard error. Without a card,
@@ -27,7 +29,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
-import hashlib
 import json
 import math
 import os
@@ -40,7 +41,7 @@ import time
 
 import numpy as np
 
-from hpsbench import spec, stats, tables
+from hpsbench import loadgen, spec, stats, tables
 from hpsbench import trace as tracing
 from hpsbench.deploy import kind as deploy_kind
 from hpsbench.metrics import reader
@@ -128,6 +129,8 @@ class Results:
                       "kept_len", "kept_blob", "errors"):
                 setattr(self, k, z[k])
             self.t0 = float(z["t0"])
+            self.digest_wait_s = float(z["digest_wait_s"])
+            self.client_cores = float(z["cores"])
         # The warm-up's requests (due before the window) are set-up.
         window = np.flatnonzero(self.due >= self.t0)
         for k in ("entry", "due", "sent", "done", "status", "digest"):
@@ -194,14 +197,14 @@ class Context:
 
     @staticmethod
     def digest(arr: np.ndarray) -> bytes:
-        return hashlib.blake2b(memoryview(np.ascontiguousarray(arr, "<f4")).cast("B"),
-                               digest_size=16).digest()
+        return loadgen.digest(memoryview(np.ascontiguousarray(arr, "<f4")).cast("B"))
 
     @property
     def untraced(self):
-        """The profiled slice's (t0, t1), which host-clock readers leave
-        out, or None in an untraced run."""
-        return None if self.trace is None else (self.trace.t0, self.trace.t1)
+        """The profiled slice, from its start until the profiler had
+        stopped, which host-clock readers leave out, or None in an untraced
+        run."""
+        return None if self.trace is None else (self.trace.t0, self.trace.stopped)
 
     def answered_in(self, t0: float, t1: float) -> np.ndarray:
         r = self.results
@@ -376,12 +379,12 @@ class Session:
             cpu0 = process_cpu_s()
             before = _histograms(model)
             print(f"host at the window's open: {host_state()}", file=sys.stderr, flush=True)
-            sl, in_slice = None, {}
+            rec, in_slice = None, {}
             if trace:
                 span = min(PROFILE_S, seconds / 3)
                 time.sleep(max(t0 + (seconds - span) / 2 - time.monotonic(), 0))
                 at = _histograms(model)
-                sl = tracing.record(span)
+                rec = tracing.record(span)
                 in_slice = _delta(_histograms(model), at)
             if _readline(proc, max(t0 + seconds - time.monotonic(), 0) + LATE_S + 60) != "done":
                 raise Failure("the load generator did not finish")
@@ -396,6 +399,7 @@ class Session:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        sl = None if rec is None else tracing.read(rec)
         res = Results(plan["results"], attempted)
         last = float(res.done[res.ok].max()) if res.ok.any() else t0 + seconds
         window_s = max(last, t0 + seconds) - t0
@@ -494,6 +498,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
     print(f"window: {res.attempted} attempted, {res.failed} failed, {window_s:.4f} s; "
           f"e2e {json.dumps(e2e)}; the program's CPU {cpu_s:.3f} s "
           f"({cpu_s / window_s:.3f} cores); generator lateness {json.dumps(late)}; "
+          f"the load generator's CPU {res.client_cores:.3f} cores, its callers waited "
+          f"{res.digest_wait_s:.4f} s for its digests; "
           f"client errors {res.errors.tolist()[:5]}", file=sys.stderr, flush=True)
     out = {"correct": passes(checks), "attempted": int(res.attempted),
            "failed": int(res.failed)}
