@@ -24,10 +24,11 @@ def reading(cell, seed: int, seconds: float, device: str, control: bool) -> dict
     session = run.Session(cell.cfg, seed, device)
     try:
         session.warm(cell.mix)
-        requests, res, window_s, hist, _, _, _ = session.window(cell.mix, seconds)
+        w = session.window(cell.mix, seconds)
+        res = w.results
         session.close()
         ctx = run.Context(cell.cfg, cell.mix, cell.limits, session.layout, session.vectors,
-                          requests, res, device, window_s, hist, None, None)
+                          w.requests, res, device, w.window_s, w.hist, None, None)
         out = {"seed": seed, "answered": int(res.ok.sum()), "failed": res.failed,
                "program": {k: v for k, (v, _) in run.judge(ctx).items()}}
         if control:

@@ -8,14 +8,16 @@ process's start to the window's opening): the configuration's tables drawn
 from the seed on the card, written in the formats the
 program loads, the program's server started on them, every request size of
 the cell's traffic sent once before the window, and the load generator's
-process (``hpsbench.loadgen``) started with its connections open. The window
-lasts ``--seconds``; requests still open at its close are waited for, and
-count. With ``--trace 1`` a ``torch.profiler`` slice of the window's middle
-and the program's histograms over the window give the per-layer metrics
-instead of the end-to-end ones; what the host clock and the histograms give
-leaves out the slice until the profiler has stopped, so that the profiler's
-cost is not read into them, and the slice's events are read once the window
-has closed. Then the program's state is freed and every answer is judged
+process (``hpsbench.loadgen``) started with its connections open, beside the
+host-pace probe's (``hpsbench.pace``). The window lasts ``--seconds``;
+requests still open at its close are waited for, and count. The probe's pace
+over the window is the host's, and the window's rate scaled by it is
+``paced_samples_per_s``. With ``--trace 1`` a ``torch.profiler`` slice of the
+window's middle and the program's histograms over the window give the
+per-layer metrics instead of the end-to-end ones; what the host clock and the
+histograms give leaves out the slice until the profiler has stopped, so that
+the profiler's cost is not read into them, and the slice's events are read
+once the window has closed. Then the program's state is freed and every answer is judged
 against the plain reference (``deploy/<kind>.py judge``).
 
 The last line of standard output is the result (JSON); the numbers compared
@@ -41,7 +43,7 @@ import time
 
 import numpy as np
 
-from hpsbench import loadgen, spec, stats, tables
+from hpsbench import loadgen, pace, spec, stats, tables
 from hpsbench import trace as tracing
 from hpsbench.deploy import kind as deploy_kind
 from hpsbench.metrics import reader
@@ -188,6 +190,7 @@ class Context:
     hist: dict
     trace: object
     peaks: object
+    host_pace: object = None  # the probe's pace over the window, units/s
 
     def host_tables(self) -> list:
         if self.cfg["one_key_space"]:
@@ -254,6 +257,31 @@ def drop_tables(work: str) -> None:
                 os.remove(os.path.join(root, name))
 
 
+@dataclasses.dataclass
+class Window:
+    """What ``Session.window`` gives back. ``hist``: the program's histograms
+    over the window, less the profiled slice; ``cpu_s``: this process's CPU
+    seconds from the window's open until every answer was in; ``probe``: the
+    out-of-process pace probe's record (``hpsbench.pace``); ``host``: the
+    host's steal and iowait shares and this process's threads over the same
+    stretch (for the run's log)."""
+
+    requests: list
+    results: Results
+    window_s: float
+    hist: dict
+    slice: object
+    setup_s: object
+    cpu_s: float
+    probe: dict
+    host: dict
+
+
+def _start(module: str, *args) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-m", module, *args], cwd=str(spec.ROOT),
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+
 class Session:
     """A configuration deployed from one seed and served: ``window`` runs the
     load generator against it (as often as a caller likes, each with its
@@ -304,12 +332,10 @@ class Session:
                 if status != 200:
                     raise Failure(f"a warm-up request of {size} samples answered {status}")
 
-    def window(self, mix: dict, seconds: float, trace: bool = False, process_t0=None):
-        """One window of ``mix``. -> (requests, results, window_s, hist,
-        slice, setup_s, cpu_s); ``hist``: the program's histograms over the
-        window, less the profiled slice; ``cpu_s``: this process's CPU
-        seconds from the window's open until every answer was in (for the
-        run's log)."""
+    def window(self, mix: dict, seconds: float, trace: bool = False,
+               process_t0=None) -> Window:
+        """One window of ``mix``, with the pace probe's process running from
+        the load generator's start to its end."""
         gen = Generator(mix, self.layout, self.cfg["one_key_space"], self.seed)
         requests, sched, order = gen.requests(seconds)
         warm_s = float(mix.get("warm_s", 0.0))
@@ -357,13 +383,14 @@ class Session:
         with open(os.path.join(load, "plan.json"), "w") as f:
             json.dump(plan, f)
         del encoded
-        proc = subprocess.Popen([sys.executable, "-m", "hpsbench.loadgen",
-                                 os.path.join(load, "plan.json")],
-                                cwd=str(spec.ROOT), stdin=subprocess.PIPE,
-                                stdout=subprocess.PIPE, text=True)
+        proc = _start("hpsbench.loadgen", os.path.join(load, "plan.json"))
+        probe_out = os.path.join(load, "pace.json")
+        probe = _start("hpsbench.pace", probe_out)
         try:
             if _readline(proc, CLIENT_START_S) != "ready":
                 raise Failure("the load generator did not start")
+            if _readline(probe, CLIENT_START_S) != "ready":
+                raise Failure("the pace probe did not start")
             os.remove(plan["bodies"])
             model = self.kind.model_label(self.cfg)
             # The harness's own objects (the requests above all) out of the
@@ -377,6 +404,7 @@ class Session:
             proc.stdin.flush()
             time.sleep(max(t0 - time.monotonic(), 0))
             cpu0 = process_cpu_s()
+            stat0, threads0 = pace.cpu_times(), pace.threads()
             before = _histograms(model)
             print(f"host at the window's open: {host_state()}", file=sys.stderr, flush=True)
             rec, in_slice = None, {}
@@ -389,23 +417,34 @@ class Session:
             if _readline(proc, max(t0 + seconds - time.monotonic(), 0) + LATE_S + 60) != "done":
                 raise Failure("the load generator did not finish")
             cpu_s = process_cpu_s() - cpu0
+            closed = time.monotonic()
+            host = {**pace.cpu_shares(stat0, pace.cpu_times()),
+                    **pace.thread_deltas(threads0, pace.threads(), closed - t0)}
             after = _histograms(model)
             gc.unfreeze()
             print(f"host after the window: {host_state()}", file=sys.stderr, flush=True)
             proc.wait(timeout=60)
             if proc.returncode:
                 raise Failure(f"the load generator exited {proc.returncode}")
+            probe.stdin.write("stop\n")
+            probe.stdin.flush()
+            if _readline(probe, 60) != "done":
+                raise Failure("the pace probe did not finish")
+            probe.wait(timeout=60)
+            with open(probe_out) as f:
+                probe_rec = json.load(f)
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            for p in (proc, probe):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
         sl = None if rec is None else tracing.read(rec)
         res = Results(plan["results"], attempted)
         last = float(res.done[res.ok].max()) if res.ok.any() else t0 + seconds
         window_s = max(last, t0 + seconds) - t0
         hist = _delta(_delta(after, before), in_slice)
         shutil.rmtree(load, ignore_errors=True)
-        return requests, res, window_s, hist, sl, setup_s, cpu_s
+        return Window(requests, res, window_s, hist, sl, setup_s, cpu_s, probe_rec, host)
 
     def close(self) -> None:
         self.server.stop()
@@ -432,14 +471,31 @@ def resident_bytes(device: str) -> int:
     return int(torch.cuda.memory_allocated())
 
 
-def end_to_end(res: Results, window_s: float, samples: int, resident: int) -> dict:
+def end_to_end(res: Results, window_s: float, samples: int, resident: int,
+               host_pace=None) -> dict:
     """The device memory the deployment holds once loaded and warmed up
-    (``memory_resident_mb``), and the window's rate and latencies beside it
-    for the run's log."""
+    (``memory_resident_mb``); the window's rate, samples in correctly
+    answered requests over the window's seconds, scaled to the reference
+    host pace (``paced_samples_per_s``: ``samples_per_s`` x ``pace.P_REF`` /
+    the run's probe pace); and the rate and latencies as read, for the
+    run's log."""
     lat = res.latencies() * 1e3
-    return {"memory_resident_mb": resident / 1e6,
-            "samples_per_s": samples / window_s if window_s > 0 else 0.0,
+    rate = samples / window_s if window_s > 0 else 0.0
+    return {"memory_resident_mb": resident / 1e6, "samples_per_s": rate,
+            "paced_samples_per_s": pace.paced(rate, host_pace),
             "p50_ms": stats.percentile(lat, 50), "p95_ms": stats.percentile(lat, 95)}
+
+
+def pace_readings(w: Window, seconds: float) -> dict:
+    """The host's pace in this run: the probe's bursts inside the window, less
+    those that overlap the profiled slice until the profiler had stopped, and
+    the probe's cores over the window; beside them, for the log, the host's
+    steal and iowait shares and this process's threads over the window."""
+    t0, t1 = w.results.t0, w.results.t0 + seconds
+    skip = None if w.slice is None else (w.slice.t0, w.slice.stopped)
+    bursts = pace.bursts_in(w.probe["bursts"], t0, t1, skip)
+    return {"probe": {**pace.summary(bursts), "cores": pace.cores(w.probe["cpu"], t0, t1)},
+            "host": w.host}
 
 
 def judge(ctx: Context, control=None) -> dict:
@@ -469,8 +525,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
                   f"{torch.cuda.max_memory_allocated()} B at the peak", file=sys.stderr, flush=True)
         if trace:
             tracing.warm()
-        requests, res, window_s, hist, sl, setup_s, cpu_s = session.window(
-            cell.mix, seconds, trace, process_t0)
+        w = session.window(cell.mix, seconds, trace, process_t0)
+        res, window_s, sl = w.results, w.window_s, w.slice
         info = dict(device_info or {"platform": device, "kind": device, "count": 1})
         if device != "cpu":
             import torch
@@ -480,7 +536,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
             info["memory_peak_bytes"] = 0
         session.close()
         ctx = Context(cell.cfg, cell.mix, cell.limits, session.layout, session.vectors,
-                      requests, res, device, window_s, hist, sl,
+                      w.requests, res, device, window_s, w.hist, sl,
                       spec.peaks(info["kind"]))
         t_judge = time.monotonic()
         checks = judge(ctx)
@@ -493,8 +549,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
     print(f"latency by {TIMELINE_S:g} s of due time (answered, p50 / p95 ms): "
           f"{stats.timeline(res.due - res.t0, res.done - res.due, res.ok, TIMELINE_S)}",
           file=sys.stderr, flush=True)
-    e2e = end_to_end(res, window_s, ctx.answered_samples(), resident)
-    e2e["setup_s"] = setup_s if setup_s is not None else float("nan")
+    host = pace_readings(w, seconds)
+    ctx.host_pace = host["probe"].get("median")
+    e2e = end_to_end(res, window_s, ctx.answered_samples(), resident, ctx.host_pace)
+    e2e["setup_s"] = w.setup_s if w.setup_s is not None else float("nan")
+    print(f"host pace: {json.dumps(host)}", file=sys.stderr, flush=True)
+    cpu_s = w.cpu_s
     print(f"window: {res.attempted} attempted, {res.failed} failed, {window_s:.4f} s; "
           f"e2e {json.dumps(e2e)}; the program's CPU {cpu_s:.3f} s "
           f"({cpu_s / window_s:.3f} cores); generator lateness {json.dumps(late)}; "

@@ -76,7 +76,7 @@ def test_traced_run_reports_per_layer_metrics_it_can_read():
     # on the CPU the histograms are there, the device trace is not
     assert {"merged_batch.b64", "dispatch_ms.b64", "batcher_queue_ms.b64",
             "frontend_ms.b64", "p50_ms.b64", "p95_ms.b64",
-            "samples_per_s.b64"} <= set(out["metrics"])
+            "samples_per_s.b64", "host_pace.b64"} <= set(out["metrics"])
     assert out["metrics"]["samples_per_s.b64"]["value"] > 0
     assert "k1_roofline.b64" not in out["metrics"]
     assert out["device"]["window_s"] > 0
