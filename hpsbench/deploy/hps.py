@@ -10,6 +10,10 @@ import numpy as np
 
 from hpsbench.deploy import binary_request
 
+#: The control's precision: the reference's rows at int4 (the configuration's
+#: is int8).
+CONTROL = 4
+
 
 def ps_model(cfg: dict, name: str, sparse_files, dims, per_sample) -> dict:
     n = len(sparse_files)
@@ -34,7 +38,8 @@ def write_table(path: str, keys: np.ndarray, vectors: np.ndarray) -> None:
     np.ascontiguousarray(vectors, "<f4").tofile(os.path.join(path, "emb_vector"))
 
 
-def write(cfg, layout, vectors, work) -> str:
+def write(cfg, layout, vectors, work, seed) -> str:
+    """The tables and ps.json; an HPS model draws nothing more from ``seed``."""
     files, off = [], 0
     for t, rows in enumerate(layout.rows):
         path = os.path.join(work, f"t{t}")
@@ -42,8 +47,9 @@ def write(cfg, layout, vectors, work) -> str:
         files.append(path)
         off += rows
     n = len(files)
+    hot = cfg["keys_per_table_per_sample"]
     ps = {"models": [ps_model(cfg, cfg["model"], files, [cfg["embedding_dim"]] * n,
-                              [cfg["keys_per_table_per_sample"]] * n)]}
+                              hot if isinstance(hot, list) else [hot] * n)]}
     path = os.path.join(work, "ps.json")
     with open(path, "w") as f:
         json.dump(ps, f)
@@ -123,12 +129,14 @@ def judge(ctx, control=None) -> dict:
 
 def warm_sizes(cfg, mix) -> list:
     """Every power-of-two bucket a merged batch of this traffic can take:
-    from one request up to the merge cap (the batcher pads each table's run
-    to a power of two)."""
-    b, top = int(mix["samples_per_request"]), int(cfg["max_batch_size"])
+    from the smallest request up to the merge cap, the lesser of
+    ``max_batch_size`` and the largest request times the callers (the
+    batcher pads each table's run to a power of two)."""
+    b = mix["samples_per_request"]
+    lo, hi = (int(b), int(b)) if np.ndim(b) == 0 else (int(min(b)), int(max(b)))
     callers = int(mix.get("clients", mix.get("connections", 1)))
-    top = min(top, b * callers)
-    sizes, s = [b], 1 << max(b - 1, 0).bit_length()
+    top = min(int(cfg["max_batch_size"]), hi * callers)
+    sizes, s = [lo], 1 << max(lo - 1, 0).bit_length()
     while s < 2 * top:
         size = min(s, top)
         if size not in sizes:

@@ -17,9 +17,6 @@ import sys
 
 from hpsbench import run, spec
 
-CONTROL = {"hps": 4}
-
-
 def reading(cell, seed: int, seconds: float, device: str, control: bool) -> dict:
     session = run.Session(cell.cfg, seed, device)
     try:
@@ -28,12 +25,12 @@ def reading(cell, seed: int, seconds: float, device: str, control: bool) -> dict
         res = w.results
         session.close()
         ctx = run.Context(cell.cfg, cell.mix, cell.limits, session.layout, session.vectors,
-                          w.requests, res, device, w.window_s, w.hist, None, None)
+                          w.requests, res, device, w.window_s, w.hist, None, None, seed=seed)
         out = {"seed": seed, "answered": int(res.ok.sum()), "failed": res.failed,
                "program": {k: v for k, (v, _) in run.judge(ctx).items()}}
         if control:
             out["control"] = {k: v for k, (v, _) in
-                              run.judge(ctx, CONTROL[cell.cfg["kind"]]).items()}
+                              run.judge(ctx, run.deploy_kind(cell.cfg).CONTROL).items()}
         return out
     finally:
         if session.server is not None:

@@ -191,6 +191,7 @@ class Context:
     trace: object
     peaks: object
     host_pace: object = None  # the probe's pace over the window, units/s
+    seed: int = 0  # the run's seed, from which a judge draws a kind's weights again
 
     def host_tables(self) -> list:
         if self.cfg["one_key_space"]:
@@ -277,6 +278,40 @@ class Window:
     host: dict
 
 
+def warm_requests(cfg: dict, mix: dict, layout: tables.Layout, seed: int) -> list:
+    """One request of each size the traffic can make the program run
+    (``deploy/<kind>.py warm_sizes``), from stream 3 of the seed."""
+    gen = Generator.for_config(cfg, mix, layout, seed, stream=3)
+    return [gen.batch(1, size)[0] for size in deploy_kind(cfg).warm_sizes(cfg, mix)]
+
+
+def window_requests(cfg: dict, mix: dict, layout: tables.Layout, seed: int, seconds: float):
+    """-> (requests, sched, order, keep, n_warm): a window's requests (stream
+    2), after those of the open loop's warm traffic (stream 5, ``n_warm`` of
+    them, due before the window); the open loop's send offsets (the closed
+    loop's: none); the entry each send takes; and whether each request's
+    answer is kept whole (stream 4)."""
+    gen = Generator.for_config(cfg, mix, layout, seed)
+    requests, sched, order = gen.requests(seconds)
+    warm_s = float(mix.get("warm_s", 0.0))
+    n_warm = 0
+    if sched is not None and warm_s > 0:
+        warm_gen = Generator.for_config(cfg, mix, layout, seed, stream=5)
+        warm, warm_sched, warm_order = warm_gen.requests(warm_s)
+        n_warm = len(warm)
+        requests = warm + requests
+        sched = np.concatenate([warm_sched - warm_s, sched])
+        order = np.concatenate([warm_order, order + n_warm])
+    keep = np.zeros(len(requests), bool)
+    if mix.get("keep_bodies", "all") == "all":
+        keep[:] = True
+    else:
+        n_win = len(requests) - n_warm
+        keep[n_warm + tables.stream(seed, 4).choice(n_win, min(int(mix["keep_bodies"]), n_win),
+                                                    replace=False)] = True
+    return requests, sched, order, keep, n_warm
+
+
 def _start(module: str, *args) -> subprocess.Popen:
     return subprocess.Popen([sys.executable, "-m", module, *args], cwd=str(spec.ROOT),
                             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
@@ -296,7 +331,7 @@ class Session:
         self.layout = tables.Layout.make(cfg["rows_per_table"], seed)
         self.vectors = tables.make_rows(sum(self.layout.rows), cfg["embedding_dim"], seed,
                                         device)
-        source = self.kind.write(cfg, self.layout, self.vectors, self.work)
+        source = self.kind.write(cfg, self.layout, self.vectors, self.work, seed)
         if device != "cpu":
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -323,32 +358,23 @@ class Session:
     def warm(self, mix: dict) -> None:
         """Every request size the traffic can make the program run, sent
         ``WARM_REPEATS`` times."""
-        gen = Generator(mix, self.layout, self.cfg["one_key_space"], self.seed, stream=3)
-        for size in self.kind.warm_sizes(self.cfg, mix):
-            (req,) = gen.batch(1, size)
+        for req in warm_requests(self.cfg, mix, self.layout, self.seed):
             hdr, raw = self.kind.encode(self.cfg, req)
             for _ in range(WARM_REPEATS):
                 status = self.post(hdr + raw, len(hdr))
                 if status != 200:
-                    raise Failure(f"a warm-up request of {size} samples answered {status}")
+                    raise Failure(f"a warm-up request of {req.samples} samples answered "
+                                  f"{status}")
 
     def window(self, mix: dict, seconds: float, trace: bool = False,
                process_t0=None) -> Window:
         """One window of ``mix``, with the pace probe's process running from
         the load generator's start to its end."""
-        gen = Generator(mix, self.layout, self.cfg["one_key_space"], self.seed)
-        requests, sched, order = gen.requests(seconds)
+        requests, sched, order, keep, n_warm = window_requests(
+            self.cfg, mix, self.layout, self.seed, seconds)
         warm_s = float(mix.get("warm_s", 0.0))
-        attempted = 0 if sched is None else len(sched)
-        n_warm = 0
-        if sched is not None and warm_s > 0:
-            warm_gen = Generator(mix, self.layout, self.cfg["one_key_space"], self.seed,
-                                 stream=5)
-            warm, warm_sched, warm_order = warm_gen.requests(warm_s)
-            n_warm = len(warm)
-            requests = warm + requests
-            sched = np.concatenate([warm_sched - warm_s, sched])
-            order = np.concatenate([warm_order, order + n_warm])
+        # The warm traffic's sends are due before the window opens (offsets < 0).
+        attempted = 0 if sched is None else int(np.count_nonzero(sched >= 0))
         load = os.path.join(self.work, f"load-{time.monotonic_ns()}")
         os.makedirs(load)
         encoded = [self.kind.encode(self.cfg, r) for r in requests]
@@ -358,15 +384,6 @@ class Session:
                 f.write(raw)
         lens = np.asarray([len(h) + len(r) for h, r in encoded], np.int64)
         offsets = np.concatenate([[0], np.cumsum(lens)])
-        keep_rng = np.random.default_rng([tables.seed_streams(self.seed), 4])
-        keep = np.zeros(len(requests), bool)
-        every = mix.get("keep_bodies", "all") == "all"
-        if every:
-            keep[:] = True
-        else:
-            n_win = len(requests) - n_warm
-            keep[n_warm + keep_rng.choice(n_win, min(int(mix["keep_bodies"]), n_win),
-                                          replace=False)] = True
         if mix["loop"] == "open":
             connections = mix["connections"]
         else:
@@ -379,7 +396,8 @@ class Session:
                 "arrays": os.path.join(load, "arrays.npz"),
                 "results": os.path.join(load, "results.npz"), "port": self.port,
                 "path": self.path, "loop": mix["loop"], "connections": int(connections),
-                "seconds": float(seconds), "keep_every_answer": every, "warm_s": warm_s}
+                "seconds": float(seconds),
+                "keep_every_answer": mix.get("keep_bodies", "all") == "all", "warm_s": warm_s}
         with open(os.path.join(load, "plan.json"), "w") as f:
             json.dump(plan, f)
         del encoded
@@ -537,7 +555,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
         session.close()
         ctx = Context(cell.cfg, cell.mix, cell.limits, session.layout, session.vectors,
                       w.requests, res, device, window_s, w.hist, sl,
-                      spec.peaks(info["kind"]))
+                      spec.peaks(info["kind"]), seed=seed)
         t_judge = time.monotonic()
         checks = judge(ctx)
         print(f"judged in {time.monotonic() - t_judge:.3f} s", file=sys.stderr, flush=True)
