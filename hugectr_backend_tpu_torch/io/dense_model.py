@@ -28,6 +28,26 @@ An ensemble (serving/ensemble.py) serves this model behind a lookup; a model
 repository (io/model_repo.py) names its input and output tensors
 (``input_name`` / ``output_name``). A dense model of a foreign platform
 (``FOREIGN_DENSE_PLATFORMS``) is converted to this format, never executed.
+
+A second format, ``hps_tpu_dlrm_v1``, holds a DLRM (MLPerf's dense half:
+bottom MLP, dot interaction, top MLP) in the same two files. Only this
+package loads it. It is a format of its own, not a ``"model": "dlrm"`` key
+under ``hps_tpu_dense_v1``, so that the JAX package refuses it by name: such
+a key would pass its format check and fail on the missing ``layers``. Spec
+schema (``bottom`` and ``top`` are the MLPs' widths from input to output)::
+
+    {"format": "hps_tpu_dlrm_v1", "num_dense": 13, "num_tables": 26,
+     "dim": 128, "bottom": [13, 512, 256, 128],
+     "top": [479, 1024, 1024, 512, 256, 1], "interaction": "dot"}
+
+Weights ``bottom.<i>.w`` [in, out], ``bottom.<i>.b``, ``top.<i>.w``,
+``top.<i>.b``, loaded into :class:`~hugectr_backend_tpu_torch.models.dlrm.DLRM`
+at f32. ``bottom[-1]`` must be ``dim`` and ``top[0]`` ``dim + F(F-1)/2``
+(F = ``num_tables`` + 1), ``top[-1]`` 1; a ``quant`` key is refused. The
+model takes two named inputs, the dense features (FP32 ``[-1, num_dense]``)
+and the embeddings (FP32, flat, table-major as an HPS model's ``OUTPUT0``
+gives them: table 0's rows for every sample, then table 1's, ...), in that
+order in its ``config.pbtxt``, and gives the logits (FP32 ``[-1, 1]``).
 """
 
 from __future__ import annotations
@@ -35,7 +55,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,6 +69,8 @@ from hugectr_backend_tpu_torch.tiers.hbm import default_device
 SPEC_FILE = "dense_model.json"
 WEIGHTS_FILE = "dense_model.npz"
 QUANTS = (None, "int8", "fp8", "w8a8")
+DENSE_FORMAT = "hps_tpu_dense_v1"
+DLRM_FORMAT = "hps_tpu_dlrm_v1"
 
 #: Triton platforms the reference's ensembles use for the dense step; these
 #: require conversion to the native format (TF/torch/TRT are never executed).
@@ -120,6 +142,15 @@ class DenseModel:
     def device(self) -> torch.device:
         return self.weights[0][0].device
 
+    @property
+    def input_names(self) -> tuple:
+        return (self.input_name,)
+
+    def set_input_names(self, names: Sequence[str]) -> None:
+        """The input names of the model's ``config.pbtxt``: an MLP reads the
+        first (as the JAX package does)."""
+        self.input_name = str(names[0])
+
     def metadata(self, name: str) -> dict:
         """KServe-v2 model metadata, served as ``name``."""
         return {
@@ -168,6 +199,11 @@ class DenseModel:
         with torch.inference_mode():
             return self.apply(xt).cpu().numpy()
 
+    def forward_named(self, inputs: Mapping[str, np.ndarray]) -> np.ndarray:
+        """:meth:`forward` on the input of the model's name (KeyError
+        without it)."""
+        return self.forward(np.asarray(inputs[self.input_name], np.float32))
+
     # ------------------------------------------------------------ persistence
 
     @classmethod
@@ -177,20 +213,8 @@ class DenseModel:
         dev = default_device(device)
         vdir = Path(version_dir)
         spec_path = vdir / SPEC_FILE
-        if not spec_path.exists():
-            foreign = [
-                p.name
-                for p in vdir.iterdir()
-                if p.name in ("model.savedmodel", "model.pt", "model.plan",
-                              "model.onnx", "model.graphdef")
-            ] if vdir.is_dir() else []
-            hint = (
-                f" (found {', '.join(foreign)}: convert it with "
-                f"`python tools/convert_dense_model.py`)" if foreign else ""
-            )
-            raise ConfigError(f"dense model dir {vdir} has no {SPEC_FILE}{hint}")
-        spec = json.loads(spec_path.read_text())
-        if spec.get("format") != "hps_tpu_dense_v1":
+        spec = _read_spec(vdir)
+        if spec.get("format") != DENSE_FORMAT:
             raise ConfigError(f"{spec_path}: unsupported format {spec.get('format')!r}")
         quant = spec.get("quant")
         if quant not in QUANTS:
@@ -219,6 +243,203 @@ class DenseModel:
                    scales=scales if quant else None)
 
 
+def _read_spec(vdir: Path) -> dict:
+    """A model directory's ``dense_model.json``; a directory without one
+    raises, naming a foreign model file it holds."""
+    spec_path = vdir / SPEC_FILE
+    if not spec_path.exists():
+        foreign = [
+            p.name
+            for p in vdir.iterdir()
+            if p.name in ("model.savedmodel", "model.pt", "model.plan",
+                          "model.onnx", "model.graphdef")
+        ] if vdir.is_dir() else []
+        hint = (
+            f" (found {', '.join(foreign)}: convert it with "
+            f"`python tools/convert_dense_model.py`)" if foreign else ""
+        )
+        raise ConfigError(f"dense model dir {vdir} has no {SPEC_FILE}{hint}")
+    return json.loads(spec_path.read_text())
+
+
+def load_dense_model(version_dir, name: Optional[str] = None, device=None):
+    """A model directory of either format: a :class:`DlrmDenseModel` for
+    ``hps_tpu_dlrm_v1``, else a :class:`DenseModel`."""
+    spec = _read_spec(Path(version_dir))
+    cls = DlrmDenseModel if spec.get("format") == DLRM_FORMAT else DenseModel
+    return cls.load(version_dir, name, device=device)
+
+
+def _dlrm_widths(spec: dict, where) -> tuple:
+    """-> (num_dense, num_tables, dim, bottom, top) of an ``hps_tpu_dlrm_v1``
+    spec; raises ConfigError where they do not make a DLRM."""
+    if "quant" in spec:
+        raise ConfigError(f"{where}: {DLRM_FORMAT} takes no quant "
+                          f"(got {spec['quant']!r}); its layers are f32")
+    if spec.get("interaction", "dot") != "dot":
+        raise ConfigError(f"{where}: unsupported interaction {spec.get('interaction')!r} "
+                          f"(only \"dot\")")
+    try:
+        nd, nt, dim = (int(spec[k]) for k in ("num_dense", "num_tables", "dim"))
+        bottom, top = ([int(w) for w in spec[k]] for k in ("bottom", "top"))
+    except (KeyError, TypeError, ValueError) as e:
+        raise ConfigError(f"{where}: num_dense, num_tables, dim, bottom and top are "
+                          f"required ({e!r})") from None
+    if min(nd, nt, dim, *bottom, *top) <= 0 or len(bottom) < 2 or len(top) < 2:
+        raise ConfigError(f"{where}: sizes must be positive, bottom and top at least "
+                          f"one layer each")
+    feats = nt + 1
+    want = {"bottom[0]": (bottom[0], nd), "bottom[-1]": (bottom[-1], dim),
+            "top[0]": (top[0], dim + feats * (feats - 1) // 2), "top[-1]": (top[-1], 1)}
+    for what, (got, need) in want.items():
+        if got != need:
+            raise ConfigError(f"{where}: {what} is {got}, the DLRM needs {need} "
+                              f"(num_dense {nd}, num_tables {nt}, dim {dim})")
+    return nd, nt, dim, bottom, top
+
+
+@dataclasses.dataclass
+class DlrmDenseModel:
+    """A loaded ``hps_tpu_dlrm_v1`` model (module docstring): ``model`` a
+    :class:`~hugectr_backend_tpu_torch.models.dlrm.DLRM` at f32 on the
+    model's device. ``input_names``: the dense features', then the
+    embeddings'."""
+
+    name: str
+    spec: dict
+    model: torch.nn.Module
+    input_names: tuple = ("dense_features", "embeddings")
+    output_name: str = "logits"
+
+    @property
+    def num_dense(self) -> int:
+        return int(self.spec["num_dense"])
+
+    @property
+    def num_tables(self) -> int:
+        return int(self.spec["num_tables"])
+
+    @property
+    def dim(self) -> int:
+        return int(self.spec["dim"])
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def set_input_names(self, names: Sequence[str]) -> None:
+        if len(names) != 2:
+            raise ConfigError(f"dense model {self.name!r}: a DLRM takes two inputs (the "
+                              f"dense features, then the embeddings), config.pbtxt names "
+                              f"{list(names)}")
+        self.input_names = tuple(str(n) for n in names)
+
+    def metadata(self, name: str) -> dict:
+        """KServe-v2 model metadata, served as ``name``."""
+        return {
+            "name": name, "platform": "hps_tpu_dense",
+            "inputs": [{"name": self.input_names[0], "datatype": "FP32",
+                        "shape": [-1, self.num_dense]},
+                       {"name": self.input_names[1], "datatype": "FP32", "shape": [-1]}],
+            "outputs": [{"name": self.output_name, "datatype": "FP32", "shape": [-1, 1]}],
+        }
+
+    def config(self, name: str) -> dict:
+        """The model configuration, served as ``name``."""
+        return {
+            "name": name, "platform": "hps_tpu_dense",
+            "input": [{"name": self.input_names[0], "data_type": "TYPE_FP32",
+                       "dims": [-1, self.num_dense]},
+                      {"name": self.input_names[1], "data_type": "TYPE_FP32", "dims": [-1]}],
+            "output": [{"name": self.output_name, "data_type": "TYPE_FP32", "dims": [-1, 1]}],
+        }
+
+    def apply(self, dense: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        """dense [B, num_dense] and the flat table-major embeddings [T * B *
+        dim] on the model's device -> logits [B]: the rows viewed as [T, B,
+        dim] and handed to the model as [B, T, dim] (K4 reads that view in
+        place)."""
+        b = dense.shape[0]
+        return self.model(dense, emb.reshape(self.num_tables, b, self.dim).transpose(0, 1))
+
+    def forward_named(self, inputs: Mapping[str, np.ndarray]) -> np.ndarray:
+        """The logits [B, 1] of one request's named inputs; raises
+        RequestError on a missing input or sizes that do not agree."""
+        from hugectr_backend_tpu_torch.serving.scheduler import RequestError
+
+        for n in self.input_names:
+            if n not in inputs:
+                raise RequestError(f"dense model {self.name!r}: input {n!r} is required")
+        dense = np.asarray(inputs[self.input_names[0]], np.float32)
+        emb = np.asarray(inputs[self.input_names[1]], np.float32)
+        b = dense.size // self.num_dense
+        if b == 0 or dense.size % self.num_dense or emb.size != self.num_tables * b * self.dim:
+            raise RequestError(
+                f"dense model {self.name!r}: {dense.size} dense values and {emb.size} "
+                f"embedding values are not B x {self.num_dense} and {self.num_tables} x B x "
+                f"{self.dim}")
+        dev = self.device
+        dense_t = torch.from_numpy(np.require(dense.reshape(b, -1), np.float32,
+                                              ["C", "W"])).to(dev)
+        emb_t = torch.from_numpy(np.require(emb.reshape(-1), np.float32, ["C", "W"])).to(dev)
+        with torch.inference_mode():
+            return self.apply(dense_t, emb_t).cpu().numpy().reshape(b, 1)
+
+    @classmethod
+    def load(cls, version_dir, name: Optional[str] = None, device=None) -> "DlrmDenseModel":
+        """Read a model directory onto ``device`` (the card unless
+        ``device="cpu"``); a spec or weights that do not make a DLRM raise
+        ConfigError here."""
+        from hugectr_backend_tpu_torch.models.dlrm import DLRM
+
+        vdir = Path(version_dir)
+        spec = _read_spec(vdir)
+        where = vdir / SPEC_FILE
+        if spec.get("format") != DLRM_FORMAT:
+            raise ConfigError(f"{where}: unsupported format {spec.get('format')!r}")
+        nd, nt, _dim, bottom, top = _dlrm_widths(spec, where)
+        state = {}
+        with np.load(vdir / WEIGHTS_FILE) as z:
+            for mlp, widths in (("bottom", bottom), ("top", top)):
+                for i, (a, b) in enumerate(zip(widths, widths[1:])):
+                    w = np.asarray(z[f"{mlp}.{i}.w"], np.float32)
+                    bias = np.asarray(z[f"{mlp}.{i}.b"], np.float32)
+                    if w.shape != (a, b) or bias.shape != (b,):
+                        raise ConfigError(f"{where}: {mlp}.{i} weights {w.shape} / "
+                                          f"{bias.shape}, the spec needs ({a}, {b}) / ({b},)")
+                    state[f"{mlp}.layers.{i}.weight"] = torch.from_numpy(
+                        np.ascontiguousarray(w.T))
+                    state[f"{mlp}.layers.{i}.bias"] = torch.from_numpy(bias)
+        model = DLRM(nd, nt, bottom[1:], top[1:])
+        model.load_state_dict(state)
+        return cls(name or vdir.parent.name, spec, model.to(default_device(device)).eval())
+
+
+def save_dlrm_model(version_dir, num_tables: int, bottom: Sequence, top: Sequence) -> Path:
+    """Write ``hps_tpu_dlrm_v1``: ``bottom[i]`` and ``top[i]`` are (w [in, out],
+    b [out]) numpy arrays; ``num_dense`` and ``dim`` are the bottom's input
+    and output widths. Raises ValueError where they do not make a DLRM."""
+    vdir = Path(version_dir)
+    widths = {k: [int(np.shape(layers[0][0])[0])] + [int(np.shape(w)[1]) for w, _ in layers]
+              for k, layers in (("bottom", bottom), ("top", top))}
+    spec = {"format": DLRM_FORMAT, "num_dense": widths["bottom"][0],
+            "num_tables": int(num_tables), "dim": widths["bottom"][-1], **widths,
+            "interaction": "dot"}
+    try:
+        _dlrm_widths(spec, vdir)
+    except ConfigError as e:
+        raise ValueError(str(e)) from None
+    vdir.mkdir(parents=True, exist_ok=True)
+    arrays = {}
+    for k, layers in (("bottom", bottom), ("top", top)):
+        for i, (w, b) in enumerate(layers):
+            arrays[f"{k}.{i}.w"] = np.asarray(w, np.float32)
+            arrays[f"{k}.{i}.b"] = np.asarray(b, np.float32)
+    (vdir / SPEC_FILE).write_text(json.dumps(spec, indent=1))
+    np.savez(vdir / WEIGHTS_FILE, **arrays)
+    return vdir
+
+
 def save_dense_model(
     version_dir,
     weights: Sequence,
@@ -238,7 +459,7 @@ def save_dense_model(
     if quant not in QUANTS:
         raise ValueError(f"unsupported quant {quant!r}")
     spec = {
-        "format": "hps_tpu_dense_v1",
+        "format": DENSE_FORMAT,
         "layers": [
             {"units": int(np.shape(w)[1]), "activation": act}
             for (w, _), act in zip(weights, activations)

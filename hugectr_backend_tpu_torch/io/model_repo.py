@@ -457,7 +457,7 @@ class Repository:
 
     ps_config: ParameterServerConfig
     hps_versions: dict[str, int]
-    dense: dict          # name -> io.dense_model.DenseModel
+    dense: dict          # name -> io.dense_model.DenseModel or DlrmDenseModel
     ensembles: dict      # name -> serving.ensemble.EnsembleSpec
 
 
@@ -490,7 +490,7 @@ def load_repository(repo_dir, ps_source=None, device=None) -> Repository:
     with no card), ``"cpu"`` on the CPU; pass the same to
     ``ModelManager.create``.
     """
-    from hugectr_backend_tpu_torch.io.dense_model import DenseModel
+    from hugectr_backend_tpu_torch.io.dense_model import load_dense_model
     from hugectr_backend_tpu_torch.serving.ensemble import EnsembleSpec
 
     repo = Path(repo_dir)
@@ -539,12 +539,13 @@ def load_repository(repo_dir, ps_source=None, device=None) -> Repository:
             _resolve_sparse_files(params, rm.version_dir())
             versions[name] = rm.latest_version
         elif kind == "dense":
-            dm = DenseModel.load(rm.version_dir(), name,
-                                 device=_dense_device(name, ensembles, ps_cfg, device))
+            dm = load_dense_model(rm.version_dir(), name,
+                                  device=_dense_device(name, ensembles, ps_cfg, device))
             ins = _as_list(rm.config.get("input"))
             outs = _as_list(rm.config.get("output"))
-            if ins and ins[0].get("name"):
-                dm.input_name = str(ins[0]["name"])
+            names = [str(t["name"]) for t in ins if t.get("name")]
+            if names:
+                dm.set_input_names(names)
             if outs and outs[0].get("name"):
                 dm.output_name = str(outs[0]["name"])
             dense[name] = dm

@@ -31,6 +31,24 @@ staged, since that is semantics. A ``shard_tables`` HPS model runs the same
 chain over its ``ShardedEmbeddingCache.lookup_flat`` (parallel/: one K1
 launch per device over every shard), the dense model on the mesh's output
 device.
+
+A DLRM dense model (``io/dense_model.py``, ``hps_tpu_dlrm_v1``) takes two
+inputs, the dense features (an ensemble input) and the HPS model's
+``OUTPUT0``, mapped by its input names. Staged, ``OUTPUT0`` reaches it
+table-major and is read as [B, T, D] (K4). Fused (a multi-table HPS model,
+one key a table a sample, one dim, the same cache rule), the request runs on
+the multi-table DLRM server (``serving/program.py``
+``make_dlrm_multi_server``) over the live cache: one K1 launch gathers the
+tables outside the one-hot group, the interaction kernel (K3) builds the
+one-hot group's rows itself, the MLPs run on the card, and only the logits
+come back. The batch is padded to the same bucket grid.
+
+Spans (``utils/tracing.py``, histograms on the ensemble's ``model`` label):
+``hps.ensemble.fused`` over a fused request's device program, and inside it
+a DLRM chain's ``.translate``, ``.assemble``, ``.launch`` (the server's
+stages) and every fused chain's ``.copy_back``. Each answered request
+observes ``hps_ensemble_fused_per_request``, 1 fused and 0 staged; the
+``hps_ensemble_fused_folded_table`` gauge names the tables K3 folds.
 """
 
 from __future__ import annotations
@@ -44,9 +62,12 @@ import torch
 
 from hugectr_backend_tpu_torch.cache.embedding_cache import _bucket
 from hugectr_backend_tpu_torch.config.params import ConfigError
-from hugectr_backend_tpu_torch.io.dense_model import DenseModel
+from hugectr_backend_tpu_torch.io.dense_model import DenseModel, DlrmDenseModel
+from hugectr_backend_tpu_torch.serving import metrics
+from hugectr_backend_tpu_torch.serving.program import make_dlrm_multi_server
 from hugectr_backend_tpu_torch.serving.scheduler import RequestError
 from hugectr_backend_tpu_torch.utils.logging import get_logger
+from hugectr_backend_tpu_torch.utils.tracing import span
 
 log = get_logger("hps_tpu.ensemble")
 
@@ -172,6 +193,28 @@ class _FusedChain:
     dense: EnsembleStep
 
 
+@dataclasses.dataclass
+class _FusedDlrm:
+    """What the fused DLRM chain needs: fixed when it is built, but for the
+    multi-table server, rebuilt over the live cache when a reload has
+    replaced the one it was built over (``cache``)."""
+
+    device_id: int
+    max_batch_size: int
+    sparse: EnsembleStep
+    dense: EnsembleStep
+    dense_input: str  # the ensemble tensor of the dense features
+    cache: object = None
+    server: object = None
+
+
+_DLRM_STAGES = {
+    "translate": metrics.ENSEMBLE_FUSED_TRANSLATE_SECONDS,
+    "assemble": metrics.ENSEMBLE_FUSED_ASSEMBLE_SECONDS,
+    "launch": metrics.ENSEMBLE_FUSED_LAUNCH_SECONDS,
+}
+
+
 class EnsembleServer:
     """Executes one ensemble against the live ModelManager + dense models.
 
@@ -179,7 +222,8 @@ class EnsembleServer:
     the shared cache/batcher objects, which are themselves safe.
     """
 
-    def __init__(self, spec: EnsembleSpec, manager, dense_models: Mapping[str, DenseModel]):
+    def __init__(self, spec: EnsembleSpec, manager,
+                 dense_models: Mapping[str, DenseModel | DlrmDenseModel]):
         self.spec = spec
         self.manager = manager
         self.dense = dict(dense_models)
@@ -250,6 +294,8 @@ class EnsembleServer:
         dm = self.dense.get(dense_step.model_name)
         if dm is None:
             return None
+        if isinstance(dm, DlrmDenseModel):
+            return self._build_fused_dlrm(sparse, dense_step, dm)
         # The sparse output must be the dense step's only input.
         link = set(sparse.output_map.values())
         if set(dense_step.input_map.values()) != link or len(link) != 1:
@@ -279,7 +325,92 @@ class EnsembleServer:
             params.instance_devices[0], bool(params.shard_tables), k, (k * d) // rs[1],
             params.max_batch_size, sparse, dense_step)
 
+    def _build_fused_dlrm(self, sparse: EnsembleStep, dense_step: EnsembleStep,
+                          dm: DlrmDenseModel) -> Optional[_FusedDlrm]:
+        """-> the fused DLRM chain, or None where its semantics would differ
+        from the staged path's: the HPS output must be the model's embedding
+        input and an ensemble input its dense features; the cache full and
+        static, one key a table a sample, every table at the model's dim, no
+        bf16 products (``use_mixed_precision``), no sharded tables."""
+        ins = dense_step.input_map
+        dense_name, emb_name = dm.input_names
+        declared = {i["name"] for i in self.spec.inputs}
+        if (set(ins) != set(dm.input_names) or ins[emb_name] != sparse.output_map.get("OUTPUT0")
+                or ins[dense_name] not in declared):
+            return None
+        params = self.manager.ps.get_model_params(sparse.model_name)
+        cache_type = getattr(params.embedding_cache_type, "value", params.embedding_cache_type)
+        if (str(cache_type) != "static" or params.cache_size_percentage < 1.0
+                or params.shard_tables or params.use_mixed_precision
+                or params.num_tables != dm.num_tables
+                or any(d != dm.dim for d in params.embedding_vecsize_per_table)
+                or any(k != 1 for k in params.maxnum_catfeature_query_per_table_per_sample)):
+            return None
+        log.info("ensemble %s: fused %s -> DLRM %s (one K1 launch, the one-hot group "
+                 "folded into the interaction, the MLPs on the device, the logits copied "
+                 "back)", self.spec.name, sparse.model_name, dense_step.model_name)
+        return _FusedDlrm(params.instance_devices[0], params.max_batch_size, sparse,
+                          dense_step, ins[dense_name])
+
+    def _dlrm_server(self, fd: _FusedDlrm, cache, dm: DlrmDenseModel):
+        """The multi-table DLRM server over ``cache``, the live one: built
+        at first use and again whenever a reload has replaced the cache,
+        each time setting the folded-table gauge from its plan."""
+        if fd.cache is not cache:
+            with self._lock:
+                if fd.cache is not cache:
+                    params = self.manager.ps.get_model_params(fd.sparse.model_name)
+                    server = make_dlrm_multi_server(params, cache, dm.model)
+                    folded = server.folded_tables(_bucket(1))
+                    t, name = dm.num_tables, self.spec.name
+                    for tbl in range(t):
+                        metrics.ENSEMBLE_FUSED_FOLDED.set(float(tbl in folded), model=name,
+                                                          table=str(tbl))
+                    log.info("ensemble %s: K3 folds tables %s, K1 gathers the other %d",
+                             name, list(folded), t - len(folded))
+                    fd.server, fd.cache = server, cache
+        return fd.server
+
+    def _run_fused_dlrm(self, tensors: dict[str, np.ndarray]) -> Optional[dict]:
+        fd = self._fused
+        try:
+            cache = self.manager.ps.get_embedding_cache(fd.sparse.model_name, fd.device_id)
+        except KeyError:
+            return None  # not loaded: the staged path raises the real error
+        keys_name = fd.sparse.input_map.get("KEYS")
+        num_name = fd.sparse.input_map.get("NUMKEYS")
+        if keys_name not in tensors or num_name not in tensors:
+            return None
+        dm = self.dense[fd.dense.model_name]
+        keys = np.asarray(tensors[keys_name], dtype=np.int64).reshape(-1)
+        numkeys = np.asarray(tensors[num_name], dtype=np.int64).reshape(-1)
+        dense = np.asarray(tensors[fd.dense_input], dtype=np.float32)
+        t = dm.num_tables
+        if (numkeys.size != t or (numkeys != numkeys[0]).any()
+                or keys.size != int(numkeys.sum()) or dense.size != int(numkeys[0]) * dm.num_dense):
+            return None  # ragged or malformed: the staged path handles it
+        b = int(numkeys[0])
+        if b == 0:
+            raise RequestError(f"ensemble {self.spec.name}: empty request")
+        if b > fd.max_batch_size:
+            raise RequestError(
+                f"ensemble {self.spec.name}: {b} samples exceed max batch size "
+                f"{fd.max_batch_size} (reference hps.cc:573-582)"
+            )
+        server = self._dlrm_server(fd, cache, dm)
+        name = self.spec.name
+        with span("hps.ensemble.fused", metrics.ENSEMBLE_FUSED_SECONDS, name):
+            logits = server.predict(
+                keys.reshape(t, b), dense.reshape(b, dm.num_dense), pad_to=_bucket(b),
+                stage=lambda st: span(f"hps.ensemble.fused.{st}", _DLRM_STAGES[st], name))
+            with span("hps.ensemble.fused.copy_back", metrics.ENSEMBLE_FUSED_COPY_BACK_SECONDS,
+                      name):
+                out = logits[:b].cpu().numpy().reshape(b, 1)
+        return {next(iter(fd.dense.output_map.values())): out}
+
     def _run_fused(self, tensors: dict[str, np.ndarray]) -> Optional[dict]:
+        if isinstance(self._fused, _FusedDlrm):
+            return self._run_fused_dlrm(tensors)
         fc = self._fused
         # Fetch the LIVE cache every call: unload destroys it and a reload
         # creates a new object — a cache captured at build time would keep
@@ -309,10 +440,14 @@ class EnsembleServer:
         # One K1 launch (per device of a sharded model's mesh) over b_pad * k
         # slots; the hit meter counts the b * k real keys, the pad rows are
         # default rows.
-        flat = cache.lookup_flat([keys], pad_counts=[_bucket(b) * k])
-        with torch.inference_mode():
-            y = dm.apply(flat.to(dm.device))
-        out = y[: b * fc.rows_per_sample].cpu().numpy()
+        name = self.spec.name
+        with span("hps.ensemble.fused", metrics.ENSEMBLE_FUSED_SECONDS, name):
+            flat = cache.lookup_flat([keys], pad_counts=[_bucket(b) * k])
+            with torch.inference_mode():
+                y = dm.apply(flat.to(dm.device))
+            with span("hps.ensemble.fused.copy_back", metrics.ENSEMBLE_FUSED_COPY_BACK_SECONDS,
+                      name):
+                out = y[: b * fc.rows_per_sample].cpu().numpy()
         out_name = next(iter(fc.dense.output_map.values()))
         return {out_name: out}
 
@@ -339,9 +474,12 @@ class EnsembleServer:
             result = self._run_fused(tensors)
             if result is not None:
                 tensors.update(result)
+                metrics.ENSEMBLE_FUSED_PER_REQUEST.observe(1.0, model=self.spec.name)
                 return self._collect_outputs(tensors)
 
-        return self.infer_staged(tensors)
+        out = self.infer_staged(tensors)
+        metrics.ENSEMBLE_FUSED_PER_REQUEST.observe(0.0, model=self.spec.name)
+        return out
 
     def infer_staged(self, tensors: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         """Step-by-step execution (always valid; used for ragged requests and
@@ -370,13 +508,23 @@ class EnsembleServer:
                 tensors[out_name] = np.asarray(resp.output, np.float32)
             elif step.model_name in self.dense:
                 dm = self.dense[step.model_name]
-                if len(step.input_map) != 1:
+                if len(dm.input_names) > 1:
+                    # Several inputs (a DLRM), mapped by the model's names.
+                    if set(step.input_map) != set(dm.input_names):
+                        raise RequestError(
+                            f"ensemble {self.spec.name}: dense step {step.model_name!r} "
+                            f"maps {sorted(step.input_map)}, the model takes "
+                            f"{list(dm.input_names)}"
+                        )
+                    y = dm.forward_named({m: tensors[e] for m, e in step.input_map.items()})
+                elif len(step.input_map) != 1:
                     raise RequestError(
                         f"ensemble {self.spec.name}: dense step "
                         f"{step.model_name!r} takes exactly one input"
                     )
-                (src,) = step.input_map.values()
-                y = dm.forward(np.asarray(tensors[src], np.float32))
+                else:
+                    (src,) = step.input_map.values()
+                    y = dm.forward(np.asarray(tensors[src], np.float32))
                 (dst,) = step.output_map.values()
                 tensors[dst] = y
             else:

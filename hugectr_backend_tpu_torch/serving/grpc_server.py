@@ -215,10 +215,10 @@ class KServeGrpcService:
                 params = {}
             elif name in self.dense_models:
                 dm = self.dense_models[name]
-                if dm.input_name not in inputs:
-                    raise RequestError(f"input {dm.input_name!r} is required")
-                outputs = {dm.output_name: dm.forward(
-                    np.asarray(inputs[dm.input_name], np.float32))}
+                missing = [n for n in dm.input_names if n not in inputs]
+                if missing:
+                    raise RequestError(f"input {missing[0]!r} is required")
+                outputs = {dm.output_name: dm.forward_named(inputs)}
                 params = {}
             else:
                 if not self.manager.is_loaded(name):

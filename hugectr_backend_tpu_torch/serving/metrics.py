@@ -269,6 +269,48 @@ DISPATCH_COPY_BACK_SECONDS = REGISTRY.histogram(
     "Per merged batch: waiting for the device, then its flat output copied "
     "to the host (span hps.dispatch.copy_back)", buckets=STAGE_BUCKETS,
 )
+# The fused ensemble's device program of one request (serving/ensemble.py),
+# on the ensemble's ``model`` label: the whole (span hps.ensemble.fused) and
+# its stages (.translate, .assemble, .launch, .copy_back).
+ENSEMBLE_FUSED_SECONDS = REGISTRY.histogram(
+    "hps_ensemble_fused_seconds",
+    "Per fused ensemble request: its device program, keys in to outputs on "
+    "the host (span hps.ensemble.fused)", buckets=STAGE_BUCKETS,
+)
+ENSEMBLE_FUSED_TRANSLATE_SECONDS = REGISTRY.histogram(
+    "hps_ensemble_fused_translate_seconds",
+    "Per fused DLRM ensemble request: waiting for the cache's lock, then keys "
+    "to slots and the bucket's pad slots, under it "
+    "(span hps.ensemble.fused.translate)", buckets=STAGE_BUCKETS,
+)
+ENSEMBLE_FUSED_ASSEMBLE_SECONDS = REGISTRY.histogram(
+    "hps_ensemble_fused_assemble_seconds",
+    "Per fused DLRM ensemble request: the lookup's arguments assembled under "
+    "the cache lock, then they and the dense features copied to the device "
+    "(span hps.ensemble.fused.assemble)", buckets=STAGE_BUCKETS,
+)
+ENSEMBLE_FUSED_LAUNCH_SECONDS = REGISTRY.histogram(
+    "hps_ensemble_fused_launch_seconds",
+    "Per fused DLRM ensemble request: K1, the bottom MLP, the interaction and "
+    "the top MLP enqueued, no sync (span hps.ensemble.fused.launch)",
+    buckets=STAGE_BUCKETS,
+)
+ENSEMBLE_FUSED_COPY_BACK_SECONDS = REGISTRY.histogram(
+    "hps_ensemble_fused_copy_back_seconds",
+    "Per fused ensemble request: waiting for the device, then the outputs "
+    "copied to the host (span hps.ensemble.fused.copy_back)", buckets=STAGE_BUCKETS,
+)
+ENSEMBLE_FUSED_PER_REQUEST = REGISTRY.histogram(
+    "hps_ensemble_fused_per_request",
+    "Per answered ensemble request: 1 where the fused path served it, 0 where "
+    "the staged path did (the mean is the fused share)", buckets=(0.0, 1.0),
+)
+ENSEMBLE_FUSED_FOLDED = REGISTRY.gauge(
+    "hps_ensemble_fused_folded_table",
+    "Per table of a fused DLRM ensemble (labels model, table): 1 where the "
+    "interaction kernel (K3) builds its rows from the one-hot group, 0 where "
+    "K1 gathers them; set when the fused server is built over the live cache",
+)
 K1_LAUNCHES_PER_BATCH = REGISTRY.histogram(
     "hps_k1_launches_per_batch",
     "Per merged batch: launches of K1 (gather_dequant_groups) in its "

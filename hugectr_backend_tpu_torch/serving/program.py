@@ -30,7 +30,9 @@ gives the dense products bf16 operands with f32 sums.
 
 from __future__ import annotations
 
+import contextlib
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -133,11 +135,8 @@ class FusedMultiTableServer:
                 gouts[g][start : start + cnt].reshape(batch, k, d)
                 for (g, start, cnt, k, d) in slices
             ])
-        chunk_plan = (
-            self._chunk_plan(slices, {g: sb[g][1] - sb[g][0] for g in {s[0] for s in slices}})
-            if all(k == 1 and d == slices[0][4] for (_, _, _, k, d) in slices)
-            else None
-        )
+        chunk_plan, fold = self._fold_plan(
+            meta, slices, {g: sb[g][1] - sb[g][0] for g in {s[0] for s in slices}})
         order = None
         if chunk_plan is None:
             gouts = gather(meta)
@@ -148,7 +147,6 @@ class FusedMultiTableServer:
             return self.assemble_fn(dense, embs, order)
         d = slices[0][4]
         group_shape, fmap = chunk_plan
-        fold = self._fold_oh_plan(meta, group_shape, fmap)
         if fold is not None:
             pi, members, ord_l, fmap_rest, rest_parts = fold
             g_oh = group_shape[pi][0]
@@ -172,6 +170,45 @@ class FusedMultiTableServer:
                 order = tuple(o)
             embs = EmbParts(parts, fmap, batch)
         return self.assemble_fn(dense, embs, order)
+
+    def _fold_plan(self, meta, slices, group_rows):
+        """-> (:meth:`_chunk_plan`, :meth:`_fold_oh_plan`) of a batch, each
+        None where it does not apply."""
+        if not all(k == 1 and d == slices[0][4] for (_, _, _, k, d) in slices):
+            return None, None
+        chunk_plan = self._chunk_plan(slices, group_rows)
+        if chunk_plan is None:
+            return None, None
+        return chunk_plan, self._fold_oh_plan(meta, *chunk_plan)
+
+    def folded_tables(self, batch: int) -> tuple:
+        """The tables whose rows the interaction kernel (K3) builds from the
+        one-hot group in a batch of ``batch`` samples (every power-of-two
+        batch over one cache shares them); K1 gathers the others. Host-side
+        planning only: nothing runs on the device."""
+        if not self.chunked:
+            return ()
+        cache = self.cache
+        counts = [batch * k for k in self.keys_per_sample]
+        local_slots = [np.full(n, t.index.miss_slot, np.int64)
+                       for n, t in zip(counts, cache.tables)]
+        with cache._lock:
+            _v, _s, slots, _c, meta, table_pos = cache.prepare_lookup(counts, local_slots)
+        slices = self._slices(table_pos, counts)
+        chunk_plan, fold = self._fold_plan(meta, slices,
+                                           {g: len(s) for g, s in enumerate(slots)})
+        if fold is None:
+            return ()
+        g_oh = chunk_plan[0][fold[0]][0]
+        return tuple(t for t, sl in enumerate(slices) if sl[0] == g_oh)
+
+    def _slices(self, table_pos, counts) -> tuple:
+        """-> per table (group, start, count, keys a sample, dim)."""
+        return tuple(
+            (table_pos[t][0], table_pos[t][1], counts[t], self.keys_per_sample[t],
+             self.cache.tables[t].dim)
+            for t in range(len(self.cache.tables))
+        )
 
     @staticmethod
     def _fold_oh_plan(meta, group_shape, fmap):
@@ -231,31 +268,59 @@ class FusedMultiTableServer:
         fmap = tuple((gpos[g], start // strides[g]) for (g, start, _c, _k, _d) in slices)
         return group_shape, fmap
 
-    def predict(self, keys_per_table, dense) -> torch.Tensor:
+    def predict(self, keys_per_table, dense, pad_to: Optional[int] = None,
+                stage=None) -> torch.Tensor:
         """keys_per_table[t]: [B, K_t] (or flat B*K_t); dense [B, Nd].
-        -> logits on the cache's device."""
+        -> logits on the cache's device, one a sample (``pad_to`` of them).
+
+        ``pad_to`` (at least B): the batch padded to that many samples, with
+        default-row slots (as :meth:`EmbeddingCache.lookup_flat`'s
+        ``pad_counts``) and zero dense rows. ``stage(name)``: a context
+        manager around each stage in turn, "translate" (the wait for the
+        cache's lock, then keys to slots under it), "assemble" (the lookup
+        program's arguments under the lock, then their and the dense
+        features' uploads) and "launch" (the lookup and the model
+        enqueued); none by default."""
+        stage = stage or contextlib.nullcontext
         dense = np.asarray(dense, dtype=np.float32)
         b = dense.shape[0]
+        rows = b if pad_to is None else int(pad_to)
+        if rows < b:
+            raise ValueError(f"pad_to {rows} is less than the batch, {b}")
         cache = self.cache
         counts, local_slots = [], []
-        with cache._lock:
-            for t, keys in enumerate(keys_per_table):
-                keys = np.asarray(keys, dtype=np.int64).reshape(b * self.keys_per_sample[t])
-                local_slots.append(cache.translate(t, keys))
-                counts.append(keys.shape[0])
-            vals, dscales, slots, scin, meta, table_pos = cache.prepare_lookup(
-                counts, local_slots)
-        slices = tuple(
-            (table_pos[t][0], table_pos[t][1], counts[t], self.keys_per_sample[t],
-             cache.tables[t].dim)
-            for t in range(len(cache.tables))
-        )
-        slots_cat, sb, scin_cat, cb = lookup_program.upload_host_args(
-            vals, slots, scin, cache.device)
-        dense_d = torch.from_numpy(dense).to(cache.device)
-        with torch.inference_mode():
-            return self._forward(vals, dscales, slots_cat, sb, scin_cat, cb, dense_d, b, meta,
-                                 slices)
+        locked = False
+        try:
+            with stage("translate"):
+                cache._lock.acquire()
+                locked = True
+                for t, keys in enumerate(keys_per_table):
+                    k = self.keys_per_sample[t]
+                    slots = cache.translate(t, np.asarray(keys, dtype=np.int64).reshape(b * k))
+                    if rows > b:
+                        slots = np.concatenate([slots, np.full(
+                            (rows - b) * k, cache.tables[t].index.miss_slot, slots.dtype)])
+                    local_slots.append(slots)
+                    counts.append(rows * k)
+            with stage("assemble"):
+                vals, dscales, slots, scin, meta, table_pos = cache.prepare_lookup(
+                    counts, local_slots)
+                cache._lock.release()
+                locked = False
+                slices = self._slices(table_pos, counts)
+                slots_cat, sb, scin_cat, cb = lookup_program.upload_host_args(
+                    vals, slots, scin, cache.device)
+                if rows > b:
+                    dense = np.concatenate([dense, np.zeros((rows - b, dense.shape[1]),
+                                                            np.float32)])
+                dense_d = torch.from_numpy(np.require(dense, np.float32, ["C", "W"])).to(
+                    cache.device)
+        finally:
+            if locked:
+                cache._lock.release()
+        with stage("launch"), torch.inference_mode():
+            return self._forward(vals, dscales, slots_cat, sb, scin_cat, cb, dense_d, rows,
+                                 meta, slices)
 
 
 def _permute_columns(w: torch.Tensor, src: torch.Tensor, pad16: bool = False) -> torch.Tensor:

@@ -56,7 +56,7 @@ log = get_logger("hps_tpu.http")
 class _Handler(BaseHTTPRequestHandler):
     manager: ModelManager = None  # set by HpsHttpServer
     ensembles: dict = {}          # name -> serving.ensemble.EnsembleServer
-    dense_models: dict = {}       # name -> io.dense_model.DenseModel
+    dense_models: dict = {}       # name -> io.dense_model.DenseModel / DlrmDenseModel
     protocol_version = "HTTP/1.1"
     # TCP_NODELAY on every connection: a response goes out in two or three
     # writes (status + headers, then the body; the binary extension's JSON
@@ -223,13 +223,7 @@ class _Handler(BaseHTTPRequestHandler):
                 if name in self.dense_models:
                     dm = self.dense_models[name]
                     return self._infer_named(
-                        name,
-                        lambda ins: {
-                            dm.output_name: dm.forward(
-                                np.asarray(ins[dm.input_name], np.float32)
-                            )
-                        },
-                    )
+                        name, lambda ins: {dm.output_name: dm.forward_named(ins)})
                 return self._infer(name)
             if parts == ["v2", "repository", "index"]:
                 index = self.manager.loaded_models()
